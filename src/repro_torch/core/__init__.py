@@ -1,0 +1,13 @@
+"""The simulator core in PyTorch (``repro.core`` ported, static path).
+
+  state.py         entity model (Datacenter/Host/VM/Cloudlet/Market)
+  convert.py       leaf-by-leaf state conversion to and from other packages
+  energy.py        host power models + exact event-timeline energy (J)
+  metrics.py       the inert metrics plane a state carries
+  segments.py      grouped-segment primitives (ranks/cumsums/mins per run)
+  scheduling.py    two-level space/time-shared shares (Fig. 3 2x2)
+  provisioning.py  VMProvisioner + admission (first/best/worst-fit, ...)
+  engine.py        discrete-event engine, static scenarios
+  broker.py        DatacenterBroker builders + result collection
+  market.py        §3.3 cost model: quotes and bills
+"""

@@ -1,0 +1,102 @@
+"""Build the port's CUDA kernels from the sources in the checkout.
+
+Each kernel is one ``.cu`` file with a plain C entry point.  ``nvcc``
+compiles it for Hopper (``sm_90a``) into a shared library of its own,
+which ``ctypes`` loads: seconds per file, where an extension that
+includes PyTorch's headers takes minutes.  Libraries go to
+``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``), named by a digest of source and flags, so an edited
+source is rebuilt and an unchanged one is reused.  Nothing is built at
+import; the first launch on a CUDA tensor builds what it needs, and
+``build`` builds several kernels at once, one ``nvcc`` each, all started
+together.
+
+No ``--use_fast_math``: the kernels' divisions must round to nearest to
+match the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
+           "build_logs"]
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
+SOURCES = {
+    "simstep": _PKG / "simstep" / "csrc" / "simstep.cu",
+}
+NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}     # nvcc output (ptxas register report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict[str, float]:
+    """Compile every named kernel (default: all) that is not built yet.
+
+    Returns the wall seconds of each compile that ran.  Raises with the
+    compiler's output when one fails.
+    """
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for n in todo:
+            tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), tmp)
+        seconds = {}
+        for n, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            seconds[n] = time.perf_counter() - t0
+            build_logs[n] = log
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {SOURCES[n]}:\n{log}")
+            os.replace(tmp, _target(n))
+        return seconds
+    finally:
+        for proc, tmp in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name``, built on first use."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(_target(name)))
+    return _loaded[name]

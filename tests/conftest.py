@@ -21,6 +21,10 @@ def pytest_configure(config):
         "markers",
         "subprocess: re-launches the python interpreter with forced "
         "XLA_FLAGS device counts; deselect with -m 'not subprocess'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's hand-written "
+        "kernels); skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -18,10 +18,23 @@ script exits non-zero:
      cloudlets, both task policies, the same closed-form checks per wave
      and per host, with wall time, events/s and device bytes.
 
-Phases 3 and 4 are the main path: every kernel's launch count is set to
-0 just before phase 3 and read just after phase 4.  The next-to-last
-line is the kernels' JSON record, the last the device's.  Without a CUDA
-device, or outside a checkout, the script fails before printing either.
+  5. the LM serving slice, with TF32 off for matrix products and
+     convolutions (so f32 comparisons hold f32 precision): the
+     flash-attention and selective-scan kernels against their plain
+     versions on edge cases and timed at the main path's shapes; small
+     models (smoke configs, f32) on the card against the CPU, prefill and
+     greedy serving; full-depth bf16 prefill of qwen3-0.6b (4 x 2048) and
+     falcon-mamba-7b (2 x 2048) through the kernels, then serving 16
+     requests on 8 slots with each; prefill against token-by-token
+     decode at full width in f32, depth cut to 4 layers.
+
+Phases 3 and 4 are the simulator's main path: simstep's launch count is
+set to 0 just before phase 3 and read just after phase 4.  The full-depth
+prefills are the LM slice's main path: the flash-attention and
+selective-scan counts are set to 0 just before each and read just after.
+The next-to-last line is the kernels' JSON record, the last the
+device's.  Without a CUDA device, or outside a checkout, the script
+fails before printing either.
 """
 import json
 import statistics
@@ -32,6 +45,14 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32, outside tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+# SFU (MUFU) exponentials: 16 per SM per clock on sm_90 (CUDA programming
+# guide, arithmetic instruction throughput), 132 SMs at 1.98 GHz boost
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:66
+SCAN_TOL = 2e-4                                     # tests/test_kernels.py:103
+LM_CELLS = (("qwen3-0.6b", 4), ("falcon-mamba-7b", 2))   # (arch, batch)
+PREFILL_LEN = 2048
 RTOL = ATOL = 1e-6              # tests/test_simstep_parity.py's tolerance
 
 # JAX engine's §5 answers (BENCH_policies.json fig8_fig9 resp_by_wave)
@@ -52,14 +73,14 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, reps=200):
+def device_ms(fn, reps=200, warmup=3):
     """Device milliseconds per call of ``fn``: ``reps`` calls captured in
     one CUDA graph and replayed, so host overhead is left out."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -389,6 +410,340 @@ def phase_profile(device, card):
                           f"x{e.count}" for e in top) + f" ({card})")
 
 
+def tree_bytes(tree):
+    """Bytes of every tensor in a nested dict/tuple."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def flash_inputs(gen, b, s, h, kh, hd, dtype, device, skv=None):
+    import torch
+    skv = s if skv is None else skv
+    q = torch.randn((b, s, h, hd), generator=gen, device=device)
+    k = torch.randn((b, skv, kh, hd), generator=gen, device=device)
+    v = torch.randn((b, skv, kh, hd), generator=gen, device=device)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def scan_inputs(gen, b, s, di, n, device, zero_d=False, dt_scale=1.0):
+    import torch
+    import torch.nn.functional as F
+    r = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    dt = F.softplus(r(b, s, di)) * dt_scale
+    a = -torch.exp(r(di, n))
+    d = torch.zeros(di, device=device) if zero_d else torch.ones(
+        di, device=device)
+    return dt, r(b, s, di), r(b, s, n), r(b, s, n), a, d
+
+
+def phase_lm_kernels(device):
+    """Phase 5a: flash attention and the selective scan against their
+    plain versions on edge cases, then timed at the main path's shapes.
+    Returns their records (without the main path's launch counts)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.selective_scan import (selective_scan_cuda,
+                                                    selective_scan_ref)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    # (B, Sq, H, KH, hd, window, Skv): ragged 96, GQA 4:1 and 2:1, window
+    # 48, hd 16 (smoke configs), 32, 64, 80 and 128, Sq < Skv
+    cases = [(2, 96, 2, 2, 64, None, None), (2, 256, 8, 2, 64, None, None),
+             (2, 128, 4, 2, 128, 48, None), (1, 96, 8, 2, 32, None, None),
+             (1, 200, 4, 2, 80, 48, None), (2, 160, 4, 4, 16, None, None),
+             (1, 130, 4, 1, 128, None, None), (1, 64, 2, 2, 64, None, 128),
+             (2, 100, 4, 2, 80, None, None), (1, 300, 2, 1, 32, 7, None)]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = FLASH_TOL[name]
+        for b, s, h, kh, hd, window, skv in cases:
+            q, k, v = flash_inputs(gen, b, s, h, kh, hd, dtype, device, skv)
+            got = flash_attention(q, k, v, causal=True, window=window)
+            want = attention_ref(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+            worst[name] = max(worst[name],
+                              float((got.float() - want.float()).abs().max()))
+    print(f"[lm-kernels] flash_attention vs plain version: {len(cases)} "
+          f"shapes x (f32, bf16), tol {FLASH_TOL}: max_abs_err {worst}")
+
+    b, s, h, kh, hd = 4, PREFILL_LEN, 16, 8, 128          # qwen3-0.6b
+    q, k, v = flash_inputs(gen, b, s, h, kh, hd, torch.bfloat16, device)
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL["bfloat16"],
+                               rtol=FLASH_TOL["bfloat16"])
+    main_err = float((got.float() - want.float()).abs().max())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    lib_err = float((lib.float() - want.float()).abs().max())
+    ms = device_ms(lambda: flash_attention(q, k, v, causal=True), reps=20)
+    plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=True),
+                         reps=3, warmup=1)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+    flops = 4 * b * h * s * s * hd / 2
+    moved = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms = max(flops / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+    bound_by = ("operations" if flops / BF16_OPS_PER_S
+                >= moved / HBM_BYTES_PER_S else "bytes")
+    print(f"[lm-kernels] flash_attention [{b},{s},{h}/{kh},{hd}] bf16 "
+          f"causal: kernel {ms!r} ms (device, graph replay), plain version "
+          f"{plain_ms!r} ms, SDPA (yardstick) {library_ms!r} ms, bound "
+          f"{bound_ms!r} ms ({flops:.4g} FLOP at bf16 peak, {bound_by}); "
+          f"max_abs_err vs plain {main_err!r} (SDPA vs plain {lib_err!r})")
+    flash = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/flash.py:71",
+             "max_abs_err": max(max(worst.values()), main_err), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
+
+    # (B, S, di, N, zero D, dt scale): S not a multiple of the 64-step
+    # chunk, di not a multiple of the 128-thread block, N 4/8/16, zero D,
+    # tiny dt
+    scases = [(2, 100, 96, 4, False, 1.0), (1, 257, 256, 8, False, 1.0),
+              (2, 64, 128, 16, False, 1.0), (2, 130, 200, 16, True, 1.0),
+              (1, 75, 64, 8, False, 1e-6), (3, 1, 32, 4, False, 1.0)]
+    sworst = 0.0
+    for bb, ss, di, n, zero_d, dt_scale in scases:
+        args = scan_inputs(gen, bb, ss, di, n, device, zero_d, dt_scale)
+        got = selective_scan_cuda(*args)
+        want = selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=SCAN_TOL, rtol=SCAN_TOL)
+        sworst = max(sworst, float((got - want).abs().max()))
+    bb, ss, di, n = 2, PREFILL_LEN, 8192, 16                # falcon-mamba-7b
+    args = scan_inputs(gen, bb, ss, di, n, device)
+    got = selective_scan_cuda(*args)
+    want = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=SCAN_TOL, rtol=SCAN_TOL)
+    sworst = max(sworst, float((got - want).abs().max()))
+    print(f"[lm-kernels] selective_scan vs plain version: {len(scases) + 1} "
+          f"shapes, tol {SCAN_TOL}: max_abs_err {sworst!r}")
+    ms = device_ms(lambda: selective_scan_cuda(*args), reps=20)
+    plain_ms = device_ms(lambda: selective_scan_ref(*args), reps=1,
+                         warmup=1)
+    moved = 4 * (3 * bb * ss * di + 2 * bb * ss * n + di * n + di)
+    exps = bb * ss * di * n
+    bound_ms = max(moved / HBM_BYTES_PER_S, exps / SFU_OPS_PER_S) * 1e3
+    bound_by = ("bytes" if moved / HBM_BYTES_PER_S
+                >= exps / SFU_OPS_PER_S else "operations")
+    print(f"[lm-kernels] selective_scan [{bb},{ss},{di}] N={n}: kernel "
+          f"{ms!r} ms (device, graph replay), plain version {plain_ms!r} ms,"
+          f" bound {bound_ms!r} ms ({moved} bytes at 3.35 TB/s; {exps} exps"
+          f" at {SFU_OPS_PER_S:.4g}/s SFU; {bound_by}), library call: none")
+    scan = {"name": "selective_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/selective_scan/csrc/"
+                      "selective_scan.cu",
+            "replaces": "src/repro/kernels/selective_scan/scan.py:50",
+            "max_abs_err": sworst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return [flash, scan]
+
+
+def phase_lm_agreement(device):
+    """Phase 5b: smoke configs in f32, the same weights on the card and on
+    the CPU: prefill logits and KV stacks within 1e-4, and a greedy serve
+    run of 4 requests over 2 slots with the same tokens and slot state."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+
+    for arch in ("qwen3-0.6b", "h2o-danube-1.8b", "falcon-mamba-7b"):
+        cfg = CFG.get_smoke_config(arch)
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(1),
+                            device="cpu")
+        gpu = tree_to(cpu, device)
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (2, 40)))
+        (lc, kvc), (lg, kvg) = (M.prefill(p, cfg, toks.to(p["embed"].device))
+                                for p in (cpu, gpu))
+        err = float((lg.cpu() - lc).abs().max())
+        kv_err = max([float((g.cpu() - c).abs().max())
+                      for pg, pc in zip(kvg, kvc) for g, c in zip(pg, pc)],
+                     default=0.0)
+        check(err <= 1e-4 and kv_err <= 1e-4,
+              f"{arch} smoke prefill: logits err {err}, kv err {kv_err}")
+        runs = [serve(cfg, p, requests=4, slots=2, max_new=8, prompt_len=8)
+                for p in (cpu, gpu)]
+        sc, sg = (r.state for r in runs)
+        for field in ("generated", "n_generated", "active", "position"):
+            check(torch.equal(getattr(sg, field).cpu(), getattr(sc, field)),
+                  f"{arch} smoke serve: {field} differs card vs CPU")
+        check(runs[0].steps == runs[1].steps, f"{arch} smoke serve steps")
+        print(f"[lm-small] {arch} smoke (f32): card == CPU, prefill logits "
+              f"err {err!r}, kv err {kv_err!r}; greedy serve of 4 requests "
+              f"on 2 slots: tokens, n_generated, active, position equal "
+              f"({runs[1].steps} steps)")
+
+
+def profile_top(fn, label, card):
+    """Device busy share of ``fn`` under the profiler, and its top device
+    ops.  Kernels and copies only: the CPU ops that launched them carry
+    the same device time again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    if not events:
+        print(f"[profile] {label}: the profiler showed no device time: "
+              f"not measured")
+        return
+    busy = sum(dev_us(e) for e in events) / 1e6
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    print(f"[profile] {label}: wall {wall!r} s under the profiler, device "
+          f"busy {busy!r} s ({busy / wall:.4f} of wall), "
+          f"{sum(e.count for e in events)} device ops; top: "
+          + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                      for e in top) + f" ({card})")
+
+
+def phase_lm_main(device, card, launched):
+    """Phase 5c: each model at full width and depth in bf16: prefill of
+    ``batch`` x 2048 tokens through the kernels (counts set to 0 just
+    before and read just after, added to ``launched``), then serving 16
+    requests on 8 slots (prompt 32, max-new 32, greedy)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+
+    for arch, batch in LM_CELLS:
+        cfg = CFG.get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=device).manual_seed(0)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, gen, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.randint(2, cfg.vocab_size, (batch, PREFILL_LEN),
+                               generator=gen, device=device)
+        M.prefill(params, cfg, tokens)                # warm, not counted
+        torch.cuda.synchronize()
+        flash_attention.launches = selective_scan.launches = 0
+        t0 = time.perf_counter()
+        logits, kvs = M.prefill(params, cfg, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"flash_attention": flash_attention.launches,
+                  "selective_scan": selective_scan.launches}
+        want = {"flash_attention": cfg.num_layers if cfg.has_attention
+                else 0,
+                "selective_scan": cfg.num_layers if cfg.has_mamba else 0}
+        check(counts == want, f"{arch} prefill launches {counts}, expected "
+              f"{want}")
+        for name, n in counts.items():
+            launched[name] += n
+        check(tuple(logits.shape) == (batch, 1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch} prefill logits {tuple(logits.shape)} not finite")
+        print(f"[lm-prefill] {arch} bf16, {cfg.num_layers} layers, "
+              f"{batch} x {PREFILL_LEN} tokens: wall {wall!r} s, "
+              f"{batch * PREFILL_LEN / wall!r} prompt tokens/s; launches "
+              f"{counts}; params {tree_bytes(params)} bytes, KV "
+              f"{tree_bytes(kvs)} bytes on the device, peak allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes; init "
+              f"{init_s!r} s ({card})")
+        del logits, kvs
+        profile_top(lambda: M.prefill(params, cfg, tokens),
+                    f"{arch} prefill {batch} x {PREFILL_LEN}", card)
+
+        torch.cuda.reset_peak_memory_stats()
+        report = serve(cfg, params, requests=16, slots=8, max_new=32,
+                       prompt_len=32)
+        lat = sorted(report.latencies)
+        check(report.completed == 16, f"{arch} serve: {report.completed}/16")
+        print(f"[lm-serve] {arch} bf16: 16 requests on 8 slots (prompt 32, "
+              f"max-new 32, greedy) done in {report.steps} engine steps, "
+              f"{report.seconds!r} s: {report.tok_per_s!r} tok/s, latency "
+              f"mean {sum(lat) / len(lat)!r} s p99 "
+              f"{float(np.percentile(lat, 99))!r} s, peak "
+              f"allocated {torch.cuda.max_memory_allocated()} bytes "
+              f"({card})")
+
+        cache = M.init_cache(cfg, 8, 128, device=device)
+        tok = torch.randint(2, cfg.vocab_size, (8, 1), generator=gen,
+                            device=device)
+        pos = torch.full((8,), 40, dtype=torch.int32, device=device)
+
+        def decode8():
+            for _ in range(8):
+                M.decode_step(params, cfg, tok, cache, pos)
+        decode8()
+        profile_top(decode8, f"{arch} 8 decode steps, 8 slots", card)
+        del params, cache
+
+
+def phase_lm_prefill_vs_decode(device):
+    """Phase 5d: at full width in f32, depth cut to 4 layers: the last
+    token's logits of prefill over 64 tokens equal those of feeding the
+    same tokens one by one through decode_step (top-1 equal, max|diff| /
+    max|logit| <= 1e-3): tests/test_models.py's invariant on the card."""
+    import dataclasses
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.models import model as M
+
+    for arch, _ in LM_CELLS:
+        cfg = dataclasses.replace(CFG.get_config(arch), num_layers=4,
+                                  dtype="float32")
+        gen = torch.Generator(device=device).manual_seed(3)
+        params = M.init_params(cfg, gen, device=device)
+        toks = torch.randint(2, cfg.vocab_size, (2, 64), generator=gen,
+                             device=device)
+        full, _ = M.prefill(params, cfg, toks)
+        cache = M.init_cache(cfg, 2, 64, device=device)
+        for t in range(64):
+            pos = torch.full((2,), t, dtype=torch.int32, device=device)
+            step, cache = M.decode_step(params, cfg, toks[:, t:t + 1], cache,
+                                        pos)
+        rel = float((full - step).abs().max() / full.abs().max())
+        top1 = bool(torch.equal(full.argmax(-1), step.argmax(-1)))
+        check(top1 and rel <= 1e-3, f"{arch} prefill vs decode: top-1 "
+              f"equal {top1}, rel diff {rel}")
+        print(f"[lm-decode] {arch} f32 full width, 4 of "
+              f"{CFG.get_config(arch).num_layers} layers (cut), 64 tokens: "
+              f"prefill == decode, top-1 equal, max|diff|/max|logit| "
+              f"{rel!r}")
+        del params, cache
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -408,10 +763,9 @@ def main():
     built = _build.build()
     print(f"[header] kernels built in {time.perf_counter() - t0!r} s: "
           f"{built}")
-    for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[header] {name}: {line.strip()}")
+    for name in _build.SOURCES:
+        for line in _build.ptxas_report(name):
+            print(f"[header] {name}: {line}")
 
     record = phase_kernels(device)
     phase_agreement(device)
@@ -423,7 +777,20 @@ def main():
     check(record["launches"] > 0, "simstep never launched on the main path")
     phase_profile(device, card)
 
-    print(json.dumps({"kernels": [record]}))
+    # the LM slice compares f32 results: no TF32 in products or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lm_records = phase_lm_kernels(device)
+    phase_lm_agreement(device)
+    launched = {r["name"]: 0 for r in lm_records}
+    phase_lm_main(device, card, launched)
+    for r in lm_records:
+        r["launches"] = launched[r["name"]]
+        check(r["launches"] > 0, f"{r['name']} never launched on the main "
+              f"path")
+    phase_lm_prefill_vs_decode(device)
+
+    print(json.dumps({"kernels": [record, *lm_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,12 +25,15 @@ import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
-           "build_logs"]
+           "build_logs", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 SOURCES = {
     "simstep": _PKG / "simstep" / "csrc" / "simstep.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" /
+    "flash_attention.cu",
+    "selective_scan": _PKG / "selective_scan" / "csrc" / "selective_scan.cu",
 }
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
@@ -100,3 +103,22 @@ def library(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(_target(name)))
     return _loaded[name]
+
+
+def ptxas_report(name: str) -> list[str]:
+    """One line per compiled kernel function of ``name``'s last build:
+    its (mangled) name, registers, shared memory and spills, from the
+    ``-Xptxas=-v`` output in ``build_logs``.  Empty if nothing was built
+    in this process."""
+    lines, func, spill = [], None, ""
+    for raw in build_logs.get(name, "").splitlines():
+        line = raw.strip()
+        if "Compiling entry function" in line:
+            func = line.split("'")[1] if "'" in line else line
+        elif "spill stores" in line:
+            spill = line
+        elif line.startswith("ptxas info") and "Used" in line and func:
+            used = line.split(":", 1)[1].strip()
+            lines.append(f"{func}: {used}; {spill}")
+            func, spill = None, ""
+    return lines

@@ -1,0 +1,2 @@
+from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    HEAD_DIMS, attention, attention_ref, flash_attention)

@@ -107,3 +107,127 @@ def test_engine_on_card_matches_cpu(cuda, policy):
                      (gpu.hosts.energy_j, cpu.hosts.energy_j)):
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
                                        atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving slice: flash attention and the selective scan
+# ---------------------------------------------------------------------------
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
+
+
+def _flash_inputs(seed, b, sq, skv, h, kh, hd, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, sq, h, hd), (b, skv, kh, hd),
+                          (b, skv, kh, hd))]
+
+
+@pytest.mark.parametrize("sq,skv,h,kh,hd,window", [
+    (96, 96, 2, 2, 64, None),          # ragged
+    (256, 256, 8, 2, 64, None),        # GQA 4:1
+    (128, 128, 4, 2, 128, 48),         # GQA 2:1, window 48
+    (200, 200, 4, 2, 80, 48),          # hd 80 (h2o-danube)
+    (96, 96, 8, 2, 32, None),          # hd 32
+    (40, 40, 8, 2, 16, 8),             # hd 16 (smoke configs)
+    (64, 128, 2, 2, 64, None),         # Sq < Skv
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, sq, skv, h, kh, hd,
+                                            window, dtype):
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    q, k, v = _flash_inputs(sq + hd, 2, sq, skv, h, kh, hd, dtype, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_wrapper_rejects_bad_inputs(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v = _flash_inputs(0, 1, 32, 32, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous())             # hd 48
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :16].contiguous(), v[:, :16].contiguous())
+
+
+def _scan_inputs(seed, b, s, di, n, device, zero_d=False, dt_scale=1.0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    dt = torch.nn.functional.softplus(r(b, s, di)) * dt_scale
+    d = torch.zeros(di, device=device) if zero_d else torch.ones(
+        di, device=device)
+    return [dt, r(b, s, di), r(b, s, n), r(b, s, n), -torch.exp(r(di, n)), d]
+
+
+@pytest.mark.parametrize("b,s,di,n,zero_d,dt_scale", [
+    (2, 100, 96, 4, False, 1.0),       # S, di off the chunk and block
+    (1, 257, 256, 8, False, 1.0),
+    (2, 64, 128, 16, False, 1.0),
+    (2, 130, 200, 16, True, 1.0),      # zero D
+    (1, 75, 64, 8, False, 1e-6),       # tiny dt
+])
+def test_scan_kernel_matches_plain_version(cuda, b, s, di, n, zero_d,
+                                           dt_scale):
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_ref)
+    args = _scan_inputs(s, b, s, di, n, cuda, zero_d, dt_scale)
+    before = selective_scan.launches
+    got = selective_scan(*args)
+    want = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_scan_wrapper_rejects_bad_inputs(cuda):
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    args = _scan_inputs(0, 1, 16, 32, 4, cuda)
+    with pytest.raises(TypeError):
+        selective_scan_cuda(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):                     # N = 5
+        selective_scan_cuda(*args[:2], args[2].repeat(1, 1, 2)[..., :5],
+                            args[3].repeat(1, 1, 2)[..., :5],
+                            args[4].repeat(1, 2)[:, :5], args[5])
+    with pytest.raises(ValueError):
+        selective_scan_cuda(args[0].transpose(1, 2).contiguous()
+                            .transpose(1, 2), *args[1:])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-1.8b",
+                                  "falcon-mamba-7b"])
+def test_smoke_model_on_card_matches_cpu(cuda, arch):
+    from repro_torch import configs as CFG
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    cfg = CFG.get_smoke_config(arch)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    to = lambda t: ({k: to(v) for k, v in t.items()}
+                    if isinstance(t, dict) else t.to(cuda))
+    gpu = to(cpu)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40)))
+    lc, kvc = M.prefill(cpu, cfg, toks)
+    lg, kvg = M.prefill(gpu, cfg, toks.to(cuda))
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    for pg, pc in zip(kvg, kvc):
+        for g, c in zip(pg, pc):
+            torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
+    sc = serve(cfg, cpu, requests=4, slots=2, max_new=8).state
+    sg = serve(cfg, gpu, requests=4, slots=2, max_new=8).state
+    for field in ("generated", "n_generated", "active", "position"):
+        assert torch.equal(getattr(sg, field).cpu(), getattr(sc, field))

@@ -7,7 +7,10 @@ Phases, each printing its own lines; any failed check raises and the
 script exits non-zero:
 
   1. header: the card (nvidia-smi name and power limit), torch and CUDA
-     versions, and the build of every kernel from the checkout's sources;
+     versions, and the build of every kernel from the checkout's sources,
+     with ptxas's registers and spills for every instantiation (the
+     tensor-core flash kernel must not spill, nor have its wgmma
+     serialized);
   2. each kernel against its plain PyTorch version on the card, on edge
      tiles and at the main path's shapes, and timed there; then a small
      random scenario runs on the card and on the CPU (the plain kernel)
@@ -21,7 +24,8 @@ script exits non-zero:
   5. the LM serving slice, with TF32 off for matrix products and
      convolutions (so f32 comparisons hold f32 precision): the
      flash-attention and selective-scan kernels against their plain
-     versions on edge cases and timed at the main path's shapes; small
+     versions on edge cases and timed at the main path's shapes (flash in
+     bf16 on its tensor-core design and in f32 on its FMA design); small
      models (smoke configs, f32) on the card against the CPU, prefill and
      greedy serving; full-depth bf16 prefill of qwen3-0.6b (4 x 2048) and
      falcon-mamba-7b (2 x 2048) through the kernels, then serving 16
@@ -31,7 +35,8 @@ script exits non-zero:
 Phases 3 and 4 are the simulator's main path: simstep's launch count is
 set to 0 just before phase 3 and read just after phase 4.  The full-depth
 prefills are the LM slice's main path: the flash-attention and
-selective-scan counts are set to 0 just before each and read just after.
+selective-scan counts are set to 0 just before each and read just after,
+and every flash launch of the bf16 prefill must be the tensor-core one.
 The next-to-last line is the kernels' JSON record, the last the
 device's.  Without a CUDA device, or outside a checkout, the script
 fails before printing either.
@@ -52,6 +57,8 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:66
 SCAN_TOL = 2e-4                                     # tests/test_kernels.py:103
 LM_CELLS = (("qwen3-0.6b", 4), ("falcon-mamba-7b", 2))   # (arch, batch)
+# the scan kernel's design: N/4 lanes a channel, dt/x/B/C staged by cp.async
+SCAN_DESIGN = "lane-split-cp.async"
 PREFILL_LEN = 2048
 RTOL = ATOL = 1e-6              # tests/test_simstep_parity.py's tolerance
 
@@ -451,7 +458,7 @@ def phase_lm_kernels(device):
     Returns their records (without the main path's launch counts)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (attention_ref,
+    from repro_torch.kernels.flash_attention import (attention_ref, design,
                                                      flash_attention)
     from repro_torch.kernels.selective_scan import (selective_scan_cuda,
                                                     selective_scan_ref)
@@ -503,25 +510,42 @@ def phase_lm_kernels(device):
     bound_ms = max(flops / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
     bound_by = ("operations" if flops / BF16_OPS_PER_S
                 >= moved / HBM_BYTES_PER_S else "bytes")
+    f32 = [t.float() for t in (q, k, v)]
+    got = flash_attention(*f32, causal=True)
+    want = attention_ref(*f32, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=FLASH_TOL["float32"],
+                               rtol=FLASH_TOL["float32"])
+    f32_err = float((got - want).abs().max())
+    del got, want
+    f32_ms = device_ms(lambda: flash_attention(*f32, causal=True), reps=5)
+    kind = design(torch.bfloat16, hd)
+    print(f"[lm-kernels] flash_attention [{b},{s},{h}/{kh},{hd}] f32 causal "
+          f"on the {design(torch.float32, hd)} design: kernel {f32_ms!r} ms "
+          f"(device, graph replay), max_abs_err vs plain {f32_err!r}")
     print(f"[lm-kernels] flash_attention [{b},{s},{h}/{kh},{hd}] bf16 "
-          f"causal: kernel {ms!r} ms (device, graph replay), plain version "
+          f"causal on the {kind} design: kernel {ms!r} ms (device, graph "
+          f"replay), plain version "
           f"{plain_ms!r} ms, SDPA (yardstick) {library_ms!r} ms, bound "
           f"{bound_ms!r} ms ({flops:.4g} FLOP at bf16 peak, {bound_by}); "
           f"max_abs_err vs plain {main_err!r} (SDPA vs plain {lib_err!r})")
-    flash = {"name": "flash_attention", "route": "cuda",
+    flash = {"name": "flash_attention", "route": "cuda", "design": kind,
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/flash.py:71",
              "max_abs_err": max(max(worst.values()), main_err), "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms}
+             "bound_by": bound_by, "library_ms": library_ms,
+             "f32_design": design(torch.float32, hd), "f32_ms": f32_ms,
+             "f32_max_abs_err": f32_err}
 
-    # (B, S, di, N, zero D, dt scale): S not a multiple of the 64-step
-    # chunk, di not a multiple of the 128-thread block, N 4/8/16, zero D,
-    # tiny dt
+    # (B, S, di, N, zero D, dt scale): S not a multiple of the 32-step
+    # chunk, di not a multiple of the 32-channel block (nor of 4), N
+    # 4/8/16, zero D, tiny dt, S = 1
     scases = [(2, 100, 96, 4, False, 1.0), (1, 257, 256, 8, False, 1.0),
               (2, 64, 128, 16, False, 1.0), (2, 130, 200, 16, True, 1.0),
-              (1, 75, 64, 8, False, 1e-6), (3, 1, 32, 4, False, 1.0)]
+              (1, 75, 64, 8, False, 1e-6), (3, 1, 32, 4, False, 1.0),
+              (1, 45, 30, 16, False, 1.0)]
     sworst = 0.0
     for bb, ss, di, n, zero_d, dt_scale in scases:
         args = scan_inputs(gen, bb, ss, di, n, device, zero_d, dt_scale)
@@ -547,16 +571,31 @@ def phase_lm_kernels(device):
     bound_ms = max(moved / HBM_BYTES_PER_S, exps / SFU_OPS_PER_S) * 1e3
     bound_by = ("bytes" if moved / HBM_BYTES_PER_S
                 >= exps / SFU_OPS_PER_S else "operations")
-    print(f"[lm-kernels] selective_scan [{bb},{ss},{di}] N={n}: kernel "
+    print(f"[lm-kernels] selective_scan [{bb},{ss},{di}] N={n} on the "
+          f"{SCAN_DESIGN} design: kernel "
           f"{ms!r} ms (device, graph replay), plain version {plain_ms!r} ms,"
           f" bound {bound_ms!r} ms ({moved} bytes at 3.35 TB/s; {exps} exps"
           f" at {SFU_OPS_PER_S:.4g}/s SFU; {bound_by}), library call: none")
+    # what sets the scan's time: the same length at fewer channels.  Below
+    # a wave of blocks one channel's serial chain of steps sets it; at
+    # falcon's width, the SMs' instruction issue
+    by_width = {}
+    for width in (1024, 2048, 4096):
+        a = scan_inputs(gen, bb, ss, width, n, device)
+        by_width[width] = device_ms(lambda: selective_scan_cuda(*a), reps=20)
+    by_width[di] = ms
+    print(f"[lm-kernels] selective_scan [{bb},{ss},di] N={n} by width: "
+          + ", ".join(f"di={w} {t!r} ms" for w, t in by_width.items())
+          + f" (device, graph replay; {bb * di // 32 * (n // 4) / 132:.4g} "
+          f"warps per SM at di={di})")
     scan = {"name": "selective_scan", "route": "cuda",
+            "design": SCAN_DESIGN,
             "source": "src/repro_torch/kernels/selective_scan/csrc/"
                       "selective_scan.cu",
             "replaces": "src/repro/kernels/selective_scan/scan.py:50",
             "max_abs_err": sworst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "ms_by_width": by_width}
     return [flash, scan]
 
 
@@ -638,7 +677,8 @@ def phase_lm_main(device, card, launched):
     import numpy as np
     import torch
     from repro_torch import configs as CFG
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (DESIGNS, design,
+                                                     flash_attention)
     from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
@@ -657,6 +697,7 @@ def phase_lm_main(device, card, launched):
         M.prefill(params, cfg, tokens)                # warm, not counted
         torch.cuda.synchronize()
         flash_attention.launches = selective_scan.launches = 0
+        flash_attention.design_launches = dict.fromkeys(DESIGNS, 0)
         t0 = time.perf_counter()
         logits, kvs = M.prefill(params, cfg, tokens)
         torch.cuda.synchronize()
@@ -666,8 +707,14 @@ def phase_lm_main(device, card, launched):
         want = {"flash_attention": cfg.num_layers if cfg.has_attention
                 else 0,
                 "selective_scan": cfg.num_layers if cfg.has_mamba else 0}
+        by_design = dict(flash_attention.design_launches)
         check(counts == want, f"{arch} prefill launches {counts}, expected "
               f"{want}")
+        if cfg.has_attention:
+            kind = design(getattr(torch, cfg.dtype), cfg.head_dim)
+            check(kind == "wgmma-bf16" and by_design[kind] == cfg.num_layers,
+                  f"{arch} prefill flash launches by design {by_design}, "
+                  f"expected {cfg.num_layers} on wgmma-bf16")
         for name, n in counts.items():
             launched[name] += n
         check(tuple(logits.shape) == (batch, 1, cfg.vocab_size)
@@ -676,7 +723,8 @@ def phase_lm_main(device, card, launched):
         print(f"[lm-prefill] {arch} bf16, {cfg.num_layers} layers, "
               f"{batch} x {PREFILL_LEN} tokens: wall {wall!r} s, "
               f"{batch * PREFILL_LEN / wall!r} prompt tokens/s; launches "
-              f"{counts}; params {tree_bytes(params)} bytes, KV "
+              f"{counts}, flash by design {by_design}; params "
+              f"{tree_bytes(params)} bytes, KV "
               f"{tree_bytes(kvs)} bytes on the device, peak allocated "
               f"{torch.cuda.max_memory_allocated()} bytes; init "
               f"{init_s!r} s ({card})")
@@ -766,6 +814,21 @@ def main():
     for name in _build.SOURCES:
         for line in _build.ptxas_report(name):
             print(f"[header] {name}: {line}")
+    if "flash_attention" in built:
+        from repro_torch.kernels.flash_attention import HEAD_DIMS
+        # the tensor-core kernel must neither spill nor have its wgmma
+        # serialized by ptxas (which it does, e.g., for a call in the kernel)
+        tc = [line for line in _build.ptxas_report("flash_attention")
+              if "flash_wgmma_kernel" in line]
+        serial = [line.strip() for line in
+                  _build.build_logs["flash_attention"].splitlines()
+                  if "wgmma" in line and "serializ" in line]
+        for line in serial:
+            print(f"[header] flash_attention: {line}")
+        check(len(tc) == len(HEAD_DIMS) and not serial and all(
+            " 0 bytes spill stores" in line for line in tc),
+            f"the tensor-core flash kernel spills, is serialized or is "
+            f"missing: {tc} {serial}")
 
     record = phase_kernels(device)
     phase_agreement(device)

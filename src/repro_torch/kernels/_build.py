@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
-Each kernel is one ``.cu`` file with a plain C entry point.  ``nvcc``
-compiles it for Hopper (``sm_90a``) into a shared library of its own,
-which ``ctypes`` loads: seconds per file, where an extension that
-includes PyTorch's headers takes minutes.  Libraries go to
-``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a digest of source and flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is built at
+Each kernel is one ``.cu`` file with a plain C entry point, which may
+include headers from its own ``csrc/`` directory.  ``nvcc`` compiles it
+for Hopper (``sm_90a``) into a shared library of its own, which
+``ctypes`` loads: seconds per file, where an extension that includes
+PyTorch's headers takes minutes.  Libraries go to ``build/kernels/`` at
+the root of the checkout (listed in ``.gitignore``), named by a digest
+of every file in the kernel's ``csrc/`` and of its flags (extra ``-I``
+paths included), so an edited source or header is rebuilt and an
+unchanged one is reused.  Nothing is built at
 import; the first launch on a CUDA tensor builds what it needs, and
 ``build`` builds several kernels at once, one ``nvcc`` each, all started
 together.
@@ -24,8 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
-           "build_logs", "ptxas_report"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "EXTRA_FLAGS", "build",
+           "library", "build_logs", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -37,6 +39,7 @@ SOURCES = {
 }
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
+EXTRA_FLAGS: dict[str, list[str]] = {}  # per kernel, e.g. an -I path
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}     # nvcc output (ptxas register report)
@@ -53,9 +56,18 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def _flags(name: str) -> list[str]:
+    return [*NVCC_FLAGS, *EXTRA_FLAGS.get(name, [])]
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    """The library's path: a digest of the kernel's flags and of every file
+    (name and bytes) under the directory of its source."""
+    h = hashlib.sha256("\0".join(_flags(name)).encode())
+    csrc = SOURCES[name].parent
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(b"\0" + f.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -76,7 +88,7 @@ def build(names=None) -> dict[str, float]:
     try:
         for n in todo:
             tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+            cmd = [nvcc, *_flags(n), "-o", str(tmp), str(SOURCES[n])]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT,
                                          text=True), tmp)

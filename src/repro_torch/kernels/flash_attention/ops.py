@@ -1,8 +1,13 @@
-"""Dispatching wrapper for the flash-attention kernel: the hand-written CUDA
+"""Dispatching wrapper for the flash-attention kernels: a hand-written CUDA
 kernel for CUDA tensors, the plain PyTorch version for CPU tensors.
 
-``flash_attention.launches`` counts the CUDA launches (a plain integer;
-reset it by assignment).
+Two CUDA designs, picked by ``design(dtype, hd)``: bf16 runs on the
+tensor-core kernel (wgmma), f32 on the FMA kernel, whose f32 products keep
+the 2e-5 checks that TF32 tensor cores would break.
+
+``flash_attention.launches`` counts the CUDA launches and
+``flash_attention.design_launches`` counts them by design (reset either by
+assignment).
 """
 from __future__ import annotations
 
@@ -13,10 +18,26 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["attention", "attention_ref", "flash_attention", "HEAD_DIMS"]
+__all__ = ["attention", "attention_ref", "flash_attention", "design",
+           "DESIGNS", "HEAD_DIMS"]
 
-HEAD_DIMS = (16, 32, 64, 80, 128)       # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128)       # the kernels' instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# design -> its code in flash_attention_launch
+DESIGNS = {"fma-f32": 0, "wgmma-bf16": 1}
+
+
+def design(dtype: torch.dtype, hd: int) -> str:
+    """The kernel design that runs (dtype, hd) on the card: bf16 on the
+    tensor cores at every head dim, f32 on the FMA kernel."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "fma-f32"
+    if dtype == torch.bfloat16:
+        return "wgmma-bf16"
+    raise TypeError(f"flash_attention: dtype {dtype} not supported "
+                    f"(float32, bfloat16)")
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None):
@@ -35,8 +56,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, p, p, p, ctypes.c_int, i64, i64, i64, i64, i64,
-                       i64, ctypes.c_int, i64, p]
+        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, i64, i64,
+                       i64, i64, i64, i64, ctypes.c_int, i64, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -87,18 +108,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     if sq == 0 or b == 0 or h == 0:
         return out
+    kind = design(q.dtype, hd)
+    if kind == "wgmma-bf16" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the tensor-core kernel copies "
+                         "16-byte chunks: q, k, v must be 16-byte aligned")
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, sq, skv, h, kh, hd, int(bool(causal)),
-            window or 0, stream)
+            _DTYPES[q.dtype], DESIGNS[kind], b, sq, skv, h, kh, hd,
+            int(bool(causal)), window or 0, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    flash_attention.design_launches[kind] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.design_launches = dict.fromkeys(DESIGNS, 0)

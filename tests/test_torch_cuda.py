@@ -147,6 +147,38 @@ def test_flash_kernel_matches_plain_version(cuda, sq, skv, h, kh, hd,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("b,sq,skv,h,kh,hd,window", [
+    (2, 200, 200, 4, 2, 128, None),    # Sq not a multiple of 128
+    (1, 2047, 2047, 2, 1, 128, None),  # one row short of 16 tiles
+    (2, 256, 256, 4, 2, 64, 70),       # window across a 64-key tile edge
+    (1, 300, 300, 4, 4, 128, 130),     # window over two tiles, MHA
+    (2, 192, 192, 8, 1, 128, None),    # GQA 8:1
+    (2, 100, 300, 4, 2, 128, None),    # Sq < Skv, Sq not a multiple of 64
+    (1, 77, 77, 4, 2, 16, None),       # each head dim ...
+    (1, 130, 130, 4, 2, 32, 33),
+    (2, 129, 129, 4, 2, 64, None),
+    (1, 250, 250, 4, 2, 80, None),
+    (2, 64, 64, 4, 2, 128, None),
+    (1, 1, 1, 2, 1, 128, None),        # one query, one key
+])
+def test_flash_tensor_core_kernel_matches_plain_version(cuda, b, sq, skv, h,
+                                                        kh, hd, window):
+    """The bf16 design (wgmma on 128-row query tiles, 64-key K/V tiles)
+    on its edges, against the plain version at the bf16 tolerance."""
+    from repro_torch.kernels.flash_attention import (attention_ref, design,
+                                                     flash_attention)
+    assert design(torch.bfloat16, hd) == "wgmma-bf16"
+    q, k, v = _flash_inputs(sq + skv + hd, b, sq, skv, h, kh, hd,
+                            torch.bfloat16, cuda)
+    before = flash_attention.design_launches["wgmma-bf16"]
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.design_launches["wgmma-bf16"] == before + 1
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_flash_wrapper_rejects_bad_inputs(cuda):
     from repro_torch.kernels.flash_attention import flash_attention
     q, k, v = _flash_inputs(0, 1, 32, 32, 4, 2, 64, torch.float32, cuda)
@@ -191,6 +223,47 @@ def test_scan_kernel_matches_plain_version(cuda, b, s, di, n, zero_d,
     want = selective_scan_ref(*args)
     torch.cuda.synchronize()
     assert selective_scan.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,s,di,n", [
+    (2, 1, 64, 16),                    # S = 1
+    (1, 33, 64, 16),                   # S one past the 32-step chunk
+    (2, 100, 200, 16),                 # di not a multiple of 32 channels
+    (1, 70, 48, 4),                    # N = 4, one lane a channel
+    (2, 95, 72, 8),                    # N = 8, two lanes a channel
+    (1, 40, 30, 16),                   # di not a multiple of 4: 4-byte copies
+    (2, 300, 8192, 16),                # falcon-mamba-7b's width
+])
+def test_scan_lane_split_kernel_matches_plain_version(cuda, b, s, di, n):
+    """The redesigned scan (N/4 lanes a channel, cp.async-staged chunks)
+    on its edges, against the plain version at 2e-4."""
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_ref)
+    args = _scan_inputs(s + di + n, b, s, di, n, cuda)
+    before = selective_scan.launches
+    got = selective_scan(*args)
+    want = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_scan_kernel_takes_unaligned_views(cuda):
+    """Contiguous views that start off a 16-byte boundary go through the
+    kernel's 4-byte copies."""
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_ref)
+    def unaligned(t):
+        view = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        return view.copy_(t)
+
+    dt, x, bm, cm, a, d = _scan_inputs(5, 3, 50, 64, 16, cuda)
+    dt, x, bm, cm = (unaligned(t) for t in (dt, x, bm, cm))
+    assert x.is_contiguous() and x.data_ptr() % 16
+    got = selective_scan(dt, x, bm, cm, a, d)
+    want = selective_scan_ref(dt, x, bm, cm, a, d)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
 

@@ -10,7 +10,8 @@ import torch
 
 from repro.kernels.flash_attention import attention_ref as j_ref
 from repro.kernels.flash_attention import flash_attention as j_pallas
-from repro_torch.kernels.flash_attention import (attention, attention_ref,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, attention,
+                                                 attention_ref, design,
                                                  flash_attention)
 
 CASES = [
@@ -73,3 +74,17 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     _, (q, k, v) = _inputs(0, 32, 32, 4, 2, 16, "float32")
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma-bf16"),
+                                        (torch.float32, "fma-f32")])
+def test_design_routes_bf16_to_tensor_cores_and_f32_to_fma(dtype, want, hd):
+    """bf16 runs on the tensor-core kernel at every head dim; f32 stays on
+    the FMA kernel, whose f32 products keep the 2e-5 checks."""
+    assert design(dtype, hd) == want
+
+
+def test_design_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        design(torch.float16, 64)

@@ -36,7 +36,8 @@ Phases 3 and 4 are the simulator's main path: simstep's launch count is
 set to 0 just before phase 3 and read just after phase 4.  The full-depth
 prefills are the LM slice's main path: the flash-attention and
 selective-scan counts are set to 0 just before each and read just after,
-and every flash launch of the bf16 prefill must be the tensor-core one.
+and the bf16 prefill's dtype must route its flash launches to the
+tensor-core kernel.
 The next-to-last line is the kernels' JSON record, the last the
 device's.  Without a CUDA device, or outside a checkout, the script
 fails before printing either.
@@ -677,8 +678,7 @@ def phase_lm_main(device, card, launched):
     import numpy as np
     import torch
     from repro_torch import configs as CFG
-    from repro_torch.kernels.flash_attention import (DESIGNS, design,
-                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import design, flash_attention
     from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
@@ -697,7 +697,6 @@ def phase_lm_main(device, card, launched):
         M.prefill(params, cfg, tokens)                # warm, not counted
         torch.cuda.synchronize()
         flash_attention.launches = selective_scan.launches = 0
-        flash_attention.design_launches = dict.fromkeys(DESIGNS, 0)
         t0 = time.perf_counter()
         logits, kvs = M.prefill(params, cfg, tokens)
         torch.cuda.synchronize()
@@ -707,14 +706,14 @@ def phase_lm_main(device, card, launched):
         want = {"flash_attention": cfg.num_layers if cfg.has_attention
                 else 0,
                 "selective_scan": cfg.num_layers if cfg.has_mamba else 0}
-        by_design = dict(flash_attention.design_launches)
         check(counts == want, f"{arch} prefill launches {counts}, expected "
               f"{want}")
-        if cfg.has_attention:
-            kind = design(getattr(torch, cfg.dtype), cfg.head_dim)
-            check(kind == "wgmma-bf16" and by_design[kind] == cfg.num_layers,
-                  f"{arch} prefill flash launches by design {by_design}, "
-                  f"expected {cfg.num_layers} on wgmma-bf16")
+        # the C entry point routes by dtype: the bf16 prefill's launches
+        # are the tensor-core kernel's
+        kind = (design(getattr(torch, cfg.dtype), cfg.head_dim)
+                if cfg.has_attention else None)
+        check(kind in (None, "wgmma-bf16"), f"{arch} prefill runs flash on "
+              f"{kind}, expected wgmma-bf16")
         for name, n in counts.items():
             launched[name] += n
         check(tuple(logits.shape) == (batch, 1, cfg.vocab_size)
@@ -723,7 +722,7 @@ def phase_lm_main(device, card, launched):
         print(f"[lm-prefill] {arch} bf16, {cfg.num_layers} layers, "
               f"{batch} x {PREFILL_LEN} tokens: wall {wall!r} s, "
               f"{batch * PREFILL_LEN / wall!r} prompt tokens/s; launches "
-              f"{counts}, flash by design {by_design}; params "
+              f"{counts}, flash on {kind}; params "
               f"{tree_bytes(params)} bytes, KV "
               f"{tree_bytes(kvs)} bytes on the device, peak allocated "
               f"{torch.cuda.max_memory_allocated()} bytes; init "
@@ -814,21 +813,21 @@ def main():
     for name in _build.SOURCES:
         for line in _build.ptxas_report(name):
             print(f"[header] {name}: {line}")
-    if "flash_attention" in built:
-        from repro_torch.kernels.flash_attention import HEAD_DIMS
-        # the tensor-core kernel must neither spill nor have its wgmma
-        # serialized by ptxas (which it does, e.g., for a call in the kernel)
-        tc = [line for line in _build.ptxas_report("flash_attention")
-              if "flash_wgmma_kernel" in line]
-        serial = [line.strip() for line in
-                  _build.build_logs["flash_attention"].splitlines()
-                  if "wgmma" in line and "serializ" in line]
-        for line in serial:
-            print(f"[header] flash_attention: {line}")
-        check(len(tc) == len(HEAD_DIMS) and not serial and all(
-            " 0 bytes spill stores" in line for line in tc),
-            f"the tensor-core flash kernel spills, is serialized or is "
-            f"missing: {tc} {serial}")
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    # the tensor-core kernel must neither spill nor have its wgmma
+    # serialized by ptxas (which it does, e.g., for a call in the kernel);
+    # read from the log saved beside the library, built now or before
+    tc = [line for line in _build.ptxas_report("flash_attention")
+          if "flash_wgmma_kernel" in line]
+    serial = [line.strip() for line in
+              _build.build_log("flash_attention").splitlines()
+              if "wgmma" in line and "serializ" in line]
+    for line in serial:
+        print(f"[header] flash_attention: {line}")
+    check(len(tc) == len(HEAD_DIMS) and not serial and all(
+        " 0 bytes spill stores" in line for line in tc),
+        f"the tensor-core flash kernel spills, is serialized or is "
+        f"missing: {tc} {serial}")
 
     record = phase_kernels(device)
     phase_agreement(device)

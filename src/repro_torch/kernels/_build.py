@@ -6,9 +6,10 @@ for Hopper (``sm_90a``) into a shared library of its own, which
 ``ctypes`` loads: seconds per file, where an extension that includes
 PyTorch's headers takes minutes.  Libraries go to ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``), named by a digest
-of every file in the kernel's ``csrc/`` and of its flags (extra ``-I``
-paths included), so an edited source or header is rebuilt and an
-unchanged one is reused.  Nothing is built at
+of every file in the kernel's ``csrc/`` and of ``NVCC_FLAGS``, so an
+edited source, header or flag is rebuilt and an unchanged one is reused.
+Each library keeps its compiler output (the ptxas register report) in a
+``.log`` file beside it.  Nothing is built at
 import; the first launch on a CUDA tensor builds what it needs, and
 ``build`` builds several kernels at once, one ``nvcc`` each, all started
 together.
@@ -26,8 +27,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "EXTRA_FLAGS", "build",
-           "library", "build_logs", "ptxas_report"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
+           "build_log", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -39,10 +40,8 @@ SOURCES = {
 }
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
-EXTRA_FLAGS: dict[str, list[str]] = {}  # per kernel, e.g. an -I path
 
 _loaded: dict[str, ctypes.CDLL] = {}
-build_logs: dict[str, str] = {}     # nvcc output (ptxas register report)
 
 
 def _nvcc() -> str:
@@ -56,14 +55,10 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def _flags(name: str) -> list[str]:
-    return [*NVCC_FLAGS, *EXTRA_FLAGS.get(name, [])]
-
-
 def _target(name: str) -> Path:
-    """The library's path: a digest of the kernel's flags and of every file
-    (name and bytes) under the directory of its source."""
-    h = hashlib.sha256("\0".join(_flags(name)).encode())
+    """The library's path: a digest of the flags and of every file (name and
+    bytes) under the directory of the kernel's source."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
     csrc = SOURCES[name].parent
     for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
         h.update(b"\0" + f.relative_to(csrc).as_posix().encode() + b"\0")
@@ -88,7 +83,7 @@ def build(names=None) -> dict[str, float]:
     try:
         for n in todo:
             tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *_flags(n), "-o", str(tmp), str(SOURCES[n])]
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT,
                                          text=True), tmp)
@@ -96,9 +91,9 @@ def build(names=None) -> dict[str, float]:
         for n, (proc, tmp) in procs.items():
             log, _ = proc.communicate()
             seconds[n] = time.perf_counter() - t0
-            build_logs[n] = log
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {SOURCES[n]}:\n{log}")
+            _target(n).with_suffix(".log").write_text(log)
             os.replace(tmp, _target(n))
         return seconds
     finally:
@@ -117,13 +112,19 @@ def library(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+def build_log(name: str) -> str:
+    """The compiler output of kernel ``name``'s current library, saved
+    beside it when it was built; empty if it is not built."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def ptxas_report(name: str) -> list[str]:
-    """One line per compiled kernel function of ``name``'s last build:
+    """One line per compiled kernel function of ``name``'s current library:
     its (mangled) name, registers, shared memory and spills, from the
-    ``-Xptxas=-v`` output in ``build_logs``.  Empty if nothing was built
-    in this process."""
+    ``-Xptxas=-v`` output in ``build_log``."""
     lines, func, spill = [], None, ""
-    for raw in build_logs.get(name, "").splitlines():
+    for raw in build_log(name).splitlines():
         line = raw.strip()
         if "Compiling entry function" in line:
             func = line.split("'")[1] if "'" in line else line

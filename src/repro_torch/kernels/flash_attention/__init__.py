@@ -1,2 +1,2 @@
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
-    DESIGNS, HEAD_DIMS, attention, attention_ref, design, flash_attention)
+    HEAD_DIMS, attention, attention_ref, design, flash_attention)

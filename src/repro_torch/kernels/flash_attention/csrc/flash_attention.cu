@@ -11,7 +11,7 @@
 // [4, 2048, 16/8, 128] bf16) the causal half of the two products is
 // 4*B*H*S^2*hd/2 = 68.7 GFLOP, 0.07 ms at the 989 TFLOP/s bf16 tensor-core
 // peak, against 50 MB of q/k/v/o, 0.015 ms at 3.35 TB/s: bound by
-// operations.  Two designs, chosen by the wrapper from (dtype, hd):
+// operations.  Two designs, chosen by dtype:
 //
 // flash_wgmma_kernel, bf16 (the main path): tensor cores.
 // - one block of two warpgroups per (128-row query tile, head, batch); each
@@ -565,21 +565,21 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// design: 0 the FMA kernel (dtype 0, float32), 1 the tensor-core kernel
-// (dtype 1, bfloat16).  window <= 0 means none.  Returns the CUDA error of
-// the launch (0 on success); the caller's stream is not synced.
+// dtype: 0 float32 (the FMA kernel), 1 bfloat16 (the tensor-core kernel).
+// window <= 0 means none.  Returns the CUDA error of the launch (0 on
+// success); the caller's stream is not synced.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
-                                      int design, int64_t b, int64_t sq,
-                                      int64_t skv, int64_t h, int64_t kh,
-                                      int64_t hd, int causal, int64_t window,
+                                      int64_t b, int64_t sq, int64_t skv,
+                                      int64_t h, int64_t kh, int64_t hd,
+                                      int causal, int64_t window,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (design == 1 && dtype == 1)
+  if (dtype == 1)
     return (int)tc::launch_hd((int)hd, q, k, v, o, (int)b, (int)sq,
                               (int)skv, (int)h, (int)kh, causal, (int)window,
                               s);
-  if (design == 0 && dtype == 0)
+  if (dtype == 0)
     return (int)launch_hd<float>((int)hd, q, k, v, o, (int)b, (int)sq,
                                  (int)skv, (int)h, (int)kh, causal,
                                  (int)window, s);

@@ -1,12 +1,12 @@
 """Dispatching wrapper for the flash-attention kernels: a hand-written CUDA
 kernel for CUDA tensors, the plain PyTorch version for CPU tensors.
 
-Two CUDA designs, picked by ``design(dtype, hd)``: bf16 runs on the
+Two CUDA designs, named by ``design(dtype, hd)``: bf16 runs on the
 tensor-core kernel (wgmma), f32 on the FMA kernel, whose f32 products keep
-the 2e-5 checks that TF32 tensor cores would break.
+the 2e-5 checks that TF32 tensor cores would break.  The C entry point
+picks between them by dtype, then the instantiation by head dim.
 
-``flash_attention.launches`` counts the CUDA launches and
-``flash_attention.design_launches`` counts them by design (reset either by
+``flash_attention.launches`` counts the CUDA launches (reset by
 assignment).
 """
 from __future__ import annotations
@@ -19,12 +19,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["attention", "attention_ref", "flash_attention", "design",
-           "DESIGNS", "HEAD_DIMS"]
+           "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 80, 128)       # the kernels' instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# design -> its code in flash_attention_launch
-DESIGNS = {"fma-f32": 0, "wgmma-bf16": 1}
 
 
 def design(dtype: torch.dtype, hd: int) -> str:
@@ -57,7 +55,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, i64, i64,
-                       i64, i64, i64, i64, ctypes.c_int, i64, p]
+                       i64, i64, i64, ctypes.c_int, i64, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -108,8 +106,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     if sq == 0 or b == 0 or h == 0:
         return out
-    kind = design(q.dtype, hd)
-    if kind == "wgmma-bf16" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if (design(q.dtype, hd) == "wgmma-bf16"
+            and any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("flash_attention: the tensor-core kernel copies "
                          "16-byte chunks: q, k, v must be 16-byte aligned")
     lib = _library()
@@ -117,15 +115,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], DESIGNS[kind], b, sq, skv, h, kh, hd,
+            _DTYPES[q.dtype], b, sq, skv, h, kh, hd,
             int(bool(causal)), window or 0, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
-    flash_attention.design_launches[kind] += 1
     return out
 
 
 flash_attention.launches = 0
-flash_attention.design_launches = dict.fromkeys(DESIGNS, 0)

@@ -12,14 +12,18 @@ script exits non-zero:
      tensor-core flash kernel must not spill, nor have its wgmma
      serialized);
   2. each kernel against its plain PyTorch version on the card, on edge
-     tiles and at the main path's shapes, and timed there; then a small
-     random scenario runs on the card and on the CPU (the plain kernel)
-     and must agree;
+     tiles and at the main path's shapes, and timed there (simstep on
+     dense tiles and on ragged ones: rows of 0 to 100,000 slots, slots of
+     no row, bitwise); then a small random scenario runs on the card and
+     on the CPU (the plain kernel) and must agree;
   3. the paper's §5 experiment at its 10,000 hosts, both task policies,
      against the closed-form answers;
   4. the paper's largest datacenter: 100,000 hosts, 50,000 VMs, 500,000
      cloudlets, both task policies, the same closed-form checks per wave
-     and per host, with wall time, events/s and device bytes.
+     and per host, with wall time, events/s and device bytes;
+  4b. the same datacenter with a skewed binding (``s5-100k-skewed``): VM 0
+     holds 200,000 cloudlets and every other VM 6, time-shared, against
+     closed-form finish times and per-host energy;
 
   5. the LM serving slice, with TF32 off for matrix products and
      convolutions (so f32 comparisons hold f32 precision): the
@@ -32,8 +36,8 @@ script exits non-zero:
      requests on 8 slots with each; prefill against token-by-token
      decode at full width in f32, depth cut to 4 layers.
 
-Phases 3 and 4 are the simulator's main path: simstep's launch count is
-set to 0 just before phase 3 and read just after phase 4.  The full-depth
+Phases 3, 4 and 4b are the simulator's main path: simstep's launch count
+is set to 0 just before phase 3 and read just after phase 4b.  The full-depth
 prefills are the LM slice's main path: the flash-attention and
 selective-scan counts are set to 0 just before each and read just after,
 and the bf16 prefill's dtype must route its flash launches to the
@@ -62,6 +66,14 @@ LM_CELLS = (("qwen3-0.6b", 4), ("falcon-mamba-7b", 2))   # (arch, batch)
 SCAN_DESIGN = "lane-split-cp.async"
 PREFILL_LEN = 2048
 RTOL = ATOL = 1e-6              # tests/test_simstep_parity.py's tolerance
+SIMSTEP_DESIGN = "ragged-packed-warp"
+# simstep's ragged edge tiles (row lengths): both sides of the 32-slot
+# window and of a 1,024-slot chunk, a 100,000-slot row; rows of 30-70
+# slots; the main path's uniform rows; the skewed datacenter's rows
+RAGGED = {"edges": [0, 1, 31, 32, 33, 64, 1024, 100_000],
+          "around-64": list(range(30, 71)) * 3,
+          "uniform": [10] * 50_000,
+          "skewed": [200_000] + [6] * 49_999}
 
 # JAX engine's §5 answers (BENCH_policies.json fig8_fig9 resp_by_wave)
 SPACE_RESP = [1200.0 + 600.0 * w for w in range(10)]
@@ -143,11 +155,65 @@ def random_tile(seed, v, k, device):
     return [torch.from_numpy(a).to(device) for a in (rem, run, cap, pes)]
 
 
+def ragged_tile(seed, lengths, device, gaps=True):
+    """VM rows of the given lengths in a shuffled slot order, runs of slots
+    of no row (vm -1 or V) between some of them, drained slots, an
+    all-idle row, a zero-capacity row and a row with more PEs than slots.
+    With ``gaps=False`` the rows lie in VM order with nothing between
+    them, as a scenario builds them.  Returns (index, [remaining,
+    runnable, cap, pes])."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.simstep import row_index
+    rng = np.random.default_rng(seed)
+    v = len(lengths)
+    if gaps:
+        vm = []
+        for r in rng.permutation(v):
+            if rng.uniform() < 0.3:
+                vm += [int(rng.choice([-1, v]))] * int(rng.integers(1, 4))
+            vm += [int(r)] * int(lengths[r])
+        vm = np.asarray(vm + [-1], np.int32)
+    else:
+        vm = np.repeat(np.arange(v, dtype=np.int32), lengths)
+    c = vm.size
+    rem = rng.uniform(0.0, 5000.0, c).astype(np.float32)
+    rem[rng.uniform(size=c) < 0.15] = 0.0
+    run = rng.uniform(size=c) < 0.7
+    cap = rng.uniform(100.0, 2000.0, v).astype(np.float32)
+    pes = rng.integers(1, 4, v).astype(np.float32)
+    rows = rng.permutation(v)
+    run[vm == rows[0]] = False
+    cap[rows[min(1, v - 1)]] = 0.0
+    pes[rows[-1]] = lengths[rows[-1]] + rng.integers(1, 5)
+    index = row_index(torch.from_numpy(vm).to(device), v)
+    return index, [torch.from_numpy(a).to(device)
+                   for a in (rem, run, cap, pes)]
+
+
+def simstep_bound(index):
+    """(bound ms, bound_by, bytes) of one simstep call on ``index``: each
+    slot's remaining, runnable and row id read and its rate written, each
+    row's capacity and pes read and dt_min written, the window table, the
+    empty-row list, the chunk table and the long rows' start and length
+    read once; ~12 float operations a slot."""
+    c, v = index.n_slots, index.n_rows
+    n_long = int(index.chunk_first.unique().numel())
+    moved = (c * (4 + 1 + 4 + 4) + v * (4 + 4 + 4) + 4
+             + 4 * index.window.numel() + 4 * index.empty.numel()
+             + 8 * index.chunk_row.numel() + 8 * n_long)
+    ops = c * 12
+    by_bytes = moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+    bound = max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    return bound, "bytes" if by_bytes else "operations", moved
+
+
 def phase_kernels(device):
     """Phase 2: simstep against its plain version; returns its record
     (without the main path's launch count)."""
     import torch
-    from repro_torch.kernels.simstep import simstep, simstep_ref
+    from repro_torch.kernels.simstep import (simstep, simstep_ragged,
+                                             simstep_ragged_ref, simstep_ref)
 
     shapes = [(8, 16), (13, 8), (3, 128), (32, 4), (7, 33), (1000, 300),
               (50, 10), (50000, 10)]
@@ -165,33 +231,60 @@ def phase_kernels(device):
                     worst = max(worst, float((g - w).abs().max()))
                 cases += 1
                 bitwise += all(torch.equal(g, w) for g, w in zip(got, want))
-    print(f"[kernels] simstep vs plain version: {cases} tiles, both policies,"
-          f" rtol={RTOL} atol={ATOL}: max_abs_err={worst!r}, bitwise equal "
-          f"on {bitwise}/{cases}")
+    print(f"[kernels] simstep (dense wrapper) vs plain version: {cases} "
+          f"tiles, both policies, rtol={RTOL} atol={ATOL}: "
+          f"max_abs_err={worst!r}, bitwise equal on {bitwise}/{cases}")
 
-    record = None
-    for v, k in ((50, 10), (50000, 10)):
-        tile = random_tile(0, v, k, device)
-        pol = torch.tensor(1, dtype=torch.int32, device=device)
-        ms = device_ms(lambda: simstep(*tile, pol))
-        plain_ms = device_ms(lambda: simstep_ref(*tile, pol))
-        call_ms = eager_ms(lambda: simstep(*tile, pol))
-        moved = v * k * (4 + 1 + 4) + v * (4 + 4 + 4) + 4
-        ops = v * k * 12
-        bound_ms = max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-        bound_by = ("bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-                    else "operations")
-        print(f"[kernels] simstep [{v},{k}]: kernel {ms!r} ms (device, "
-              f"graph replay), eager call {call_ms!r} ms, plain version "
-              f"{plain_ms!r} ms, bound {bound_ms!r} ms ({moved} bytes, "
-              f"{bound_by}), library call: none")
-        record = {"name": "simstep", "route": "cuda",
-                  "source": "src/repro_torch/kernels/simstep/csrc/simstep.cu",
-                  "replaces": "src/repro/kernels/simstep/simstep.py:49",
-                  "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "library_ms": None}
-    return record
+    rcases = rbitwise = 0
+    for name, lengths in RAGGED.items():
+        for seed in range(2):
+            index, (rem, run, cap, pes) = ragged_tile(seed, lengths, device)
+            for policy in (0, 1):
+                pol = torch.tensor(policy, dtype=torch.int32, device=device)
+                got = simstep_ragged(rem, run, index, cap, pes, pol)
+                want = simstep_ragged_ref(rem, run, index, cap, pes, pol)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+                    worst = max(worst, float((g - w).abs().max()))
+                rcases += 1
+                rbitwise += all(torch.equal(g, w) for g, w in zip(got, want))
+    print(f"[kernels] simstep_ragged vs plain version: {rcases} ragged "
+          f"tiles ({', '.join(RAGGED)}; rows of no slot, slots of no row, "
+          f"pes above a row's length, idle and zero-capacity rows), both "
+          f"policies: max_abs_err={worst!r}, bitwise equal on "
+          f"{rbitwise}/{rcases}")
+    check(rbitwise == rcases and bitwise == cases,
+          "simstep is not bitwise equal to its plain version")
+
+    times = {}
+    pol = torch.tensor(1, dtype=torch.int32, device=device)
+    for name in ("uniform", "skewed"):
+        index, (rem, run, cap, pes) = ragged_tile(0, RAGGED[name], device,
+                                                  gaps=False)
+        call = lambda: simstep_ragged(rem, run, index, cap, pes, pol)
+        ms = device_ms(call)
+        plain_ms = device_ms(
+            lambda: simstep_ragged_ref(rem, run, index, cap, pes, pol))
+        call_ms = eager_ms(call)
+        bound_ms, bound_by, moved = simstep_bound(index)
+        times[name] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"[kernels] simstep_ragged {name} ({index.n_rows} rows, "
+              f"{index.n_slots} slots, {index.window.numel() - 1} windows, "
+              f"{index.chunk_row.numel()} long-row chunks) on the "
+              f"{SIMSTEP_DESIGN} design: kernel {ms!r} ms "
+              f"(device, graph replay), eager call {call_ms!r} ms, plain "
+              f"version {plain_ms!r} ms, bound {bound_ms!r} ms ({moved} "
+              f"bytes, {bound_by}), library call: none")
+    ms, plain_ms, bound_ms, bound_by = times["uniform"]
+    return {"name": "simstep", "route": "cuda", "design": SIMSTEP_DESIGN,
+            "source": "src/repro_torch/kernels/simstep/csrc/simstep.cu",
+            "replaces": "src/repro/kernels/simstep/simstep.py:49",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "skewed_ms": times["skewed"][0],
+            "skewed_plain_ms": times["skewed"][1],
+            "skewed_bound_ms": times["skewed"][2]}
 
 
 def section5(n_hosts, n_vms, policy, device):
@@ -377,6 +470,73 @@ def phase_scale(device, card, n_hosts=100_000, n_vms=50_000):
               f"provisioning {prov!r} s, stepping {stepping!r} s; state "
               f"{nbytes} bytes on the device, peak allocated "
               f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+
+
+def phase_skewed(device, card, n_hosts=100_000, n_vms=50_000, big=200_000,
+                 small=6):
+    """Phase 4b: the paper's largest datacenter with a skewed binding: one
+    wave at t = 0 of 1,200,000 MI cloudlets, VM 0 holding ``big`` and
+    every other VM ``small``; time-shared only (space-shared would take
+    VM 0's cloudlets one event each).  Closed forms: VM v's cloudlets all
+    finish at n_v * 1.2e6 / 1000 s, in 2 events; its host draws 200 W
+    until then and 100 W after, until the last event; idle hosts 100 W
+    throughout."""
+    import numpy as np
+    import torch
+    from repro_torch.core import broker as B
+    from repro_torch.core import state as S
+    from repro_torch.core.engine import run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    counts = np.full(n_vms, small)
+    counts[0] = big
+    owners = np.repeat(np.arange(n_vms, dtype=np.int32), counts)
+    dc = S.make_datacenter(
+        S.make_uniform_hosts(n_hosts, idle_w=100.0, peak_w=200.0,
+                             device=device),
+        B.build_fleet([B.VmSpec(count=n_vms, pes=1, mips=1000.0, ram=512.0,
+                                bw=10.0, size=1000.0)], device=device),
+        S.make_cloudlets(owners, 1_200_000.0, device=device),
+        vm_policy=S.SPACE_SHARED, task_policy=S.TIME_SHARED,
+        reserve_pes=True, device=device)
+    nbytes = state_bytes(dc)
+    tag = "s5-100k-skewed" if n_hosts == 100_000 else f"s5-{n_hosts}-skewed"
+    before = simstep.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final, stats = run_stats(dc, max_steps=8192)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = simstep.launches - before
+    check(launched == stats.n_steps > 0, f"{tag}: simstep launches "
+          f"{launched}, steps {stats.n_steps}")
+    rep = B.collect(final)
+    n_cl = int(counts.sum())
+    check(int(rep.n_completed) == n_cl and int(rep.n_failed) == 0,
+          f"{tag}: {int(rep.n_completed)}/{n_cl} done")
+    check(stats.n_events == 2, f"{tag}: {stats.n_events} events, want 2")
+    finish = final.cloudlets.finish_time.double().cpu().numpy()
+    want = counts[owners] * 1.2e6 / 1000.0
+    # 1e-6 relative: f32 spacing at 2.4e8 s is 16 s (6.7e-8 relative),
+    # and the clock takes two f32 steps to get there
+    t_err = float(np.abs(finish / want - 1.0).max())
+    check(t_err <= 1e-6, f"{tag}: finish times off by {t_err!r} relative")
+    t_end = big * 1.2e6 / 1000.0
+    energy = final.hosts.energy_j.double().cpu().numpy()
+    want_e = np.full(n_hosts, 100.0 * t_end)
+    host = final.vms.host.cpu().numpy()
+    busy = counts * 1.2e6 / 1000.0
+    want_e[host] = 200.0 * busy + 100.0 * (t_end - busy)
+    e_err = float(np.abs(energy / want_e - 1.0).max())
+    check(e_err <= 1e-5, f"{tag}: energy off by {e_err!r} relative")
+    print(f"[{tag}] {n_hosts} hosts, {n_vms} VMs, {n_cl} cloudlets (VM 0 "
+          f"holds {big}, the others {small}), time-shared: {n_cl}/{n_cl} "
+          f"done, finish times rel err {t_err:.3g}, energy rel err "
+          f"{e_err:.3g}; wall {wall!r} s, {stats.n_events} events in "
+          f"{stats.n_steps} steps, simstep launches {launched}; state "
+          f"{nbytes} bytes on the device, peak allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes ({card})")
 
 
 def phase_profile(device, card):
@@ -832,9 +992,10 @@ def main():
     record = phase_kernels(device)
     phase_agreement(device)
 
-    simstep.launches = 0        # the main path: phases 3 and 4
+    simstep.launches = 0        # the main path: phases 3, 4 and 4b
     phase_section5(device, card)
     phase_scale(device, card)
+    phase_skewed(device, card)
     record["launches"] = simstep.launches
     check(record["launches"] > 0, "simstep never launched on the main path")
     phase_profile(device, card)

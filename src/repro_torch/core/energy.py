@@ -114,15 +114,19 @@ def host_power(hosts, util: torch.Tensor) -> torch.Tensor:
 def host_utilization(dc, rates: torch.Tensor) -> torch.Tensor:
     """f32[H] consumed MIPS / capacity MIPS per host, given cloudlet rates.
 
-    The per-host sum runs through ``index_add_``: another order than
-    XLA's, and on CUDA an atomic one, so compare it by tolerance.
+    The per-host sum runs through ``index_add_`` in f64, rounded to f32
+    once: a host may carry hundreds of thousands of cloudlets (a skewed
+    binding), whose f32 running sum drifts by 1e-4 relative and more.
+    Its order differs from XLA's (and is atomic on CUDA), so compare it
+    with the JAX package by tolerance.
     """
     nh = dc.hosts.num_pes.shape[0]
     nv = dc.vms.req_pes.shape[0]
     host_of_cl = dc.vms.host[torch.clamp(dc.cloudlets.vm, 0, nv - 1).long()]
-    consumed = torch.zeros((nh,), dtype=torch.float32,
+    consumed = torch.zeros((nh,), dtype=torch.float64,
                            device=rates.device).index_add_(
-        0, torch.clamp(host_of_cl, 0, nh - 1).long(), rates)
+        0, torch.clamp(host_of_cl, 0, nh - 1).long(),
+        rates.to(torch.float64)).to(torch.float32)
     cap = dc.hosts.capacity_mips
     return torch.where(cap > 0.0, consumed / torch.clamp(cap, min=1e-30),
                        0.0)

@@ -38,7 +38,7 @@ from repro_torch.core.provisioning import (FIRST_FIT, alive_fleet,
                                            pending_due, provision_pending)
 from repro_torch.core.state import (CL_CREATED, CL_DONE, INF, VM_PENDING,
                                     DatacenterState)
-from repro_torch.kernels.simstep.ops import DenseIndex, dense_index
+from repro_torch.kernels.simstep.ops import RowIndex, row_index
 
 __all__ = ["step", "run", "run_stats", "RunStats", "StepRecord",
            "wants_dynamic", "wants_network", "wants_elastic", "wants_probes"]
@@ -104,7 +104,7 @@ def _next_event_deltas(dc: DatacenterState, rates: torch.Tensor):
     return finish_dt, torch.minimum(arr_cl, arr_vm)
 
 
-def _advance(dc: DatacenterState, index: DenseIndex):
+def _advance(dc: DatacenterState, index: RowIndex):
     """The rate pass and the commit of one event, provisioning excluded.
 
     Returns (new state, active, rates, host watts).
@@ -227,7 +227,7 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT
     _require_static(dc)
     if bool(pending_due(dc)):
         dc = provision_pending(dc, provision_policy)
-    index = dense_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
+    index = row_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
     new, active, rates, host_watts = _advance(dc, index)
     valid_mips = torch.where(dc.hosts.valid, dc.hosts.capacity_mips, 0.0)
     count = lambda m: m.sum(dtype=torch.int32)
@@ -260,7 +260,7 @@ def run_stats(dc: DatacenterState, *, max_steps: int = 1_000_000,
     dev = dc.time.device
     horizon_t = torch.clamp(torch.tensor(horizon, dtype=torch.float32,
                                          device=dev), max=INF)
-    index = dense_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
+    index = row_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
     n = torch.zeros((), dtype=torch.int32, device=dev)
     alive = torch.ones((), dtype=torch.bool, device=dev)
     n_steps = n_blocks = 0

@@ -5,11 +5,11 @@ host's MIPS; level 2 (VM -> cloudlet, the CloudletScheduler) divides the
 VM's share among its task units.  Each level is SPACE_SHARED or
 TIME_SHARED, the 2x2 matrix of the paper's Figure 3.
 
-Level 2 runs through the ``simstep`` kernel: the flat grouped-by-VM
-cloudlet axis is gathered into a dense [V, Kmax] tile (padding cells are
-drained and not runnable, so they add nothing to a row's rank, count or
-minimum), the kernel computes rates and each VM's earliest completion,
-and the rates scatter back to the flat axis.
+Level 2 runs through the ``simstep`` kernel, which reads the flat
+grouped-by-VM cloudlet axis directly through a ``RowIndex`` (each VM's
+slots are one contiguous run) and computes every cloudlet's rate and each
+VM's earliest completion: O(C + V), as the JAX package's grouped-segment
+pass.
 """
 from __future__ import annotations
 
@@ -18,8 +18,8 @@ import torch
 from repro_torch.core.segments import segment_cumsum
 from repro_torch.core.state import (CL_CREATED, INF, SPACE_SHARED, VM_ACTIVE,
                                     DatacenterState)
-from repro_torch.kernels.simstep.ops import (DenseIndex, dense_index,
-                                             from_dense, simstep, to_dense)
+from repro_torch.kernels.simstep.ops import (RowIndex, row_index,
+                                             simstep_ragged)
 
 __all__ = ["cloudlet_runnable", "vm_has_work", "host_level_shares",
            "vm_level_rates", "cloudlet_rates"]
@@ -104,13 +104,11 @@ def host_level_shares(dc: DatacenterState, eligible: torch.Tensor
 
 
 def _level2(dc: DatacenterState, vm_capacity: torch.Tensor,
-            runnable: torch.Tensor, index: DenseIndex):
+            runnable: torch.Tensor, index: RowIndex):
     """(rates f32[C], dt_min f32[V]) through the simstep kernel."""
-    rates_d, dt_min = simstep(
-        to_dense(index, dc.cloudlets.remaining, 0.0),
-        to_dense(index, runnable, False),
-        vm_capacity, dc.vms.req_pes.to(torch.float32), dc.task_policy)
-    return from_dense(index, rates_d, 0.0), dt_min
+    return simstep_ragged(dc.cloudlets.remaining, runnable, index,
+                          vm_capacity, dc.vms.req_pes.to(torch.float32),
+                          dc.task_policy)
 
 
 def vm_level_rates(dc: DatacenterState, vm_capacity: torch.Tensor,
@@ -121,7 +119,7 @@ def vm_level_rates(dc: DatacenterState, vm_capacity: torch.Tensor,
     each get one virtual PE.  TIME_SHARED: capacity / max(n_runnable,
     req_pes).
     """
-    index = dense_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
+    index = row_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
     return _level2(dc, vm_capacity, runnable, index)[0]
 
 
@@ -133,10 +131,10 @@ def _eligible(dc: DatacenterState, runnable: torch.Tensor) -> torch.Tensor:
                        active & vm_has_work(dc, runnable))
 
 
-def rates_and_dt(dc: DatacenterState, index: DenseIndex):
+def rates_and_dt(dc: DatacenterState, index: RowIndex):
     """(rates f32[C], dt_finish f32[]) — the full two-level pass and the
     earliest completion delta (INF when nothing runs).  ``index`` is
-    ``dense_index(dc.cloudlets.vm, V)``, built once per run."""
+    ``row_index(dc.cloudlets.vm, V)``, built once per run."""
     runnable = cloudlet_runnable(dc)
     vm_cap = host_level_shares(dc, _eligible(dc, runnable))
     rates, dt_min = _level2(dc, vm_cap, runnable, index)
@@ -148,5 +146,5 @@ def rates_and_dt(dc: DatacenterState, index: DenseIndex):
 
 def cloudlet_rates(dc: DatacenterState) -> torch.Tensor:
     """f32[C] — execution rate (MIPS) of every cloudlet at ``dc.time``."""
-    index = dense_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
+    index = row_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
     return rates_and_dt(dc, index)[0]

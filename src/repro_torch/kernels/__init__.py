@@ -4,4 +4,5 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 from repro_torch.kernels.selective_scan import (  # noqa: F401
     selective_scan, selective_scan_cuda, selective_scan_ref)
 from repro_torch.kernels.simstep.ops import (  # noqa: F401
-    dense_index, simstep, simstep_cuda, simstep_ref)
+    RowIndex, row_index, simstep, simstep_ragged, simstep_ragged_ref,
+    simstep_ref)

@@ -1,2 +1,3 @@
 from repro_torch.kernels.simstep.ops import (  # noqa: F401
-    dense_index, simstep, simstep_cuda, simstep_ref)
+    CHUNK, WINDOW, RowIndex, row_index, simstep, simstep_ragged,
+    simstep_ragged_ref, simstep_ref)

@@ -1,35 +1,217 @@
-"""Dispatching wrapper for the simstep kernel: the hand-written CUDA kernel
+"""Dispatching wrappers for the simstep kernel: the hand-written CUDA kernel
 for CUDA tensors, the plain PyTorch version for CPU tensors.
 
-``simstep.launches`` counts the CUDA launches (a plain integer; reset it
-by assignment).  ``dense_index`` maps the flat, ragged, grouped-by-VM
-cloudlet axis onto the kernel's dense [V, Kmax] tile.
+``simstep.launches`` counts the CUDA calls (a plain integer; reset it by
+assignment).  ``row_index`` describes the flat, ragged, grouped-by-VM
+cloudlet axis as one contiguous run of slots per VM row, which
+``simstep_ragged`` reads directly: nothing here holds a [V, Kmax] tile.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.simstep.ref import INF, simstep_ref
+from repro_torch.kernels.simstep.ref import (INF, simstep_ragged_ref,
+                                             simstep_ref)
 
-__all__ = ["simstep", "simstep_ref", "simstep_cuda", "DenseIndex",
-           "dense_index", "to_dense", "from_dense"]
+__all__ = ["simstep", "simstep_ref", "simstep_ragged", "simstep_ragged_ref",
+           "RowIndex", "row_index", "WINDOW", "CHUNK"]
+
+WINDOW = 32     # slots a warp of the short-row kernel takes
+CHUNK = 1024    # slots of a long row per block (simstep.cu's kChunk)
+
+
+@dataclasses.dataclass
+class RowIndex:
+    """The VM rows of the flat cloudlet axis [C].
+
+    Row r is the contiguous run of slots with ``vm == r`` (the grouped
+    invariant of ``state.make_cloudlets``).  Slots with ``vm`` outside
+    [0, V) belong to no row.  ``window`` cuts [0, C) into spans that each
+    start at a row's first slot or at a slot of no row: whole short rows
+    (at most ``WINDOW`` slots) and slots of no row packed greedily into
+    spans of at most ``WINDOW`` slots, and each long row (more than
+    ``WINDOW`` slots) alone in a span of its own.  Long rows are also cut
+    into chunks of ``CHUNK`` slots.  Everything is O(C + V).
+    """
+    slot_row: torch.Tensor      # i32[C] row of each slot, -1 without one
+    start: torch.Tensor         # i32[V] first slot of each row (0 if empty)
+    length: torch.Tensor        # i32[V] slots in each row
+    window: torch.Tensor        # i32[W + 1] span starts, then C
+    empty: torch.Tensor         # i32[E] rows without a slot
+    chunk_row: torch.Tensor     # i32[NCH] the long row of each chunk
+    chunk_first: torch.Tensor   # i32[NCH] that row's first chunk
+
+    @property
+    def n_slots(self) -> int:
+        return self.slot_row.shape[0]
+
+    @property
+    def n_rows(self) -> int:
+        return self.start.shape[0]
+
+
+def _window_marks(slot_row: torch.Tensor) -> torch.Tensor:
+    """bool[C + 1]: the span starts of ``RowIndex.window``, and C.
+
+    From a boundary b (a row's first slot, a slot of no row, or C) the next
+    span starts at the last boundary <= b + WINDOW, or, when that is b
+    itself (a long row), at the boundary after b.  The chain of starts
+    from 0 is marked by pointer doubling: after round k the first 2^(k+1)
+    starts are marked, so ceil(log2(C + 1)) + 1 rounds of a scatter and a
+    gather over C + 1 positions mark them all, with no host loop.  Other
+    positions point at themselves, so few of them meet in one target.
+    """
+    c = slot_row.shape[0]
+    dev = slot_row.device
+    pos = torch.arange(c + 1, device=dev)
+    is_b = torch.ones(c + 1, dtype=torch.bool, device=dev)
+    is_b[1:c] = (slot_row[1:] != slot_row[:-1]) | (slot_row[1:] < 0)
+    # the k-th boundary is bounds[k]; n_b[x] boundaries lie at or before x
+    # (a cumsum, not cummax: PyTorch scans a 1-D cummax in one CUDA block)
+    n_b = torch.cumsum(is_b, 0)
+    bounds = torch.zeros(c + 2, dtype=torch.long, device=dev).scatter_(
+        0, torch.where(is_b, n_b - 1, c + 1), pos)
+    ahead = torch.clamp(pos + WINDOW, max=c)
+    reach = bounds[n_b[ahead] - 1]              # last boundary <= x + WINDOW
+    after = torch.clamp(pos + 1, max=c)
+    jump = torch.where(~is_b, pos, torch.where(
+        reach > pos, reach, bounds[n_b[after] - is_b[after].long()]))
+    marks = (pos == 0).to(torch.int32)
+    for _ in range(max(1, math.ceil(math.log2(c + 1))) + 1):
+        marks = marks.scatter_reduce(0, jump, marks, "amax")
+        jump = jump[jump]
+    marks[c] = 1
+    return marks.bool()
+
+
+def row_index(cl_vm: torch.Tensor, n_vms: int) -> RowIndex:
+    """Build the rows of ``cl_vm`` (i32[C] VM id per slot) with one host
+    sync.  Raises ``ValueError`` when the slots of a VM are not one
+    contiguous run.  On the static path ``cl.vm`` never changes, so a run
+    builds it once."""
+    dev = cl_vm.device
+    vm = cl_vm.long()
+    c = vm.shape[0]
+    placed = (vm >= 0) & (vm < n_vms)
+    slot_row = torch.where(placed, vm, -1).to(torch.int32)
+    owner = torch.where(placed, vm, n_vms)      # a spare row takes the rest
+    pos = torch.arange(c, device=dev)
+    length = torch.bincount(owner, minlength=n_vms + 1)[:n_vms]
+    first = torch.full((n_vms + 1,), c, dtype=torch.long,
+                       device=dev).scatter_reduce(0, owner, pos, "amin")
+    last = torch.full((n_vms + 1,), -1, dtype=torch.long,
+                      device=dev).scatter_reduce(0, owner, pos, "amax")
+    has = length > 0
+    split = has & (last[:n_vms] - first[:n_vms] + 1 != length)
+    row_chunks = torch.where(length > WINDOW, (length + CHUNK - 1) // CHUNK,
+                             0)
+    marks = _window_marks(slot_row)
+    n_split, n_chunks, n_empty, n_marks = torch.stack(
+        [split.sum(), row_chunks.sum(), (~has).sum(), marks.sum()]).tolist()
+    if n_split:
+        bad = torch.nonzero(split).view(-1)[:8].tolist()
+        raise ValueError(
+            "cloudlet slots must be grouped by vm (the invariant "
+            "state.validate_cloudlet_order checks): the slots of VM(s) "
+            f"{bad} are not one contiguous run")
+    # stable argsorts list the marked positions and the empty rows in order
+    window = torch.argsort((~marks).to(torch.int8), stable=True)[:n_marks]
+    empty = torch.argsort(has.to(torch.int8), stable=True)[:n_empty]
+    ends = torch.cumsum(row_chunks, 0)
+    chunk_row = torch.searchsorted(
+        ends, torch.arange(n_chunks, device=dev), right=True)
+    i32 = lambda t: t.to(torch.int32)
+    return RowIndex(slot_row=slot_row,
+                    start=i32(torch.where(has, first[:n_vms], 0)),
+                    length=i32(length), window=i32(window), empty=i32(empty),
+                    chunk_row=i32(chunk_row),
+                    chunk_first=i32(ends[chunk_row] - row_chunks[chunk_row]))
+
+
+def simstep_ragged(remaining, runnable, index: RowIndex, vm_capacity,
+                   req_pes, task_policy):
+    """Fused VM-level share computation + earliest-completion reduction on
+    the flat cloudlet axis.
+
+    remaining f32[C], runnable bool[C], ``index`` a ``RowIndex`` of C
+    slots and V rows, vm_capacity and req_pes f32[V]; task_policy an int
+    or an i32[] tensor.  Returns (rates f32[C], dt_min f32[V]).  CPU
+    tensors take ``simstep_ragged_ref``; CUDA tensors launch the kernel
+    on the current stream (no synchronisation), or the call raises.
+    """
+    device = remaining.device
+    if device.type == "cpu":
+        return simstep_ragged_ref(remaining, runnable, index, vm_capacity,
+                                  req_pes, task_policy)
+    if device.type != "cuda":
+        raise ValueError(f"simstep_ragged needs CPU or CUDA tensors, got "
+                         f"{device}")
+    c, v = index.n_slots, index.n_rows
+    _check("remaining", remaining, torch.float32, (c,), device)
+    _check("runnable", runnable, torch.bool, (c,), device)
+    _check("vm_capacity", vm_capacity, torch.float32, (v,), device)
+    _check("req_pes", req_pes, torch.float32, (v,), device)
+    for name in ("slot_row", "start", "length", "window", "empty",
+                 "chunk_row", "chunk_first"):
+        t = getattr(index, name)
+        _check(f"index.{name}", t, torch.int32, tuple(t.shape), device)
+    if not isinstance(task_policy, torch.Tensor):
+        task_policy = torch.tensor(int(task_policy), dtype=torch.int32,
+                                   device=device)
+    _check("task_policy", task_policy, torch.int32, (), device)
+
+    rates = torch.empty((c,), dtype=torch.float32, device=device)
+    dt_min = torch.empty((v,), dtype=torch.float32, device=device)
+    if c == 0:
+        return rates, dt_min.fill_(INF)
+    n_chunks = index.chunk_row.shape[0]
+    chunk_count = torch.empty((n_chunks,), dtype=torch.int32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.simstep_ragged_launch(
+            remaining.data_ptr(), runnable.data_ptr(),
+            index.slot_row.data_ptr(), vm_capacity.data_ptr(),
+            req_pes.data_ptr(), task_policy.data_ptr(),
+            index.window.data_ptr(), index.window.shape[0] - 1,
+            index.empty.data_ptr(), index.empty.shape[0],
+            index.start.data_ptr(), index.length.data_ptr(),
+            index.chunk_row.data_ptr(), index.chunk_first.data_ptr(),
+            n_chunks, chunk_count.data_ptr(), rates.data_ptr(),
+            dt_min.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"simstep kernel launch failed: CUDA error {err}")
+    simstep.launches += 1
+    return rates, dt_min
 
 
 def simstep(remaining, runnable, vm_capacity, req_pes, task_policy):
-    """Fused VM-level share computation + earliest-completion reduction.
+    """``simstep_ragged`` on the dense [V, K] layout of the JAX reference:
+    row v holds slots v*K .. v*K + K - 1.
 
     CPU tensors take ``simstep_ref``; CUDA tensors launch the kernel, or
-    the call raises.
+    the call raises.  Returns (rates f32[V, K], dt_min f32[V]).
     """
     if remaining.device.type == "cpu":
         return simstep_ref(remaining, runnable, vm_capacity, req_pes,
                            task_policy)
-    return simstep_cuda(remaining, runnable, vm_capacity, req_pes,
-                        task_policy)
+    if remaining.ndim != 2 or runnable.shape != remaining.shape:
+        raise ValueError("simstep: remaining and runnable must be [V, K]")
+    if not (remaining.is_contiguous() and runnable.is_contiguous()):
+        raise ValueError("simstep: remaining and runnable must be "
+                         "contiguous")
+    v, k = remaining.shape
+    rows = torch.arange(v, dtype=torch.int32, device=remaining.device)
+    index = row_index(rows.repeat_interleave(k), v)
+    rates, dt_min = simstep_ragged(remaining.reshape(-1),
+                                   runnable.reshape(-1), index, vm_capacity,
+                                   req_pes, task_policy)
+    return rates.view(v, k), dt_min
 
 
 simstep.launches = 0
@@ -37,10 +219,10 @@ simstep.launches = 0
 
 def _library() -> ctypes.CDLL:
     lib = _build.library("simstep")
-    fn = lib.simstep_launch
+    fn = lib.simstep_ragged_launch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int64,
+        p, n = ctypes.c_void_p, ctypes.c_int64
+        fn.argtypes = [p, p, p, p, p, p, p, n, p, n, p, p, p, p, n, p, p, p,
                        p]
         fn.restype = ctypes.c_int
     return lib
@@ -58,98 +240,3 @@ def _check(name, t, dtype, shape, device):
                          f"expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"simstep: {name} must be contiguous")
-
-
-def simstep_cuda(remaining, runnable, vm_capacity, req_pes, task_policy):
-    """Launch the CUDA kernel on the current stream (no synchronisation).
-
-    remaining f32[V,K], runnable bool[V,K], vm_capacity f32[V] and
-    req_pes f32[V] on one CUDA device; task_policy an int or an i32[]
-    tensor there.  Returns (rates f32[V,K], dt_min f32[V]).
-    """
-    device = remaining.device
-    if device.type != "cuda":
-        raise ValueError(f"simstep_cuda needs CUDA tensors, got {device}")
-    if remaining.ndim != 2:
-        raise ValueError("simstep: remaining must be [V, K]")
-    v, k = remaining.shape
-    _check("remaining", remaining, torch.float32, (v, k), device)
-    _check("runnable", runnable, torch.bool, (v, k), device)
-    _check("vm_capacity", vm_capacity, torch.float32, (v,), device)
-    _check("req_pes", req_pes, torch.float32, (v,), device)
-    if not isinstance(task_policy, torch.Tensor):
-        task_policy = torch.tensor(int(task_policy), dtype=torch.int32,
-                                   device=device)
-    _check("task_policy", task_policy, torch.int32, (), device)
-
-    rates = torch.empty((v, k), dtype=torch.float32, device=device)
-    dt_min = torch.empty((v,), dtype=torch.float32, device=device)
-    if v == 0:
-        return rates, dt_min
-    if k == 0:
-        return rates, dt_min.fill_(INF)
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.simstep_launch(
-            remaining.data_ptr(), runnable.data_ptr(),
-            vm_capacity.data_ptr(), req_pes.data_ptr(),
-            task_policy.data_ptr(), rates.data_ptr(), dt_min.data_ptr(),
-            v, k, stream)
-    if err != 0:
-        raise RuntimeError(f"simstep kernel launch failed: CUDA error {err}")
-    simstep.launches += 1
-    return rates, dt_min
-
-
-@dataclasses.dataclass
-class DenseIndex:
-    """Map between the flat cloudlet axis [C] and the dense tile [V, K].
-
-    Row r holds, in slot order, the slots with ``vm == r``; the grouped
-    invariant of ``state.make_cloudlets`` makes them one contiguous run.
-    Cells past a row's last slot are padding.  Slots with ``vm`` outside
-    [0, V) appear in no row.
-    """
-    slot: torch.Tensor      # i64[V, K] flat slot of each cell (0 on padding)
-    pad: torch.Tensor       # bool[V, K] padding cell
-    cell: torch.Tensor      # i64[C] flattened dense cell of each slot
-    placed: torch.Tensor    # bool[C] slot has a row (0 <= vm < V)
-
-
-def dense_index(cl_vm: torch.Tensor, n_vms: int) -> DenseIndex:
-    """Build the flat<->dense map for ``cl_vm`` (one host sync for Kmax).
-
-    On the static path ``cl.vm`` never changes, so a run builds it once.
-    """
-    dev = cl_vm.device
-    vm = cl_vm.long()
-    placed = (vm >= 0) & (vm < n_vms)
-    slots = torch.nonzero(placed).view(-1)                  # slot order
-    owner = vm[slots]
-    order = torch.argsort(owner, stable=True)
-    slots, owner = slots[order], owner[order]
-    counts = torch.bincount(owner, minlength=n_vms)
-    k = int(counts.max()) if n_vms and slots.numel() else 0
-    starts = torch.cumsum(counts, 0) - counts
-    col = torch.arange(slots.numel(), device=dev) - starts[owner]
-    slot = torch.zeros((n_vms, k), dtype=torch.long, device=dev)
-    pad = torch.ones((n_vms, k), dtype=torch.bool, device=dev)
-    slot[owner, col] = slots
-    pad[owner, col] = False
-    cell = torch.zeros(vm.shape, dtype=torch.long, device=dev)
-    cell[slots] = owner * k + col
-    return DenseIndex(slot=slot, pad=pad, cell=cell, placed=placed)
-
-
-def to_dense(index: DenseIndex, values: torch.Tensor, fill):
-    """Flat [C] -> dense [V, K]; padding cells hold ``fill``."""
-    return torch.where(index.pad, fill, values[index.slot])
-
-
-def from_dense(index: DenseIndex, dense: torch.Tensor, fill):
-    """Dense [V, K] -> flat [C]; slots without a row hold ``fill``."""
-    if dense.numel() == 0:
-        return torch.full(index.cell.shape, fill, dtype=dense.dtype,
-                          device=dense.device)
-    return torch.where(index.placed, dense.reshape(-1)[index.cell], fill)

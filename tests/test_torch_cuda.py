@@ -14,7 +14,8 @@ import torch
 from repro_torch.core import broker as B
 from repro_torch.core import state as S
 from repro_torch.core.engine import run_stats
-from repro_torch.kernels.simstep import simstep, simstep_ref
+from repro_torch.kernels.simstep import (row_index, simstep, simstep_ragged,
+                                         simstep_ragged_ref, simstep_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +68,76 @@ def test_simstep_wrapper_rejects_bad_inputs(cuda):
         simstep(rem.t(), run.t(), cap, pes, 0)
     with pytest.raises(ValueError):
         simstep(rem, run.cpu(), cap, pes, 0)
+
+
+def _ragged_tile(seed, lengths, device):
+    """VM rows of the given lengths in a shuffled slot order, with runs of
+    slots that belong to no row (vm -1 or V) between some of them, drained
+    slots, an all-idle row, a zero-capacity row and a row with more PEs
+    than slots.  Returns (index, [remaining, runnable, cap, pes])."""
+    rng = np.random.default_rng(seed)
+    v = len(lengths)
+    vm = []
+    for r in rng.permutation(v):
+        if rng.uniform() < 0.3:
+            vm += [int(rng.choice([-1, v]))] * int(rng.integers(1, 4))
+        vm += [int(r)] * int(lengths[r])
+    vm = np.asarray(vm + [-1], np.int32)
+    c = vm.size
+    rem = rng.uniform(0.0, 5000.0, c).astype(np.float32)
+    rem[rng.uniform(size=c) < 0.15] = 0.0
+    run = rng.uniform(size=c) < 0.7
+    cap = rng.uniform(100.0, 2000.0, v).astype(np.float32)
+    pes = rng.integers(1, 4, v).astype(np.float32)
+    rows = rng.permutation(v)
+    run[vm == rows[0]] = False
+    cap[rows[min(1, v - 1)]] = 0.0
+    pes[rows[-1]] = lengths[rows[-1]] + rng.integers(1, 5)
+    index = row_index(torch.from_numpy(vm).to(device), v)
+    return index, [torch.from_numpy(a).to(device)
+                   for a in (rem, run, cap, pes)]
+
+
+RAGGED = {  # row lengths
+    "edges": [0, 1, 31, 32, 33, 64, 1024, 100_000],
+    "short": list(np.random.default_rng(5).integers(0, 80, 300)),
+    "uniform": [10] * 5000,
+    "skewed": [20_000] + [6] * 4999,
+}
+
+
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_simstep_ragged_kernel_matches_plain_version(cuda, case):
+    """Bitwise, both policies, short and long rows; one launch a call."""
+    for seed in range(3):
+        index, (rem, run, cap, pes) = _ragged_tile(seed, RAGGED[case], cuda)
+        for policy in (0, 1):
+            before = simstep.launches
+            pol = torch.tensor(policy, dtype=torch.int32, device=cuda)
+            r, d = simstep_ragged(rem, run, index, cap, pes, pol)
+            r_ref, d_ref = simstep_ragged_ref(rem, run, index, cap, pes, pol)
+            torch.cuda.synchronize()
+            assert simstep.launches == before + 1
+            assert torch.equal(r, r_ref) and torch.equal(d, d_ref), (
+                case, seed, policy)
+
+
+def test_simstep_ragged_wrapper_rejects_bad_inputs(cuda):
+    index, (rem, run, cap, pes) = _ragged_tile(0, RAGGED["edges"], cuda)
+    strided = torch.empty(2 * rem.numel(), device=cuda)[::2]
+    cpu_index = row_index(index.slot_row.cpu(), index.n_rows)
+    for args, error in (
+            ((rem.double(), run, index, cap, pes), TypeError),
+            ((rem, run.to(torch.uint8), index, cap, pes), TypeError),
+            ((rem[:-1], run, index, cap, pes), ValueError),
+            ((rem, run, index, cap[:-1], pes), ValueError),
+            ((rem, run.cpu(), index, cap, pes), ValueError),
+            ((strided.copy_(rem), run, index, cap, pes), ValueError),
+            ((rem, run, cpu_index, cap, pes), ValueError)):
+        before = simstep.launches
+        with pytest.raises(error):
+            simstep_ragged(*args, 0)
+        assert simstep.launches == before
 
 
 @pytest.mark.parametrize("policy", [S.SPACE_SHARED, S.TIME_SHARED])

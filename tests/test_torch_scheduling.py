@@ -10,10 +10,11 @@ from repro.core import scheduling as JSCH
 from repro.core import state as JS
 from repro.core.engine import run as j_run
 from repro.core.provisioning import provision_pending as j_provision
+from repro.oracle import simulate_dense
 from repro_torch.core import scheduling
 from repro_torch.core import state as S
 from repro_torch.core.convert import from_arrays
-from repro_torch.core.engine import run
+from repro_torch.core.engine import run, run_stats
 from repro_torch.core.provisioning import provision_pending
 
 
@@ -138,3 +139,47 @@ def test_rates_respect_host_capacity():
         cap = _np(dc.hosts.capacity_mips)
         for h in range(8):
             assert rates[host_of == h].sum() <= cap[h] * (1 + 1e-5)
+
+
+def _skewed(vm_policy, task_policy, seed=0):
+    """200 VMs, one of which holds 2,000 of the 4,000 cloudlets (the rest
+    spread at random, some VMs with none).  Every cloudlet is 125 MI on
+    1000-MIPS PEs, so a space-shared completion step is 0.125 s, exact in
+    f32: the f32 engine sees the f64 oracle's ties as ties, and the clock
+    and joule accumulators stay small (makespan <= 85 s, <= 0.25 W a
+    host), as the conformance generators keep them."""
+    rng = np.random.default_rng(seed)
+    nv, big, vbig = 200, 2000, 57
+    spread = rng.multinomial(4000 - big, np.ones(nv - 1) / (nv - 1))
+    counts = np.insert(spread, vbig, big)
+    pes = rng.integers(1, 3, nv)
+    pes[vbig] = 4
+    return S.make_datacenter(
+        S.make_hosts(rng.choice([1, 2, 4], 150), 1000.0, 4096.0, 1000.0,
+                     1e6, idle_w=0.05, peak_w=0.25, device="cpu"),
+        S.make_vms(pes, 1000.0, 64.0, 1.0, 10.0, device="cpu"),
+        S.make_cloudlets(np.repeat(np.arange(nv, dtype=np.int32), counts),
+                         125.0, device="cpu"),
+        vm_policy=vm_policy, task_policy=task_policy,
+        reserve_pes=bool(vm_policy), device="cpu")
+
+
+@pytest.mark.parametrize("vm_policy,task_policy", POLICY_GRID)
+def test_skewed_binding_matches_oracle(vm_policy, task_policy):
+    """A skewed binding runs to quiescence (V x Kmax is 100x C) and meets
+    the docs/conformance.md contract against the f64 oracle."""
+    dc = _skewed(vm_policy, task_policy)
+    out, stats = run_stats(dc, max_steps=100_000)
+    res = simulate_dense(dc)
+    ctx = str((vm_policy, task_policy))
+    np.testing.assert_array_equal(_np(out.cloudlets.state), res.cl_state,
+                                  err_msg=ctx)
+    assert np.all(res.cl_state == S.CL_DONE), ctx
+    assert stats.n_events == res.n_events, ctx
+    np.testing.assert_array_equal(_np(out.vms.host), res.vm_host, err_msg=ctx)
+    for name in ("finish_time", "start_time"):
+        np.testing.assert_allclose(
+            _np(getattr(out.cloudlets, name)).astype(np.float64),
+            getattr(res, name), rtol=0, atol=1e-3, err_msg=f"{ctx} {name}")
+    np.testing.assert_allclose(_np(out.hosts.energy_j), res.energy_j, rtol=0,
+                               atol=1e-3, err_msg=ctx)

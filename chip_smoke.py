@@ -36,8 +36,24 @@ script exits non-zero:
      requests on 8 slots with each; prefill against token-by-token
      decode at full width in f32, depth cut to 4 layers.
 
-Phases 3, 4 and 4b are the simulator's main path: simstep's launch count
-is set to 0 just before phase 3 and read just after phase 4b.  The full-depth
+  6. the event-horizon leap: a staggered static scenario (512 hosts of
+     2 PEs, 256 VMs, 3 waves) leap on and leap off, bitwise equal, with
+     fewer full steps on;
+  7. the paper's largest datacenter under the 2x2 policy grid in one
+     ``run_grid`` call (4 lanes, 2,000,000 slots a simstep launch): every
+     lane equals its single run bitwise and meets the §5 closed forms;
+  8. 64 lanes (16 seeds x the grid) of 256 shared hosts, 4 VMs on every
+     host: every lane equals its single run bitwise;
+  9. the §5 CLI (``repro_torch.launch.simulate --hosts 10000 --trace 64``)
+     against the closed forms.
+
+Phase 2 also holds simstep with a task policy per row (a batch's lanes)
+against its plain version, and times it at 4 lanes of [50000, 10].
+
+Phases 3, 4 and 4b are the simulator's main path, and 6, 7, 8 and 9 each
+a path of its own: simstep's launch count is set to 0 just before phase 3
+and read just after phase 4b, and set to 0 just before and read just
+after each run of the later ones.  The full-depth
 prefills are the LM slice's main path: the flash-attention and
 selective-scan counts are set to 0 just before each and read just after,
 and the bf16 prefill's dtype must route its flash launches to the
@@ -67,6 +83,7 @@ SCAN_DESIGN = "lane-split-cp.async"
 PREFILL_LEN = 2048
 RTOL = ATOL = 1e-6              # tests/test_simstep_parity.py's tolerance
 SIMSTEP_DESIGN = "ragged-packed-warp"
+CL_DONE = 2                     # repro_torch.core.state.CL_DONE
 # simstep's ragged edge tiles (row lengths): both sides of the 32-slot
 # window and of a 1,024-slot chunk, a 100,000-slot row; rows of 30-70
 # slots; the main path's uniform rows; the skewed datacenter's rows
@@ -191,15 +208,17 @@ def ragged_tile(seed, lengths, device, gaps=True):
                    for a in (rem, run, cap, pes)]
 
 
-def simstep_bound(index):
+def simstep_bound(index, per_row=False):
     """(bound ms, bound_by, bytes) of one simstep call on ``index``: each
     slot's remaining, runnable and row id read and its rate written, each
-    row's capacity and pes read and dt_min written, the window table, the
-    empty-row list, the chunk table and the long rows' start and length
-    read once; ~12 float operations a slot."""
+    row's capacity and pes (and, ``per_row``, task policy) read and
+    dt_min written, the window table, the empty-row list, the chunk table
+    and the long rows' start and length read once; ~12 float operations
+    a slot."""
     c, v = index.n_slots, index.n_rows
     n_long = int(index.chunk_first.unique().numel())
-    moved = (c * (4 + 1 + 4 + 4) + v * (4 + 4 + 4) + 4
+    moved = (c * (4 + 1 + 4 + 4) + v * (4 + 4 + 4 + 4 * per_row)
+             + 4 * (not per_row)
              + 4 * index.window.numel() + 4 * index.empty.numel()
              + 8 * index.chunk_row.numel() + 8 * n_long)
     ops = c * 12
@@ -211,6 +230,7 @@ def simstep_bound(index):
 def phase_kernels(device):
     """Phase 2: simstep against its plain version; returns its record
     (without the main path's launch count)."""
+    import numpy as np
     import torch
     from repro_torch.kernels.simstep import (simstep, simstep_ragged,
                                              simstep_ragged_ref, simstep_ref)
@@ -257,6 +277,26 @@ def phase_kernels(device):
     check(rbitwise == rcases and bitwise == cases,
           "simstep is not bitwise equal to its plain version")
 
+    # a task policy per row, as a batch of lanes gives it
+    pcases = pbitwise = 0
+    for name, lengths in RAGGED.items():
+        for seed in range(2):
+            index, (rem, run, cap, pes) = ragged_tile(seed, lengths, device)
+            pol = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, 2, index.n_rows).astype(np.int32)).to(device)
+            got = simstep_ragged(rem, run, index, cap, pes, pol)
+            want = simstep_ragged_ref(rem, run, index, cap, pes, pol)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                worst = max(worst, float((g - w).abs().max()))
+            pcases += 1
+            pbitwise += all(torch.equal(g, w) for g, w in zip(got, want))
+    print(f"[kernels] simstep_ragged with a task policy per row (a random "
+          f"mix) vs plain version: {pcases} ragged tiles ({', '.join(RAGGED)}"
+          f"): bitwise equal on {pbitwise}/{pcases}")
+    check(pbitwise == pcases, "simstep with a task policy per row is not "
+          "bitwise equal to its plain version")
+
     times = {}
     pol = torch.tensor(1, dtype=torch.int32, device=device)
     for name in ("uniform", "skewed"):
@@ -276,6 +316,27 @@ def phase_kernels(device):
               f"(device, graph replay), eager call {call_ms!r} ms, plain "
               f"version {plain_ms!r} ms, bound {bound_ms!r} ms ({moved} "
               f"bytes, {bound_by}), library call: none")
+    # the fused grid's level 2: 4 lanes of [50000, 10], the task policy
+    # of lane p on its rows (policy_grid's 0, 1, 0, 1)
+    index, (rem, run, cap, pes) = ragged_tile(0, [10] * 200_000, device,
+                                              gaps=False)
+    pol = torch.tensor([0, 1, 0, 1], dtype=torch.int32,
+                       device=device).repeat_interleave(50_000)
+    got = simstep_ragged(rem, run, index, cap, pes, pol)
+    want = simstep_ragged_ref(rem, run, index, cap, pes, pol)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "simstep on 4 lanes with a task policy per row disagrees")
+    call = lambda: simstep_ragged(rem, run, index, cap, pes, pol)
+    grid_ms = device_ms(call)
+    grid_plain_ms = device_ms(
+        lambda: simstep_ragged_ref(rem, run, index, cap, pes, pol))
+    grid_bound_ms, grid_by, moved = simstep_bound(index, per_row=True)
+    print(f"[kernels] simstep_ragged 4 lanes x [50000, 10] ({index.n_slots} "
+          f"slots, {index.n_rows} rows, a task policy per row) on the "
+          f"{SIMSTEP_DESIGN} design: kernel {grid_ms!r} ms (device, graph "
+          f"replay), plain version {grid_plain_ms!r} ms, bound "
+          f"{grid_bound_ms!r} ms ({moved} bytes, {grid_by}), bitwise equal")
     ms, plain_ms, bound_ms, bound_by = times["uniform"]
     return {"name": "simstep", "route": "cuda", "design": SIMSTEP_DESIGN,
             "source": "src/repro_torch/kernels/simstep/csrc/simstep.cu",
@@ -284,7 +345,10 @@ def phase_kernels(device):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "skewed_ms": times["skewed"][0],
             "skewed_plain_ms": times["skewed"][1],
-            "skewed_bound_ms": times["skewed"][2]}
+            "skewed_bound_ms": times["skewed"][2],
+            "per_row_slots": index.n_slots, "per_row_ms": grid_ms,
+            "per_row_plain_ms": grid_plain_ms,
+            "per_row_bound_ms": grid_bound_ms}
 
 
 def section5(n_hosts, n_vms, policy, device):
@@ -377,9 +441,9 @@ def phase_section5(device, card, n_hosts=10_000):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = simstep.launches - before
-        check(launched == stats.n_steps >= stats.n_events,
-              f"simstep launches {launched}, steps {stats.n_steps}, events "
-              f"{stats.n_events}")
+        check(launched == stats.n_steps >= stats.n_full,
+              f"simstep launches {launched}, steps {stats.n_steps}, full "
+              f"steps {stats.n_full}")
         check_section5(final, stats, policy, 50, f"s5-10k-{policy}")
         print(f"[s5-10k-{policy}] wall {wall!r} s, simstep launches "
               f"{launched} ({card})")
@@ -450,7 +514,7 @@ def phase_scale(device, card, n_hosts=100_000, n_vms=50_000):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = simstep.launches - before
-        check(launched == stats.n_steps >= stats.n_events,
+        check(launched == stats.n_steps >= stats.n_full,
               f"simstep launches {launched}, steps {stats.n_steps}")
         tag = f"s5-100k-{policy}"
         check_section5(final, stats, policy, n_vms, tag)
@@ -539,6 +603,235 @@ def phase_skewed(device, card, n_hosts=100_000, n_vms=50_000, big=200_000,
           f"{torch.cuda.max_memory_allocated()} bytes ({card})")
 
 
+def staggered(device, n_hosts=512, n_vms=256, waves=3, seed=0):
+    """tests/test_leap_parity.py's drain-safe workload (its recipe,
+    copied): hosts of 2 PEs and 2 GB, 1-PE VMs, waves of 600,000 MI
+    every 300 s with each cloudlet's length jittered by up to 40%,
+    reserved PEs, time-shared VMs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import broker as B
+    from repro_torch.core import state as S
+    rng = np.random.default_rng(seed)
+    hosts = S.make_uniform_hosts(n_hosts, pes=2, ram=2048.0, device=device)
+    vms = B.build_fleet([B.VmSpec(count=n_vms, pes=1, mips=1000.0,
+                                  ram=512.0, bw=10.0, size=1000.0)],
+                        device=device)
+    cl = B.build_waves(n_vms, B.WaveSpec(waves=waves, length_mi=600_000.0,
+                                         period=300.0), device=device)
+    jit = torch.from_numpy((1.0 + 0.4 * rng.random(
+        tuple(cl.length.shape))).astype(np.float32)).to(device)
+    cl = dataclasses.replace(cl, length=cl.length * jit,
+                             remaining=cl.remaining * jit)
+    return S.make_datacenter(hosts, vms, cl, vm_policy=S.SPACE_SHARED,
+                             task_policy=S.TIME_SHARED, reserve_pes=True,
+                             device=device)
+
+
+def same_state(a, b):
+    """Every leaf of two states equal, bit for bit."""
+    import torch
+    from repro_torch.core.state import tensor_leaves
+    return all(bool(torch.equal(x, y))
+               for x, y in zip(tensor_leaves(a), tensor_leaves(b)))
+
+
+def lane(batch, *idx):
+    from repro_torch.core.state import map_tensors
+    return map_tensors(lambda t: t[idx], batch)
+
+
+def phase_leap(device, card, launched, n_hosts=512, n_vms=256):
+    """Phase 6: the event-horizon leap on the card, on a staggered static
+    scenario, leap on against leap off: bitwise equal, some step commits
+    more than one event, and the leap takes fewer full steps."""
+    import torch
+    from repro_torch.core.engine import run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    dc = staggered(device, n_hosts, n_vms)
+    out = {}
+    for leap in (False, True):
+        torch.cuda.synchronize()
+        simstep.launches = 0
+        t0 = time.perf_counter()
+        final, stats = run_stats(dc, leap=leap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched["leap" if leap else "leap-off"] = simstep.launches
+        check(simstep.launches == stats.n_steps > 0,
+              f"leap={leap}: launches {simstep.launches}, steps "
+              f"{stats.n_steps}")
+        out[leap] = (final, stats, wall)
+    (off, s_off, w_off), (on, s_on, w_on) = out[False], out[True]
+    n_cl = 3 * n_vms
+    done = int((on.cloudlets.state == CL_DONE).sum())
+    check(done == n_cl, f"leap: {done}/{n_cl} done")
+    check(same_state(on, off), "leap on != leap off")
+    check(s_on.n_events == s_off.n_events == s_off.n_full,
+          f"leap: events {s_on.n_events} vs {s_off.n_events}")
+    check(s_on.n_events > s_on.n_full, "leap: no step committed more than "
+          "one event")
+    check(s_on.n_full < s_off.n_full, f"leap: {s_on.n_full} full steps, "
+          f"leap off {s_off.n_full}")
+    print(f"[leap] staggered {n_hosts} hosts x 2 PEs, {n_vms} VMs, {n_cl} "
+          f"cloudlets: leap on == leap off bitwise, {s_on.n_events} events; "
+          f"leap off {s_off.n_full} full steps in {w_off!r} s "
+          f"({s_off.n_blocks} host checks); leap on {s_on.n_full} full "
+          f"steps and {s_on.n_events - s_on.n_full} leapt events "
+          f"({s_on.n_leap} leap iterations, {s_on.n_blocks} host checks) "
+          f"in {w_on!r} s ({card})")
+
+
+def phase_grid(device, card, launched, n_hosts=100_000, n_vms=50_000):
+    """Phase 7: the paper's largest datacenter under the 2x2 policy grid
+    in one run_grid call: 4 lanes, 4 x 500,000 slots in each simstep
+    launch.  Every lane equals its single run bit for bit and meets the
+    §5 closed forms for its task policy."""
+    import dataclasses
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import batched_run_stats, run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    batch = sweep.stack_scenarios([section5(n_hosts, n_vms, 0, device)])
+    vm_p, task_p = sweep.policy_grid(device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    simstep.launches = 0
+    t0 = time.perf_counter()
+    grid = sweep.run_grid(batch, vm_p, task_p, max_steps=8192)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched["grid-100k"] = n_grid = simstep.launches
+    peak = torch.cuda.max_memory_allocated()
+    _, gstats = batched_run_stats(sweep.fuse_grid(batch, vm_p, task_p),
+                                  max_steps=8192)
+    check(n_grid == gstats.n_steps > 0, f"grid: {n_grid} simstep launches "
+          f"for {gstats.n_steps} full steps of 4 lanes")
+    singles, n_single = 0.0, 0
+    for p, (vp, tp) in enumerate(zip(vm_p.tolist(), task_p.tolist())):
+        dc = dataclasses.replace(section5(n_hosts, n_vms, tp, device),
+                                 vm_policy=vm_p[p].clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single, stats = run_stats(dc, max_steps=8192)
+        torch.cuda.synchronize()
+        singles += time.perf_counter() - t0
+        n_single += stats.n_steps
+        check(same_state(lane(grid, p, 0), single),
+              f"grid lane {p} ({vp},{tp}) != its single run")
+        check_section5(single, stats, tp, n_vms, f"grid-{vp}{tp}")
+    print(f"[grid-100k] {n_hosts} hosts, {n_vms} VMs, {10 * n_vms} "
+          f"cloudlets x policy_grid() in one run_grid: 4 lanes, "
+          f"{4 * 10 * n_vms} slots a simstep launch; every lane == its "
+          f"single run bitwise and meets the §5 closed forms; batched wall "
+          f"{wall!r} s, the four single runs {singles!r} s; simstep "
+          f"launches {n_grid} (single runs {n_single}); peak allocated "
+          f"{peak} bytes ({card})")
+
+
+def shared_hosts(seed, n_hosts, device):
+    """benchmarks/bench_policies.py::bench_sweep's lanes with shared
+    hosts: 4 VMs on every 1-PE host, PEs not reserved, 4 waves of a
+    per-seed length.  Two VM classes of per-seed MIPS, each in one run
+    of slots (so first fit places a run at a time): 2*H VMs of 768 MB,
+    two to a 2 GB host, then 2*H of 256 MB in the 512 MB left.  A host's
+    time-shared demand is a sum of unequal f32 terms, whose value
+    depends on the order of the additions."""
+    import numpy as np
+    from repro_torch.core import broker as B
+    from repro_torch.core import state as S
+    rng = np.random.default_rng(seed)
+    half = 2 * n_hosts
+    mips = np.repeat(np.round(rng.uniform(200.0, 1000.0, 2), 3), half)
+    length = float(rng.integers(600, 1200) * 1000)
+    return S.make_datacenter(
+        S.make_uniform_hosts(n_hosts, ram=2048.0, idle_w=100.0,
+                             peak_w=200.0, device=device),
+        S.make_vms(np.ones(2 * half), mips, np.repeat([768.0, 256.0], half),
+                   10.0, 1000.0, device=device),
+        B.build_waves(2 * half, B.WaveSpec(waves=4, length_mi=length,
+                                           period=600.0), device=device),
+        reserve_pes=False, device=device)
+
+
+def phase_lanes(device, card, launched, n_seeds=16, n_hosts=256):
+    """Phase 8: 64 lanes (16 seeds x the 2x2 grid) of shared hosts in one
+    run_grid: 4 VMs placed on every host, and every lane equals its single
+    run bit for bit (the check on the order of per-host sums)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    base = [shared_hosts(seed, n_hosts, device) for seed in range(n_seeds)]
+    vm_p, task_p = sweep.policy_grid(device=device)
+    torch.cuda.synchronize()
+    simstep.launches = 0
+    t0 = time.perf_counter()
+    grid = sweep.run_grid(sweep.stack_scenarios(base), vm_p, task_p,
+                          max_steps=1 << 20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched["lanes-64"] = n_grid = simstep.launches
+    hosts = grid.vms.host.reshape(-1, 4 * n_hosts).cpu().numpy()
+    per_host = np.stack([np.bincount(h, minlength=n_hosts) for h in hosts])
+    check(bool((per_host == 4).all()), "lanes: not 4 VMs on every host")
+    singles, events, lanes = 0.0, 0, 4 * n_seeds
+    for p in range(4):
+        for b, dc in enumerate(base):
+            cell = dataclasses.replace(dc, vm_policy=vm_p[p].clone(),
+                                       task_policy=task_p[p].clone())
+            t0 = time.perf_counter()
+            single, stats = run_stats(cell, max_steps=1 << 20)
+            torch.cuda.synchronize()
+            singles += time.perf_counter() - t0
+            events += stats.n_events
+            check(same_state(lane(grid, p, b), single),
+                  f"lanes: lane {p},{b} != its single run")
+            done = int((single.cloudlets.state == CL_DONE).sum())
+            check(done == 16 * n_hosts, f"lanes: {done} done in {p},{b}")
+    print(f"[lanes-64] {lanes} lanes ({n_seeds} seeds x the 2x2 grid) of "
+          f"{n_hosts} hosts with 4 VMs on every host, reserve_pes off, 4 "
+          f"waves: every lane == its single run bitwise; {events} events; "
+          f"batched wall {wall!r} s ({n_grid} simstep launches), the "
+          f"{lanes} single runs {singles!r} s ({card})")
+
+
+def phase_simulate(device, card, launched, n_hosts=10_000):
+    """Phase 9: the §5 CLI (repro_torch.launch.simulate) on the card,
+    --trace 64: completions and makespan equal the closed forms."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels.simstep import simstep
+
+    from repro_torch.launch import simulate
+    buf = io.StringIO()
+    simstep.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        _, rep = simulate.main(["--hosts", str(n_hosts), "--trace", "64",
+                                "--device", str(device)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched["simulate"] = simstep.launches
+    check(int(rep.n_completed) == 500 and int(rep.n_failed) == 0,
+          f"simulate: {int(rep.n_completed)}/500 done")
+    check(float(rep.makespan) == 12000.0,
+          f"simulate: makespan {float(rep.makespan)!r}")
+    lines = buf.getvalue().splitlines()
+    for line in lines[-4:]:
+        print(line)
+    print(f"[simulate-cli] --hosts {n_hosts} --trace 64 on the card: 500/500 "
+          f"done, makespan 12000.0 s; wall {wall!r} s, {simstep.launches} "
+          f"simstep launches ({card})")
+
+
 def phase_profile(device, card):
     """Where a §5 run's device time goes: profiler traces of the
     time-shared runs at both scales (after the main path's counts are
@@ -576,6 +869,13 @@ def phase_profile(device, card):
               f"{sum(e.count for e in events)} device ops; top: "
               + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms "
                           f"x{e.count}" for e in top) + f" ({card})")
+    # the fused 2x2 grid at 100,000 hosts: 4 lanes a launch
+    from repro_torch.core import sweep
+    batch = sweep.stack_scenarios([section5(100_000, 50_000, 0, device)])
+    grid = sweep.policy_grid(device=device)
+    sweep.run_grid(batch, *grid, max_steps=8192)          # warm
+    profile_top(lambda: sweep.run_grid(batch, *grid, max_steps=8192),
+                "s5 100000 hosts x policy_grid() in one run_grid", card)
 
 
 def tree_bytes(tree):
@@ -992,12 +1292,21 @@ def main():
     record = phase_kernels(device)
     phase_agreement(device)
 
-    simstep.launches = 0        # the main path: phases 3, 4 and 4b
+    # the simulator's main paths: phases 3, 4 and 4b, then each of 6-9;
+    # simstep's count is set to 0 just before each and read just after
+    simstep.launches = 0
     phase_section5(device, card)
     phase_scale(device, card)
     phase_skewed(device, card)
-    record["launches"] = simstep.launches
-    check(record["launches"] > 0, "simstep never launched on the main path")
+    launched = {"section5": simstep.launches}
+    phase_leap(device, card, launched)
+    phase_grid(device, card, launched)
+    phase_lanes(device, card, launched)
+    phase_simulate(device, card, launched)
+    for path, n in launched.items():
+        check(n > 0, f"simstep never launched on the {path} path")
+    record["launches"] = sum(launched.values())
+    record["launches_by_path"] = launched
     phase_profile(device, card)
 
     # the LM slice compares f32 results: no TF32 in products or convolutions

@@ -7,7 +7,10 @@
   segments.py      grouped-segment primitives (ranks/cumsums/mins per run)
   scheduling.py    two-level space/time-shared shares (Fig. 3 2x2)
   provisioning.py  VMProvisioner + admission (first/best/worst-fit, ...)
-  engine.py        discrete-event engine, static scenarios
-  broker.py        DatacenterBroker builders + result collection
-  market.py        §3.3 cost model: quotes and bills
+  engine.py        discrete-event engine, static scenarios: full steps,
+                   the event-horizon leap, batched runs over lanes
+  sweep.py         stacked scenario batches and fused policy grids
+  broker.py        DatacenterBroker builders, collection, VM destruction
+  market.py        §3.3 cost model: quotes, bills, surge pricing
+  telemetry.py     NumPy reducers of run_trace's records
 """

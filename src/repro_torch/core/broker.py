@@ -12,7 +12,7 @@ import torch
 from repro_torch.core import state as S
 
 __all__ = ["VmSpec", "WaveSpec", "build_fleet", "build_waves",
-           "BrokerReport", "collect"]
+           "BrokerReport", "collect", "nan_p99", "destroy_idle_vms"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +75,23 @@ class BrokerReport(NamedTuple):
     bw_cost: torch.Tensor
 
 
+def nan_p99(x: torch.Tensor) -> torch.Tensor:
+    """The 99th percentile of the non-NaN values of ``x`` by NumPy's
+    default linear rule: sorted, position 0.99 * (n - 1), interpolated
+    between its floor and its ceiling.  NaN when every value is NaN.  No
+    size cap (``torch.nanquantile`` refuses more than 2^24 values), and
+    no host sync."""
+    x = x.reshape(-1)
+    vals = torch.sort(x).values                 # NaNs sort last
+    n = (~torch.isnan(x)).sum()
+    pos = 0.99 * (n - 1).clamp(min=0).to(torch.float64)
+    lo = pos.floor()
+    a = vals[lo.long()].to(torch.float64) if x.numel() else pos
+    b = vals[pos.ceil().long()].to(torch.float64) if x.numel() else pos
+    p99 = a + (b - a) * (pos - lo)
+    return torch.where(n > 0, p99, float("nan")).to(x.dtype)
+
+
 def collect(dc: S.DatacenterState) -> BrokerReport:
     """Reduce a final datacenter state into the user-facing report."""
     cl = dc.cloudlets
@@ -89,7 +106,7 @@ def collect(dc: S.DatacenterState) -> BrokerReport:
         n_failed=count(cl.state == S.CL_FAILED),
         makespan=torch.where(done, cl.finish_time, -float("inf")).amax(),
         mean_response=torch.nanmean(resp),
-        p99_response=torch.nanquantile(resp, 0.99),
+        p99_response=nan_p99(resp),
         mean_exec=torch.nanmean(exe),
         total_cost=dc.acct.total,
         cpu_cost=dc.acct.cpu_cost,
@@ -97,3 +114,43 @@ def collect(dc: S.DatacenterState) -> BrokerReport:
         storage_cost=dc.acct.storage_cost,
         bw_cost=dc.acct.bw_cost,
     )
+
+
+def destroy_idle_vms(dc: S.DatacenterState) -> S.DatacenterState:
+    """VM destruction (§3.1 life cycle): release the resources of drained
+    VMs.
+
+    A VM is drained when it is ACTIVE, has no CREATED cloudlet and had
+    at least one cloudlet.  It goes to ``VM_DESTROYED`` with host -1, and
+    its RAM, BW and storage return to its host's pools; its PEs return
+    only under ``reserve_pes``.
+    """
+    vms, cl, hosts = dc.vms, dc.cloudlets, dc.hosts
+    nv = vms.req_pes.shape[0]
+    nh = hosts.num_pes.shape[0]
+    seg = torch.clamp(cl.vm, 0, nv - 1).long()
+    per_vm = lambda m: torch.zeros((nv,), dtype=torch.int32,
+                                   device=m.device).index_add_(
+        0, seg, m.to(torch.int32))
+    open_work = per_vm(cl.state == S.CL_CREATED)
+    had_any = per_vm(cl.state != S.CL_EMPTY)
+    drained = (vms.state == S.VM_ACTIVE) & (open_work == 0) & (had_any > 0)
+
+    h = torch.clamp(vms.host, 0, nh - 1).long()
+    w = drained.to(torch.float32)
+    give = lambda pool, amt: pool.index_add(0, h, w * amt)
+    reserve = torch.where(dc.reserve_pes == 1,
+                          vms.req_pes.to(torch.float32), 0.0)
+    return dataclasses.replace(
+        dc,
+        hosts=dataclasses.replace(
+            hosts,
+            free_ram=give(hosts.free_ram, vms.ram),
+            free_bw=give(hosts.free_bw, vms.bw),
+            free_storage=give(hosts.free_storage, vms.size),
+            free_pes=give(hosts.free_pes, reserve)),
+        vms=dataclasses.replace(
+            vms,
+            state=torch.where(drained, S.VM_DESTROYED,
+                              vms.state).to(torch.int32),
+            host=torch.where(drained, -1, vms.host).to(torch.int32)))

@@ -20,7 +20,7 @@ from repro_torch.device import resolve_device
 
 __all__ = ["K_CURVE", "SPEC_G4_WATTS", "SPEC_G5_WATTS", "linear_curve",
            "normalize_watts", "make_power_model", "with_power_model",
-           "host_power", "host_utilization", "step_power",
+           "host_power", "host_utilization", "utilization_of", "step_power",
            "energy_total_j"]
 
 # control points per curve: utilizations 0%, 10%, ..., 100% (SPECpower grid)
@@ -98,38 +98,42 @@ def with_power_model(hosts, idle_w, peak_w, curve=None):
 
 
 def host_power(hosts, util: torch.Tensor) -> torch.Tensor:
-    """f32[H] watts at per-host utilization ``util`` (clamped to [0, 1]);
-    invalid hosts draw exactly 0 W."""
+    """f32[..., H] watts at per-host utilization ``util`` (clamped to
+    [0, 1]; any leading lane axes); invalid hosts draw exactly 0 W."""
     u = torch.clamp(util, 0.0, 1.0) * (K_CURVE - 1)
     lo = torch.clamp(u.to(torch.int32), 0, K_CURVE - 2)
     frac = u - lo.to(torch.float32)
-    lo = lo.long()[:, None]
-    c_lo = torch.gather(hosts.power_curve, 1, lo)[:, 0]
-    c_hi = torch.gather(hosts.power_curve, 1, lo + 1)[:, 0]
+    lo = lo.long()[..., None]
+    c_lo = torch.gather(hosts.power_curve, -1, lo)[..., 0]
+    c_hi = torch.gather(hosts.power_curve, -1, lo + 1)[..., 0]
     c = c_lo + (c_hi - c_lo) * frac
     watts = hosts.idle_w + (hosts.peak_w - hosts.idle_w) * c
     return torch.where(hosts.valid, watts, 0.0)
 
 
+def utilization_of(hosts, consumed: torch.Tensor) -> torch.Tensor:
+    """f32[..., H] utilization from each host's consumed MIPS (f64, as
+    ``scheduling.host_consumed`` sums them), rounded to f32 once."""
+    cap = hosts.capacity_mips
+    return torch.where(cap > 0.0, consumed.view(cap.shape).to(torch.float32)
+                       / torch.clamp(cap, min=1e-30), 0.0)
+
+
 def host_utilization(dc, rates: torch.Tensor) -> torch.Tensor:
     """f32[H] consumed MIPS / capacity MIPS per host, given cloudlet rates.
 
-    The per-host sum runs through ``index_add_`` in f64, rounded to f32
-    once: a host may carry hundreds of thousands of cloudlets (a skewed
-    binding), whose f32 running sum drifts by 1e-4 relative and more.
-    Its order differs from XLA's (and is atomic on CUDA), so compare it
-    with the JAX package by tolerance.
+    The per-host sum runs in f64 (``scheduling.host_consumed``): over
+    each VM's cloudlets, then over each host's VMs in a fixed order.  Its
+    order differs from XLA's, so compare it with the JAX package by
+    tolerance.
     """
-    nh = dc.hosts.num_pes.shape[0]
-    nv = dc.vms.req_pes.shape[0]
-    host_of_cl = dc.vms.host[torch.clamp(dc.cloudlets.vm, 0, nv - 1).long()]
-    consumed = torch.zeros((nh,), dtype=torch.float64,
-                           device=rates.device).index_add_(
-        0, torch.clamp(host_of_cl, 0, nh - 1).long(),
-        rates.to(torch.float64)).to(torch.float32)
-    cap = dc.hosts.capacity_mips
-    return torch.where(cap > 0.0, consumed / torch.clamp(cap, min=1e-30),
-                       0.0)
+    # imported here: scheduling imports state, which imports this module
+    from repro_torch.core import scheduling
+    batch = scheduling.lane_axis(dc)
+    lanes = scheduling.lanes_of(batch)
+    plan = scheduling.host_plan(batch, lanes)
+    return utilization_of(dc.hosts,
+                          scheduling.host_consumed(rates, lanes, plan))
 
 
 def step_power(dc, rates: torch.Tensor) -> torch.Tensor:

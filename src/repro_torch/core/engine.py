@@ -8,22 +8,35 @@ collapses into min-reductions:
                       submit times        of future cloudlets,
                       submit times        of pending VMs )
 
-and the advance is one fused multiply-subtract.  One ``step`` is one
+and the advance is one fused multiply-subtract.  A *full step* is one
 event: provision due VMs, fix every rate (two-level scheduling, level 2
 through the ``simstep`` kernel), jump the clock, commit progress,
 completions, §3.3 costs and per-host joules.
 
-This slice ports the static path: no event table, migration, network,
-autoscaler, metrics plane or event-horizon leap.  ``run`` refuses a
-scenario that needs one of them.
+The event-horizon leap (``leap``, on by default as in the JAX engine):
+after a full step that ends in a completion, while no decision can
+intervene — no arrival before the next completion, no completion that
+would reshuffle a surviving rate (``_drain_safe``) — further completions
+commit on the step's frozen rates, re-masked, with the step's own f32
+arithmetic and no rate pass (``_body``).  Leap on gives the same bits as
+leap off.
 
-``run`` steps in blocks so the host waits for the device once per block,
-not once per event.  A step at quiescence is a bit-exact fixed point, and
-every other reason to stop — ``max_steps``, ``horizon``, a VM whose
-submit time has come — is masked per step on the device: a masked step
-commits nothing, and every later step of its block is masked too.  At the
-block boundary the host provisions the due VMs and goes on, which
-reproduces the JAX engine's sequence of steps exactly.
+Every run is a batch of lanes (a single state is a batch of one; see
+``core/scheduling.py``), and the host waits for the device once per
+block, not once per event.  A step at quiescence is a bit-exact fixed
+point, and every other reason for a lane to stop — ``max_steps``,
+``horizon``, a VM whose submit time has come, an open leap window — is
+masked per lane and per step on the device: a masked step commits
+nothing.  At a block boundary the host reads one small tensor: it runs
+a block of leap iterations while some lane's window is open, else it
+provisions the due lanes, one after another, and runs a block of full
+steps.  The blocks' lengths adapt to what the last block did; the
+result does not depend on them, and each lane takes the JAX engine's
+sequence of events exactly.
+
+This slice ports the static path: no event table, migration, network,
+autoscaler or metrics plane.  ``run`` refuses a scenario that needs one
+of them.
 """
 from __future__ import annotations
 
@@ -36,12 +49,16 @@ import torch
 from repro_torch.core import energy, scheduling
 from repro_torch.core.provisioning import (FIRST_FIT, alive_fleet,
                                            pending_due, provision_pending)
+from repro_torch.core.scheduling import (HostPlan, Lanes, host_plan,
+                                         lane_axis, lane_min, lanes_of)
+from repro_torch.core.segments import pairwise_sum
 from repro_torch.core.state import (CL_CREATED, CL_DONE, INF, VM_PENDING,
-                                    DatacenterState)
-from repro_torch.kernels.simstep.ops import RowIndex, row_index
+                                    DatacenterState, map_tensors,
+                                    tensor_leaves, with_leaves)
 
-__all__ = ["step", "run", "run_stats", "RunStats", "StepRecord",
-           "wants_dynamic", "wants_network", "wants_elastic", "wants_probes"]
+__all__ = ["step", "run", "run_stats", "run_trace", "batched_run",
+           "batched_run_stats", "RunStats", "StepRecord", "wants_dynamic",
+           "wants_network", "wants_elastic", "wants_probes"]
 
 # completion snap band dt * (1 + 1e-5) + 1e-9, mirrored by the oracle's
 # _SNAP_REL/_SNAP_ABS.  The constants are the f32 values the JAX engine
@@ -50,7 +67,8 @@ __all__ = ["step", "run", "run_stats", "RunStats", "StepRecord",
 _SNAP_REL = float(np.float32(1.0 + 1e-5))
 _SNAP_ABS = float(np.float32(1e-9))
 
-BLOCK = 32      # steps per host check in ``run``
+BLOCK = 32          # most steps (or leap iterations) per host check
+_LEAP_DEFAULT = True
 
 
 class StepRecord(NamedTuple):
@@ -67,52 +85,98 @@ class StepRecord(NamedTuple):
     transferred_mb: torch.Tensor  # f32[] cumulative staged MB
     n_flows: torch.Tensor       # i32[] transfers drawing bandwidth
     n_events: torch.Tensor      # i32[] events committed by this step
+    #                                   (> 1 when the leap fired)
     fleet: torch.Tensor         # i32[] alive VMs after the step
     spot_cost: torch.Tensor     # f32[] cumulative spot spend
 
 
 class RunStats(NamedTuple):
-    """What a ``run`` did besides its final state."""
-    n_events: int       # committed (active) steps
-    n_steps: int        # steps evaluated, masked ones included
+    """What a run did besides its final state (summed over lanes)."""
+    n_events: int       # committed events: full steps and leap iterations
+    n_full: int         # committed full steps
+    n_steps: int        # full steps evaluated, masked ones included
+    n_leap: int         # leap iterations evaluated, masked ones included
     n_blocks: int       # host checks
 
 
-def _min_or_inf(x: torch.Tensor) -> torch.Tensor:
-    if x.numel() == 0:
-        return torch.full((), INF, dtype=torch.float32, device=x.device)
-    return x.amin()
+# ---------------------------------------------------------------------------
+# One event, on every lane of a batch
+# ---------------------------------------------------------------------------
+def _arrivals(dc: DatacenterState) -> torch.Tensor:
+    """f32[B] earliest future submit time (cloudlet or VM) of each lane.
 
-
-def _next_event_deltas(dc: DatacenterState, rates: torch.Tensor):
-    """(finish_dt[C], arrive) — per-slot completion deltas and the earliest
-    arrival.
-
-    Completions are *deltas* (``remaining / rate``, the kernel's quotient
-    elementwise; their minimum is the kernel's ``dt_min``), so one 1e-6 s
-    away still advances the state when ``time + dt == time`` in f32.
-    Arrivals (cloudlet and VM submit times) are the *absolute* table
-    values, so an arrival that wins the queue sets the clock exactly.
-    """
+    Absolute table values, so an arrival that wins the queue sets the
+    clock exactly."""
     cl, vms = dc.cloudlets, dc.vms
+    t = dc.time[:, None]
+    future_cl = (cl.state == CL_CREATED) & (cl.submit_time > t)
+    future_vm = (vms.state == VM_PENDING) & (vms.submit_time > t)
+    return torch.minimum(lane_min(torch.where(future_cl, cl.submit_time,
+                                              INF)),
+                         lane_min(torch.where(future_vm, vms.submit_time,
+                                              INF)))
+
+
+def _commit(dc: DatacenterState, lanes: Lanes, plan: HostPlan, rates,
+            finish_dt, dt, t_next, *, stamp_start: bool):
+    """The commit of one event at ``rates`` ([B, C]) over ``dt`` ([B]),
+    clock to ``t_next``.  Returns (new state, host watts f32[B, H])."""
+    cl = dc.cloudlets
+    executed = rates * dt[:, None]
+    snap = dt * _SNAP_REL + _SNAP_ABS
+    # the argmin task(s) finish by construction, immune to f32 rounding
+    finished = ((cl.state == CL_CREATED) & (rates > 0.0)
+                & (finish_dt <= snap[:, None]))
+    remaining = torch.where(finished, 0.0,
+                            torch.clamp(cl.remaining - executed, min=0.0))
+    start_time = cl.start_time
+    if stamp_start:
+        start_time = torch.where((rates > 0.0) & (cl.start_time < 0.0),
+                                 dc.time[:, None], cl.start_time)
+
+    # market accounting (§3.3), summed per lane in a fixed order
+    pe = executed / torch.clamp(plan.slot_mips_pe.view_as(executed),
+                                min=1e-30)
+    moved = torch.where(finished, cl.file_size + cl.output_size, 0.0)
+    pe_seconds, moved_mb = pairwise_sum(torch.stack([pe, moved]))
+
+    # energy: rates, hence watts, are constant on [time, time + dt)
+    host_watts = energy.host_power(dc.hosts, energy.utilization_of(
+        dc.hosts, scheduling.host_consumed(rates.reshape(-1), lanes, plan)))
+
+    new = dataclasses.replace(
+        dc,
+        hosts=dataclasses.replace(
+            dc.hosts,
+            energy_j=dc.hosts.energy_j + host_watts * dt[:, None]),
+        cloudlets=dataclasses.replace(
+            cl, remaining=remaining, start_time=start_time,
+            finish_time=torch.where(finished, t_next[:, None],
+                                    cl.finish_time),
+            state=torch.where(finished, CL_DONE, cl.state).to(torch.int32)),
+        acct=dataclasses.replace(
+            dc.acct,
+            cpu_cost=dc.acct.cpu_cost
+            + dc.rates.cost_per_cpu_sec * pe_seconds,
+            bw_cost=dc.acct.bw_cost + dc.rates.cost_per_bw * moved_mb),
+        time=t_next)
+    return new, host_watts
+
+
+def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan):
+    """One full step of every lane, provisioning excluded.
+
+    Returns (new state, active bool[B], rates f32[B, C], host watts
+    f32[B, H], each VM's runnable cloudlets i32[B*V] before the step,
+    opens bool[B]: the step was a completion with no arrival at its end
+    and some cloudlet keeps its rate, the leap's gate before
+    ``_drain_safe``)."""
+    rates, dt_finish, counts = scheduling.lane_rates(dc, lanes, plan)
+    cl = dc.cloudlets
+    # per-slot completion deltas: the kernel's quotient elementwise
     finish_dt = torch.where(rates > 0.0,
                             cl.remaining / torch.clamp(rates, min=1e-30), INF)
-    future_cl = (cl.state == CL_CREATED) & (cl.submit_time > dc.time)
-    arr_cl = _min_or_inf(torch.where(future_cl, cl.submit_time, INF))
-    future_vm = (vms.state == VM_PENDING) & (vms.submit_time > dc.time)
-    arr_vm = _min_or_inf(torch.where(future_vm, vms.submit_time, INF))
-    return finish_dt, torch.minimum(arr_cl, arr_vm)
-
-
-def _advance(dc: DatacenterState, index: RowIndex):
-    """The rate pass and the commit of one event, provisioning excluded.
-
-    Returns (new state, active, rates, host watts).
-    """
-    rates, dt_finish = scheduling.rates_and_dt(dc, index)
-    finish_dt, arrive = _next_event_deltas(dc, rates)
-    cl, vms = dc.cloudlets, dc.vms
-
+    arrive = _arrivals(dc)
     dt_arr = torch.where(arrive < INF, arrive - dc.time, INF)
     dt = torch.minimum(dt_finish, dt_arr)
     active = dt < INF
@@ -122,50 +186,70 @@ def _advance(dc: DatacenterState, index: RowIndex):
                          torch.where(dt_arr <= dt_finish, arrive,
                                      dc.time + dt),
                          dc.time)
+    new, host_watts = _commit(dc, lanes, plan, rates, finish_dt, dt, t_next,
+                              stamp_start=True)
+    # a window can commit only while some cloudlet keeps its rate
+    survivors = ((rates > 0.0)
+                 & (new.cloudlets.state == CL_CREATED)).any(dim=-1)
+    opens = (active & (dt_arr > dt_finish) & (arrive > new.time)
+             & survivors)
+    return new, active, rates, host_watts, counts, opens
 
-    executed = rates * dt
-    snap = dt * _SNAP_REL + _SNAP_ABS
-    # the argmin task(s) finish by construction, immune to f32 rounding
-    finished = (cl.state == CL_CREATED) & (rates > 0.0) & (finish_dt <= snap)
-    remaining = torch.where(finished, 0.0,
-                            torch.clamp(cl.remaining - executed, min=0.0))
-    started = (rates > 0.0) & (cl.start_time < 0.0)
 
-    # market accounting (§3.3)
-    nv = vms.req_pes.shape[0]
-    nh = dc.hosts.num_pes.shape[0]
-    host_of_cl = vms.host[torch.clamp(cl.vm, 0, nv - 1).long()]
-    mips_pe = dc.hosts.mips_per_pe[torch.clamp(host_of_cl, 0, nh - 1).long()]
-    pe_seconds = torch.sum(executed / torch.clamp(mips_pe, min=1e-30))
-    moved_mb = torch.sum(torch.where(finished, cl.file_size + cl.output_size,
-                                     0.0))
+def _drain_safe(n_pre, post: DatacenterState, lanes: Lanes,
+                plan: HostPlan):
+    """(bool[B], ``run_counts`` of ``post``) — per lane, the commit from
+    a state with ``n_pre`` runnable cloudlets a VM to ``post`` cannot
+    change any surviving rate.
 
-    # energy: rates, hence watts, are constant on [time, time + dt)
-    host_watts = energy.step_power(dc, rates)
+    A completion reshuffles the shares in two ways.  VM-level reshare: a
+    VM running more task units than PEs re-splits its capacity when one
+    finishes; safe only when ``n_runnable <= req_pes``.  Eligibility
+    flip: without ``reserve_pes`` a VM that drains its last runnable unit
+    stops competing for its host; safe when the VM keeps work, PEs are
+    reserved, or the VM is alone on its host.  Conservative: False
+    forgoes a leap, never corrupts one.
+    """
+    n_post = scheduling.run_counts(scheduling.lane_runnable(post, lanes),
+                                   lanes)
+    safe = (n_post == n_pre) | ((n_pre <= plan.pes)
+                                & ((n_post >= 1) | plan.keeps_work))
+    return safe.view(lanes.n_lanes, lanes.n_vms).all(dim=-1), n_post
 
-    new = dataclasses.replace(
-        dc,
-        hosts=dataclasses.replace(
-            dc.hosts, energy_j=dc.hosts.energy_j + host_watts * dt),
-        cloudlets=dataclasses.replace(
-            cl, remaining=remaining,
-            start_time=torch.where(started, dc.time, cl.start_time),
-            finish_time=torch.where(finished, t_next, cl.finish_time),
-            state=torch.where(finished, CL_DONE, cl.state).to(torch.int32)),
-        acct=dataclasses.replace(
-            dc.acct,
-            cpu_cost=dc.acct.cpu_cost
-            + dc.rates.cost_per_cpu_sec * pe_seconds,
-            bw_cost=dc.acct.bw_cost + dc.rates.cost_per_bw * moved_mb),
-        time=t_next)
-    return new, active, rates, host_watts
+
+def _body(dc: DatacenterState, lanes: Lanes, plan: HostPlan, r0, n_now,
+          go):
+    """One leap iteration on the lanes ``go``: the next completion on the
+    frozen rates ``r0`` ([B, C]), re-masked (survivors keep their exact
+    f32 rate, guaranteed by ``_drain_safe``; finished ones drop out).
+    It commits only when no arrival comes first and it is drain-safe.
+    ``n_now`` is ``run_counts`` of ``dc``.  Returns (state, do bool[B],
+    ``run_counts`` of the candidate)."""
+    cl = dc.cloudlets
+    r = torch.where((cl.state == CL_CREATED) & (cl.remaining > 0.0), r0,
+                    0.0)
+    finish_dt = torch.where(r > 0.0,
+                            cl.remaining / torch.clamp(r, min=1e-30), INF)
+    dt_fin = lane_min(finish_dt)
+    arr = _arrivals(dc)
+    d_arr = torch.where(arr < INF, arr - dc.time, INF)
+    dt = torch.minimum(dt_fin, d_arr)
+    act = dt < INF
+    dt = torch.where(act, dt, 0.0)
+    t_next = dc.time + dt
+    cand, _ = _commit(dc, lanes, plan, r, finish_dt, dt, t_next,
+                      stamp_start=False)
+    safe, n_post = _drain_safe(n_now, cand, lanes, plan)
+    do = go & act & (d_arr > dt_fin) & (arr > t_next) & safe
+    return _select(do, cand, dc), do, n_post
 
 
 def _select(go: torch.Tensor, new: DatacenterState,
             old: DatacenterState) -> DatacenterState:
-    """``new`` where ``go`` else ``old``, for the fields ``_advance``
-    writes."""
-    w = lambda a, b: torch.where(go, a, b)
+    """Lane by lane, ``new`` where ``go`` else ``old``, for the fields a
+    commit writes."""
+    w = lambda a, b: torch.where(go.view(go.shape + (1,) * (a.ndim - 1)),
+                                 a, b)
     nc, oc = new.cloudlets, old.cloudlets
     return dataclasses.replace(
         old,
@@ -182,6 +266,34 @@ def _select(go: torch.Tensor, new: DatacenterState,
         time=w(new.time, old.time))
 
 
+def _where_lanes(go: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
+                 lanes: Lanes) -> torch.Tensor:
+    """[B*X] ``new`` on the entries of the lanes ``go``, else ``old``."""
+    return torch.where(go[:, None], new.view(lanes.n_lanes, -1),
+                       old.view(lanes.n_lanes, -1)).view(-1)
+
+
+def _provision_lanes(batch: DatacenterState, which, policy: int
+                     ) -> DatacenterState:
+    """``provision_pending`` on the lanes ``which``, one after another;
+    each leaf it changes is rebuilt once."""
+    old = tensor_leaves(batch)
+    new = list(old)
+    for b in which:
+        lane = map_tensors(lambda t: t[b], batch)
+        before = tensor_leaves(lane)
+        after = tensor_leaves(provision_pending(lane, policy))
+        for i, (x, y) in enumerate(zip(before, after)):
+            if y is not x:
+                if new[i] is old[i]:
+                    new[i] = old[i].clone()
+                new[i][b] = y
+    return with_leaves(batch, new)
+
+
+# ---------------------------------------------------------------------------
+# Static-path guard
+# ---------------------------------------------------------------------------
 def wants_dynamic(dc: DatacenterState) -> bool:
     """True when the scenario carries an event table, a migration policy,
     or an in-flight migration."""
@@ -217,9 +329,16 @@ def _require_static(dc: DatacenterState) -> None:
                 f"{name} (its slice of the port is not done yet)")
 
 
-def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
+         leap: bool = False, leap_budget=None, leap_horizon=None
          ) -> tuple[DatacenterState, StepRecord]:
-    """Process exactly one simulation event of a static scenario.
+    """Process one simulation event of a static scenario; with ``leap``,
+    also the run of completions that follows it while no decision can
+    intervene (at most ``leap_budget`` more, none at or past
+    ``leap_horizon``), counted in ``StepRecord.n_events``.
 
     At quiescence (no runnable work, no future submissions) the state
     comes back bit-for-bit unchanged with ``active == False``.
@@ -227,8 +346,32 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT
     _require_static(dc)
     if bool(pending_due(dc)):
         dc = provision_pending(dc, provision_policy)
-    index = row_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
-    new, active, rates, host_watts = _advance(dc, index)
+    batch = lane_axis(dc)
+    lanes = lanes_of(batch)
+    plan = host_plan(batch, lanes)
+    new, active, rates, host_watts, n_pre, opens = _full(batch, lanes,
+                                                         plan)
+    dev = rates.device
+    n_events = active.to(torch.int32)
+    if leap:
+        budget = torch.as_tensor(2 ** 30 if leap_budget is None
+                                 else leap_budget, device=dev)
+        horizon = torch.clamp(torch.as_tensor(
+            INF if leap_horizon is None else leap_horizon,
+            dtype=torch.float32, device=dev), max=INF)
+        safe, n_now = _drain_safe(n_pre, new, lanes, plan)
+        window = opens & safe
+        extra = torch.zeros_like(n_events)
+        while bool(window.any()):
+            for _ in range(BLOCK):
+                go = window & (extra < budget) & (new.time < horizon)
+                new, window, n_post = _body(new, lanes, plan, rates, n_now,
+                                            go)
+                extra = extra + window.to(torch.int32)
+                n_now = _where_lanes(window, n_post, n_now, lanes)
+        n_events = n_events + extra
+    new = map_tensors(lambda t: t[0], new)
+    rates = rates[0]
     valid_mips = torch.where(dc.hosts.valid, dc.hosts.capacity_mips, 0.0)
     count = lambda m: m.sum(dtype=torch.int32)
     rec = StepRecord(
@@ -236,65 +379,177 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT
         n_running=count(rates > 0.0),
         n_done=count(new.cloudlets.state == CL_DONE),
         utilization=rates.sum() / torch.clamp(valid_mips.sum(), min=1e-30),
-        watts=host_watts.sum(),
-        active=active,
+        watts=host_watts[0].sum(),
+        active=active[0],
         n_migrating=count(new.vms.mig_remaining > 0.0),
         migrations=new.mig_count,
         hosts_down=count(~new.hosts.valid & (new.hosts.num_pes > 0)),
         transferred_mb=new.net_transferred_mb,
-        n_flows=torch.zeros((), dtype=torch.int32, device=rates.device),
-        n_events=active.to(torch.int32),
+        n_flows=torch.zeros((), dtype=torch.int32, device=dev),
+        n_events=n_events[0],
         fleet=alive_fleet(new.vms),
         spot_cost=new.scaler.spot_cost)
     return new, rec
 
 
-def run_stats(dc: DatacenterState, *, max_steps: int = 1_000_000,
-              horizon: float = float("inf"),
-              provision_policy: int = FIRST_FIT, block: int = BLOCK
-              ) -> tuple[DatacenterState, RunStats]:
-    """``run``, also returning what it did (``RunStats``)."""
-    _require_static(dc)
+def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
+           provision_policy: int, leap: bool, block: int
+           ) -> tuple[DatacenterState, RunStats]:
+    """Run every lane of ``batch`` to quiescence (see the module's
+    docstring)."""
     if block < 1:
         raise ValueError("block must be >= 1")
-    dev = dc.time.device
-    horizon_t = torch.clamp(torch.tensor(horizon, dtype=torch.float32,
-                                         device=dev), max=INF)
-    index = row_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
-    n = torch.zeros((), dtype=torch.int32, device=dev)
-    alive = torch.ones((), dtype=torch.bool, device=dev)
-    n_steps = n_blocks = 0
+    dev = batch.time.device
+    lanes = lanes_of(batch)
+    nb = lanes.n_lanes
+    hor = torch.clamp(torch.tensor(horizon, dtype=torch.float32,
+                                   device=dev), max=INF)
+    i32 = lambda: torch.zeros((nb,), dtype=torch.int32, device=dev)
+    n, n_full, used = i32(), i32(), i32()
+    alive = torch.ones((nb,), dtype=torch.bool, device=dev)
+    window = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    r0 = torch.zeros(batch.cloudlets.remaining.shape, dtype=torch.float32,
+                     device=dev)
+    n_now = torch.zeros((nb * lanes.n_vms,), dtype=torch.int32, device=dev)
+    plan = None
+    steps_len, leap_len, kind = block, 1, None
+    n_steps = n_leap = n_blocks = 0
     while True:
-        due = pending_due(dc)
-        alive_h, more, early, due_h = torch.stack(
-            [alive, n < max_steps, dc.time < horizon_t, due]).tolist()
+        live = alive & (n < max_steps) & (batch.time < hor)
+        live_h, due_h, window_h, used_h = torch.stack(
+            [live.to(torch.int32), (live & pending_due(batch)).to(torch.int32),
+             window.to(torch.int32), used]).tolist()
         n_blocks += 1
-        if not (alive_h and more and early):
+        most = max(used_h)
+        if any(window_h):
+            # a block of leap iterations.  A new window starts with one
+            # (most windows close at their first iteration) and doubles
+            # while it stays open; the next step block is as long as the
+            # steps it took to open this one
+            if kind == "step":
+                steps_len, leap_len = max(1, most), 1
+            else:
+                leap_len = min(block, 2 * leap_len)
+            used = torch.zeros_like(used)
+            for _ in range(leap_len):
+                go = window & (n < max_steps) & (batch.time < hor)
+                batch, window, n_post = _body(batch, lanes, plan, r0, n_now,
+                                              go)
+                n = n + window.to(torch.int32)
+                used = used + window.to(torch.int32)
+                n_now = _where_lanes(window, n_post, n_now, lanes)
+            n_leap += leap_len
+            kind = "leap"
+            continue
+        if kind == "step":
+            steps_len = min(block, 2 * steps_len)   # no window opened
+        if not any(live_h):
             break
-        if due_h:
-            dc = provision_pending(dc, provision_policy)
-        for _ in range(block):
-            go = (alive & (n < max_steps) & (dc.time < horizon_t)
-                  & ~pending_due(dc))
-            new, active, _, _ = _advance(dc, index)
-            dc = _select(go, new, dc)
-            n = n + (go & active).to(torch.int32)
+        due_lanes = [b for b, due in enumerate(due_h) if due]
+        if due_lanes:
+            batch = _provision_lanes(batch, due_lanes, provision_policy)
+            plan = None
+        if plan is None:
+            plan = host_plan(batch, lanes)
+        used = torch.zeros_like(used)
+        for _ in range(steps_len):
+            go = (alive & (n < max_steps) & (batch.time < hor)
+                  & ~pending_due(batch) & ~window)
+            new, active, rates, _, n_pre, opens = _full(batch, lanes, plan)
+            done = (go & active).to(torch.int32)
+            if leap:
+                safe, n_post = _drain_safe(n_pre, new, lanes, plan)
+                gate = (go & opens & safe & (n + done < max_steps)
+                        & (new.time < hor))
+                window = window | gate
+                r0 = torch.where(gate[:, None], rates, r0)
+                n_now = _where_lanes(gate, n_post, n_now, lanes)
+            batch = _select(go, new, batch)
+            n = n + done
+            n_full = n_full + done
+            used = used + go.to(torch.int32)
             alive = torch.where(go, active, alive)
-        n_steps += block
-    return dc, RunStats(n_events=int(n), n_steps=n_steps, n_blocks=n_blocks)
+        n_steps += steps_len
+        kind = "step"
+    n_events, full = torch.stack([n.sum(), n_full.sum()]).tolist()
+    return batch, RunStats(n_events=n_events, n_full=full, n_steps=n_steps,
+                           n_leap=n_leap, n_blocks=n_blocks)
+
+
+def run_stats(dc: DatacenterState, *, max_steps: int = 1_000_000,
+              horizon: float = float("inf"),
+              provision_policy: int = FIRST_FIT, leap: bool | None = None,
+              block: int = BLOCK) -> tuple[DatacenterState, RunStats]:
+    """``run``, also returning what it did (``RunStats``)."""
+    _require_static(dc)
+    out, stats = _drive(lane_axis(dc), max_steps=max_steps,
+                        horizon=horizon, provision_policy=provision_policy,
+                        leap=_LEAP_DEFAULT if leap is None else leap,
+                        block=block)
+    return map_tensors(lambda t: t[0], out), stats
 
 
 def run(dc: DatacenterState, *, max_steps: int = 1_000_000,
         horizon: float = float("inf"), provision_policy: int = FIRST_FIT,
-        block: int = BLOCK) -> DatacenterState:
+        leap: bool | None = None, block: int = BLOCK) -> DatacenterState:
     """Run a static scenario to quiescence.
 
     Stops when the event queue is empty, once the clock has passed
     ``horizon`` (simulated seconds), or after ``max_steps`` events, as
-    the JAX engine's ``run(..., leap=False)`` does.  ``block`` steps run
-    between two host checks; the result does not depend on it.  Raises
-    ``NotImplementedError`` for a dynamic, networked, elastic or probed
-    scenario.
+    the JAX engine's ``run`` does; ``leap`` (default on) as there.  At
+    most ``block`` steps run between two host checks; the result does
+    not depend on it.  Raises ``NotImplementedError`` for a dynamic,
+    networked, elastic or probed scenario.
     """
     return run_stats(dc, max_steps=max_steps, horizon=horizon,
-                     provision_policy=provision_policy, block=block)[0]
+                     provision_policy=provision_policy, leap=leap,
+                     block=block)[0]
+
+
+def batched_run_stats(batch: DatacenterState, *, max_steps: int,
+                      horizon: float = float("inf"),
+                      provision_policy: int = FIRST_FIT,
+                      leap: bool | None = None, block: int = BLOCK
+                      ) -> tuple[DatacenterState, RunStats]:
+    """``batched_run``, also returning what it did (``RunStats``, summed
+    over lanes)."""
+    _require_static(batch)
+    return _drive(batch, max_steps=max_steps, horizon=horizon,
+                  provision_policy=provision_policy,
+                  leap=_LEAP_DEFAULT if leap is None else leap, block=block)
+
+
+def batched_run(batch: DatacenterState, *, max_steps: int,
+                horizon: float = float("inf"),
+                provision_policy: int = FIRST_FIT, leap: bool | None = None,
+                block: int = BLOCK) -> DatacenterState:
+    """Run a batched state (leading lane axis, ``sweep.stack_scenarios``)
+    to quiescence.
+
+    Each lane is masked on ``alive & n < max_steps & time < horizon``,
+    finished lanes are frozen by a per-lane select, and the loop ends
+    when no lane is live.  Every pass runs once for all lanes (one
+    simstep launch a full step), and lane i equals ``run`` of that
+    scenario bit for bit.
+    """
+    return batched_run_stats(batch, max_steps=max_steps, horizon=horizon,
+                             provision_policy=provision_policy, leap=leap,
+                             block=block)[0]
+
+
+def run_trace(dc: DatacenterState, *, num_steps: int,
+              provision_policy: int = FIRST_FIT
+              ) -> tuple[DatacenterState, StepRecord]:
+    """Run exactly ``num_steps`` events (leap off), keeping telemetry.
+
+    Returns ``(final state, StepRecord trace)`` with every trace leaf
+    stacked to [num_steps].  Steps past quiescence are no-ops flagged
+    ``active=False``.  One host sync a step.
+    """
+    if num_steps < 1:
+        raise ValueError("num_steps must be >= 1")
+    records = []
+    for _ in range(num_steps):
+        dc, rec = step(dc, provision_policy=provision_policy)
+        records.append(rec)
+    return dc, StepRecord(*(torch.stack(leaf) for leaf in zip(*records)))

@@ -2,16 +2,20 @@
 
 Memory and storage bill at VM creation (provisioning), CPU per PE-second
 consumed and bandwidth per MB transferred (engine).  This module holds
-the quotes and the per-VM bill.  The spot-price functions come with the
-elastic slice of the port.
+the quotes, the per-VM bill and the surge pricing of revenue sweeps.
+The spot-price functions come with the elastic slice of the port.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import state as S
 
-__all__ = ["quote_vm", "quote_cloudlet", "bill_by_vm", "flat_rates"]
+__all__ = ["quote_vm", "quote_cloudlet", "bill_by_vm", "flat_rates",
+           "PricingPolicy", "tiered_cpu_rates"]
 
 
 def quote_vm(rates: S.MarketRates, *, ram: float, size: float
@@ -64,3 +68,20 @@ def bill_by_vm(dc: S.DatacenterState) -> torch.Tensor:
 def flat_rates(cpu=0.01, mem=0.001, storage=0.0001, bw=0.002, *,
                device=None) -> S.MarketRates:
     return S.make_market(cpu, mem, storage, bw, device=device)
+
+
+class PricingPolicy(NamedTuple):
+    """Provider-side pricing knobs for revenue sweeps (beyond the paper)."""
+    base: S.MarketRates
+    surge_threshold: torch.Tensor   # utilization above which CPU surges
+    surge_factor: torch.Tensor
+
+
+def tiered_cpu_rates(policy: PricingPolicy, utilization) -> S.MarketRates:
+    """Surge pricing: the CPU rate scales when the datacenter runs hot."""
+    base = policy.base.cost_per_cpu_sec
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                     device=base.device)
+    surge = torch.where(as_t(utilization) > as_t(policy.surge_threshold),
+                        as_t(policy.surge_factor), 1.0)
+    return dataclasses.replace(policy.base, cost_per_cpu_sec=base * surge)

@@ -51,9 +51,10 @@ def alive_fleet(vms) -> torch.Tensor:
 
 
 def pending_due(dc: DatacenterState) -> torch.Tensor:
-    """bool[] — some VM is pending and its submit time has come."""
+    """bool[...] — some VM is pending and its submit time has come (per
+    lane of a batched state)."""
     return ((dc.vms.state == VM_PENDING)
-            & (dc.vms.submit_time <= dc.time)).any()
+            & (dc.vms.submit_time <= dc.time[..., None])).any(dim=-1)
 
 
 def _static_ok(dc: DatacenterState, req_pes, req_mips, reserve: bool

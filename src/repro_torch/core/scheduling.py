@@ -5,57 +5,295 @@ host's MIPS; level 2 (VM -> cloudlet, the CloudletScheduler) divides the
 VM's share among its task units.  Each level is SPACE_SHARED or
 TIME_SHARED, the 2x2 matrix of the paper's Figure 3.
 
+Every pass works on a batch of lanes at once: a state whose leaves carry
+a leading lane axis [B, ...] (one scenario a lane; a single state is a
+batch of one).  Hosts, VMs and cloudlets are flattened to [B*H], [B*V]
+and [B*C], lane b's VM ids offset by b*V and its host ids by b*H, so
+every sort, sum and kernel launch runs once for the whole batch:
+
+  * ``Lanes`` holds what a run keeps from start to end: each slot's
+    global VM, the rows of the flat cloudlet axis (``row_index``) and
+    each row's task policy;
+  * ``HostPlan`` holds what changes only when VMs are placed: the VMs
+    sorted by (host, creation time, slot), each VM's demand and each
+    cloudlet's host.
+
 Level 2 runs through the ``simstep`` kernel, which reads the flat
-grouped-by-VM cloudlet axis directly through a ``RowIndex`` (each VM's
-slots are one contiguous run) and computes every cloudlet's rate and each
-VM's earliest completion: O(C + V), as the JAX package's grouped-segment
-pass.
+grouped-by-VM cloudlet axis directly (each VM's slots are one contiguous
+run) with a task policy per row: one launch per pass, whatever the
+number of lanes.
+
+Sums of floats per host and per lane run in a fixed order
+(``segments.run_scan``, ``segments.pairwise_sum``), never through
+``index_add_``, whose CUDA atomics add in no fixed order.  So a lane of
+a batch gives the same bits as the same scenario run alone.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.core.segments import segment_cumsum
+from repro_torch.core.segments import rounds_for, run_scan, run_starts
 from repro_torch.core.state import (CL_CREATED, INF, SPACE_SHARED, VM_ACTIVE,
-                                    DatacenterState)
+                                    DatacenterState, map_tensors)
 from repro_torch.kernels.simstep.ops import (RowIndex, row_index,
                                              simstep_ragged)
 
 __all__ = ["cloudlet_runnable", "vm_has_work", "host_level_shares",
-           "vm_level_rates", "cloudlet_rates"]
+           "vm_level_rates", "cloudlet_rates", "rates_and_dt", "Lanes",
+           "lanes_of", "HostPlan", "host_plan", "host_sums",
+           "host_consumed", "lane_axis", "lane_rates", "lane_min",
+           "lane_runnable", "run_counts"]
+
+
+def lane_axis(dc: DatacenterState) -> DatacenterState:
+    """A single state as a batch of one lane (views, no copy)."""
+    return map_tensors(lambda t: t.unsqueeze(0), dc)
+
+
+@dataclasses.dataclass
+class Lanes:
+    """What a batched run keeps from start to end (``cl.vm`` and the
+    policies never change on the static path)."""
+    n_lanes: int
+    n_hosts: int                # per lane
+    n_vms: int
+    n_cloudlets: int
+    slot_vm: torch.Tensor       # i64[B*C] global VM of each slot, clamped
+    index: RowIndex             # the B*V rows of the flat cloudlet axis
+    row_policy: torch.Tensor    # i32[B*V] each row's task policy
+    space_rows: torch.Tensor    # bool[B*V] its lane's vm_policy is SPACE
+    reserve_rows: torch.Tensor  # bool[B*V] its lane reserves PEs
+
+
+def lanes_of(dc: DatacenterState) -> Lanes:
+    """``Lanes`` of a batched state (one host sync)."""
+    b, c = dc.cloudlets.vm.shape
+    v = dc.vms.req_pes.shape[1]
+    h = dc.hosts.num_pes.shape[1]
+    dev = dc.time.device
+    vm = dc.cloudlets.vm.long()
+    base = torch.arange(b, device=dev)[:, None] * v
+    in_row = (vm >= 0) & (vm < v)
+    slot_vm = (torch.clamp(vm, 0, max(v - 1, 0)) + base).reshape(-1)
+    slot_row = torch.where(in_row, vm + base, -1).reshape(-1)
+    return Lanes(
+        n_lanes=b, n_hosts=h, n_vms=v, n_cloudlets=c, slot_vm=slot_vm,
+        index=row_index(slot_row.to(torch.int32), b * v),
+        row_policy=dc.task_policy.to(torch.int32).repeat_interleave(v),
+        space_rows=(dc.vm_policy == SPACE_SHARED).repeat_interleave(v),
+        reserve_rows=(dc.reserve_pes == 1).repeat_interleave(v))
+
+
+@dataclasses.dataclass
+class HostPlan:
+    """What changes only when VMs are placed (``provision_pending``).
+
+    VMs with a host are sorted by (host, creation time, slot), and each
+    host's VMs are one run of ``order``; VMs without one sort last.
+    """
+    vm_host: torch.Tensor       # i64[B*V] global host, clamped into its lane
+    placed: torch.Tensor        # bool[B*V] the VM has a host
+    order: torch.Tensor         # i64[B*V] the sort
+    seg: torch.Tensor           # i64[B*V] host of each sorted VM (B*H: none)
+    start: torch.Tensor         # i64[B*V] first sorted position of its run
+    rel: torch.Tensor           # i64[B*V] sorted position - start
+    rounds: int                 # run_scan rounds for the fullest host
+    ends: torch.Tensor          # i64[R] last sorted position of each host
+    end_host: torch.Tensor      # i64[R] that host
+    demand: torch.Tensor        # f32[B*V] req_pes * min(req_mips, host MIPS)
+    occupancy: torch.Tensor     # i32[B*H] ACTIVE VMs placed on each host
+    pes: torch.Tensor           # i32[B*V] max(req_pes, 1)
+    keeps_work: torch.Tensor    # bool[B*V] PEs reserved, or ACTIVE and
+    #                             alone on its host: draining cannot flip
+    #                             its host's level-1 split
+    slot_host: torch.Tensor     # i64[B*C] host of each slot's VM, clamped
+    slot_mips_pe: torch.Tensor  # f32[B*C] that host's MIPS per PE
+
+
+def host_plan(dc: DatacenterState, lanes: Lanes) -> HostPlan:
+    """``HostPlan`` of a batched state (two host syncs)."""
+    vms, hosts = dc.vms, dc.hosts
+    b, h = lanes.n_lanes, lanes.n_hosts
+    dev = dc.time.device
+    host = vms.host.long()
+    base = torch.arange(b, device=dev)[:, None] * h
+    vm_host = (torch.clamp(host, 0, max(h - 1, 0)) + base).reshape(-1)
+    placed = (host >= 0).reshape(-1)
+    key = torch.where(placed, vm_host, b * h)
+    order = torch.argsort(vms.create_time.reshape(-1), stable=True)
+    order = order[torch.argsort(key[order], stable=True)]
+    seg = key[order]
+    n = seg.shape[0]
+    start = run_starts(seg).long()
+    last = torch.ones(n, dtype=torch.bool, device=dev)
+    last[:-1] = seg[1:] != seg[:-1]
+    ends = torch.nonzero(last & (seg < b * h)).view(-1)
+    longest = int((ends - start[ends] + 1).max()) if ends.numel() else 0
+    flat = lambda t: t.reshape(-1)
+    mips_pe = flat(hosts.mips_per_pe)
+    active = (flat(vms.state) == VM_ACTIVE) & placed
+    occupancy = torch.zeros((b * h,), dtype=torch.int32,
+                            device=dev).index_add_(
+        0, vm_host, active.to(torch.int32))
+    slot_host = vm_host[lanes.slot_vm]
+    alone = active & (occupancy[vm_host] == 1)
+    return HostPlan(
+        vm_host=vm_host, placed=placed, order=order, seg=seg, start=start,
+        rel=torch.arange(n, device=dev) - start,
+        rounds=rounds_for(longest), ends=ends, end_host=seg[ends],
+        demand=(flat(vms.req_pes).to(torch.float32)
+                * torch.minimum(flat(vms.req_mips), mips_pe[vm_host])),
+        occupancy=occupancy,
+        pes=torch.clamp(flat(vms.req_pes), min=1),
+        keeps_work=lanes.reserve_rows | alone, slot_host=slot_host,
+        slot_mips_pe=mips_pe[slot_host])
+
+
+def host_sums(per_vm: torch.Tensor, plan: HostPlan, n_hosts: int
+              ) -> torch.Tensor:
+    """[B*H] sum of ``per_vm`` ([B*V], in VM order) over each host's VMs,
+    in the plan's fixed order (creation time, then slot)."""
+    ran = run_scan(per_vm[plan.order], plan.rel, plan.rounds)
+    return torch.zeros((n_hosts,), dtype=per_vm.dtype,
+                       device=per_vm.device).index_put_(
+        (plan.end_host,), ran[plan.ends])
+
+
+def host_consumed(rates: torch.Tensor, lanes: Lanes, plan: HostPlan
+                  ) -> torch.Tensor:
+    """f64[B*H] MIPS consumed on each host at cloudlet ``rates`` ([B*C]).
+
+    Each VM's rates are summed in f64 (``index_add_``), then each host's
+    VMs in the plan's fixed order.  Level 2 gives every running cloudlet
+    of a VM the same rate r, so a VM's partial sums are multiples k * r,
+    exact in f64 (k < 2^29) and the same in any order of the additions;
+    the sum over a host's VMs, of unequal terms, is the one that needs
+    the fixed order.  A host may carry hundreds of thousands of
+    cloudlets (a skewed binding), whose f32 running sum would drift by
+    1e-4 relative and more.
+    """
+    per_vm = torch.zeros((lanes.n_lanes * lanes.n_vms,),
+                         dtype=torch.float64, device=rates.device)
+    per_vm.index_add_(0, lanes.slot_vm, rates.to(torch.float64))
+    return host_sums(per_vm, plan, lanes.n_lanes * lanes.n_hosts)
+
+
+# ---------------------------------------------------------------------------
+# The passes, on a batched state and its flat axes
+# ---------------------------------------------------------------------------
+def lane_runnable(dc: DatacenterState, lanes: Lanes) -> torch.Tensor:
+    """bool[B*C] — ``cloudlet_runnable`` of every lane."""
+    cl, vms = dc.cloudlets, dc.vms
+    owner = lanes.slot_vm
+    vm_ok = vms.state.reshape(-1)[owner] == VM_ACTIVE
+    not_migrating = vms.mig_remaining.reshape(-1)[owner] <= 0.0
+    return (((cl.state == CL_CREATED)
+             & (cl.submit_time <= dc.time[:, None])
+             & (cl.remaining > 0.0)
+             & (cl.vm >= 0)).reshape(-1)
+            & vm_ok & not_migrating)
+
+
+def run_counts(runnable: torch.Tensor, lanes: Lanes) -> torch.Tensor:
+    """i32[B*V] runnable cloudlets of each VM."""
+    return torch.zeros((lanes.n_lanes * lanes.n_vms,), dtype=torch.int32,
+                       device=runnable.device).index_add_(
+        0, lanes.slot_vm, runnable.to(torch.int32))
+
+
+def _eligible(dc: DatacenterState, lanes: Lanes, counts: torch.Tensor
+              ) -> torch.Tensor:
+    """bool[B*V] — VMs competing for host capacity: reserve_pes=1 holds
+    PEs for the VM's whole life (§5); else only VMs with work compete
+    (Fig. 3).  ``counts`` is ``run_counts`` of the runnable mask."""
+    active = dc.vms.state.reshape(-1) == VM_ACTIVE
+    return active & (lanes.reserve_rows | (counts > 0))
+
+
+def _level1(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
+            eligible: torch.Tensor) -> torch.Tensor:
+    """f32[B*V] — ``host_level_shares`` of every lane."""
+    hosts = dc.hosts
+    nh = lanes.n_lanes * lanes.n_hosts
+    eligible = eligible & plan.placed
+    demand = plan.demand
+
+    # SPACE_SHARED: FCFS prefix-sum of PE requests within each host
+    pes_sorted = torch.where(eligible, dc.vms.req_pes.reshape(-1),
+                             0)[plan.order].to(torch.int32)
+    csum = torch.cumsum(pes_sorted, 0, dtype=torch.int32)
+    cum_incl = csum - (csum - pes_sorted)[plan.start]
+    fits_sorted = cum_incl <= hosts.num_pes.reshape(-1)[
+        torch.clamp(plan.seg, max=max(nh - 1, 0))]
+    fits = torch.zeros_like(eligible)
+    fits[plan.order] = fits_sorted
+    space_cap = torch.where(fits & eligible, demand, 0.0)
+
+    # TIME_SHARED: proportional scale-down when oversubscribed
+    total_demand = host_sums(torch.where(eligible, demand, 0.0), plan, nh)
+    host_cap = (hosts.num_pes.to(torch.float32)
+                * hosts.mips_per_pe).reshape(-1)
+    scale = torch.where(
+        total_demand > 0.0,
+        torch.clamp(host_cap / torch.clamp(total_demand, min=1e-30),
+                    max=1.0),
+        0.0)
+    time_cap = torch.where(eligible, demand * scale[plan.vm_host], 0.0)
+
+    return torch.where(lanes.space_rows, space_cap, time_cap)
+
+
+def _level2(dc: DatacenterState, lanes: Lanes, vm_capacity: torch.Tensor,
+            runnable: torch.Tensor):
+    """(rates f32[B*C], dt_min f32[B*V]) through the simstep kernel: one
+    launch for every lane."""
+    return simstep_ragged(dc.cloudlets.remaining.reshape(-1), runnable,
+                          lanes.index, vm_capacity,
+                          dc.vms.req_pes.reshape(-1).to(torch.float32),
+                          lanes.row_policy)
+
+
+def lane_min(x: torch.Tensor) -> torch.Tensor:
+    """[B] minimum over the last axis of [B, N] (INF when N is 0)."""
+    if x.shape[-1] == 0:
+        return torch.full(x.shape[:-1], INF, dtype=torch.float32,
+                          device=x.device)
+    return x.amin(dim=-1)
+
+
+def lane_rates(dc: DatacenterState, lanes: Lanes, plan: HostPlan):
+    """(rates f32[B, C], dt_finish f32[B], counts i32[B*V]) — the full
+    two-level pass of every lane, each lane's earliest completion delta
+    (INF when nothing runs) and each VM's runnable cloudlets."""
+    runnable = lane_runnable(dc, lanes)
+    counts = run_counts(runnable, lanes)
+    vm_cap = _level1(dc, lanes, plan, _eligible(dc, lanes, counts))
+    rates, dt_min = _level2(dc, lanes, vm_cap, runnable)
+    return (rates.view(lanes.n_lanes, lanes.n_cloudlets),
+            lane_min(dt_min.view(lanes.n_lanes, lanes.n_vms)), counts)
+
+
+# ---------------------------------------------------------------------------
+# One state (a batch of one lane)
+# ---------------------------------------------------------------------------
+def _one(dc: DatacenterState):
+    batch = lane_axis(dc)
+    lanes = lanes_of(batch)
+    return batch, lanes
 
 
 def cloudlet_runnable(dc: DatacenterState) -> torch.Tensor:
     """bool[C] — submitted, unfinished, and its VM is placed and running
     (and not mid-migration)."""
-    cl = dc.cloudlets
-    owner = torch.clamp(cl.vm, min=0).long()
-    vm_ok = dc.vms.state[owner] == VM_ACTIVE
-    not_migrating = dc.vms.mig_remaining[owner] <= 0.0
-    return ((cl.state == CL_CREATED)
-            & (cl.submit_time <= dc.time)
-            & (cl.remaining > 0.0)
-            & (cl.vm >= 0)
-            & vm_ok
-            & not_migrating)
+    batch, lanes = _one(dc)
+    return lane_runnable(batch, lanes)
 
 
 def vm_has_work(dc: DatacenterState, runnable: torch.Tensor) -> torch.Tensor:
     """bool[V] — VM has at least one runnable cloudlet right now."""
-    nvm = dc.vms.req_pes.shape[0]
-    seg = torch.clamp(dc.cloudlets.vm, 0, nvm - 1).long()
-    counts = torch.zeros((nvm,), dtype=torch.int32,
-                         device=runnable.device).index_add_(
-        0, seg, runnable.to(torch.int32))
-    return counts > 0
-
-
-def _host_order(host_idx: torch.Tensor, create_time: torch.Tensor
-                ) -> torch.Tensor:
-    """Permutation sorting VMs by (host, create_time, slot) — chained
-    stable sorts, least significant key first."""
-    order = torch.argsort(create_time, stable=True)
-    return order[torch.argsort(host_idx[order], stable=True)]
+    return run_counts(runnable, _one(dc)[1]) > 0
 
 
 def host_level_shares(dc: DatacenterState, eligible: torch.Tensor
@@ -66,49 +304,8 @@ def host_level_shares(dc: DatacenterState, eligible: torch.Tensor
     strict head-of-line blocking; TIME_SHARED scales every eligible VM's
     request down proportionally when its host is oversubscribed.
     """
-    vms, hosts = dc.vms, dc.hosts
-    nh = hosts.num_pes.shape[0]
-    dev = eligible.device
-
-    eligible = eligible & (vms.host >= 0)
-    host_idx = torch.clamp(vms.host, 0, nh - 1).long()
-
-    host_mips_pe = hosts.mips_per_pe[host_idx]
-    eff_mips_pe = torch.minimum(vms.req_mips, host_mips_pe)
-    demand = vms.req_pes.to(torch.float32) * eff_mips_pe
-
-    # SPACE_SHARED: FCFS prefix-sum of PE requests within each host
-    order = _host_order(host_idx, vms.create_time)
-    pes_sorted = torch.where(eligible, vms.req_pes, 0)[order].to(torch.int32)
-    host_sorted = host_idx[order]
-    cum_incl = segment_cumsum(pes_sorted, host_sorted, exclusive=False)
-    fits_sorted = cum_incl <= hosts.num_pes[host_sorted]
-    fits = torch.zeros_like(eligible)
-    fits[order] = fits_sorted
-    space_cap = torch.where(fits & eligible, demand, 0.0)
-
-    # TIME_SHARED: proportional scale-down when oversubscribed
-    seg = torch.where(eligible, host_idx, nh)
-    total_demand = torch.zeros((nh + 1,), dtype=torch.float32,
-                               device=dev).index_add_(
-        0, seg, torch.where(eligible, demand, 0.0))[:nh]
-    host_cap = hosts.num_pes.to(torch.float32) * hosts.mips_per_pe
-    scale = torch.where(
-        total_demand > 0.0,
-        torch.clamp(host_cap / torch.clamp(total_demand, min=1e-30),
-                    max=1.0),
-        0.0)
-    time_cap = torch.where(eligible, demand * scale[host_idx], 0.0)
-
-    return torch.where(dc.vm_policy == SPACE_SHARED, space_cap, time_cap)
-
-
-def _level2(dc: DatacenterState, vm_capacity: torch.Tensor,
-            runnable: torch.Tensor, index: RowIndex):
-    """(rates f32[C], dt_min f32[V]) through the simstep kernel."""
-    return simstep_ragged(dc.cloudlets.remaining, runnable, index,
-                          vm_capacity, dc.vms.req_pes.to(torch.float32),
-                          dc.task_policy)
+    batch, lanes = _one(dc)
+    return _level1(batch, lanes, host_plan(batch, lanes), eligible)
 
 
 def vm_level_rates(dc: DatacenterState, vm_capacity: torch.Tensor,
@@ -119,32 +316,18 @@ def vm_level_rates(dc: DatacenterState, vm_capacity: torch.Tensor,
     each get one virtual PE.  TIME_SHARED: capacity / max(n_runnable,
     req_pes).
     """
-    index = row_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
-    return _level2(dc, vm_capacity, runnable, index)[0]
+    batch, lanes = _one(dc)
+    return _level2(batch, lanes, vm_capacity, runnable)[0]
 
 
-def _eligible(dc: DatacenterState, runnable: torch.Tensor) -> torch.Tensor:
-    # reserve_pes=1: PEs are held for the VM's whole life (§5); else only
-    # VMs with work compete (Fig. 3)
-    active = dc.vms.state == VM_ACTIVE
-    return torch.where(dc.reserve_pes == 1, active,
-                       active & vm_has_work(dc, runnable))
-
-
-def rates_and_dt(dc: DatacenterState, index: RowIndex):
+def rates_and_dt(dc: DatacenterState):
     """(rates f32[C], dt_finish f32[]) — the full two-level pass and the
-    earliest completion delta (INF when nothing runs).  ``index`` is
-    ``row_index(dc.cloudlets.vm, V)``, built once per run."""
-    runnable = cloudlet_runnable(dc)
-    vm_cap = host_level_shares(dc, _eligible(dc, runnable))
-    rates, dt_min = _level2(dc, vm_cap, runnable, index)
-    if dt_min.numel() == 0:
-        return rates, torch.full((), INF, dtype=torch.float32,
-                                 device=rates.device)
-    return rates, dt_min.amin()
+    earliest completion delta (INF when nothing runs)."""
+    batch, lanes = _one(dc)
+    rates, dt, _ = lane_rates(batch, lanes, host_plan(batch, lanes))
+    return rates[0], dt[0]
 
 
 def cloudlet_rates(dc: DatacenterState) -> torch.Tensor:
     """f32[C] — execution rate (MIPS) of every cloudlet at ``dc.time``."""
-    index = row_index(dc.cloudlets.vm, dc.vms.req_pes.shape[0])
-    return rates_and_dt(dc, index)[0]
+    return rates_and_dt(dc)[0]

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["run_starts", "run_ids", "segment_rank", "segment_cumsum",
-           "segment_min"]
+           "segment_min", "run_scan", "rounds_for", "pairwise_sum"]
 
 
 def _is_start(seg_ids: torch.Tensor) -> torch.Tensor:
@@ -62,3 +62,46 @@ def segment_min(values: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
     mins = torch.zeros_like(values).scatter_reduce(
         0, rid, values, reduce="amin", include_self=False)
     return mins[rid]
+
+
+def rounds_for(longest: int) -> int:
+    """Doubling rounds ``run_scan`` needs for runs of up to ``longest``."""
+    return max(0, (int(longest) - 1).bit_length())
+
+
+def run_scan(values: torch.Tensor, rel: torch.Tensor, rounds: int
+             ) -> torch.Tensor:
+    """Inclusive sum along each contiguous run, in a fixed order.
+
+    ``rel`` is each slot's offset from its run's first slot.  Round k
+    adds the partial sum 2^k slots back when it lies in the same run
+    (Hillis-Steele doubling).  The additions that reach a slot depend
+    only on its run's values and on its offset, not on where the run
+    lies or what lies beside it, so a run gives the same bits in any
+    layout: alone, or as one lane of a batch.  ``rounds`` is
+    ``rounds_for`` of the longest run; more rounds change nothing.
+    """
+    n = values.shape[0]
+    for k in range(rounds):
+        s = 1 << k
+        if s >= n:
+            break
+        values = torch.cat([values[:s], torch.where(
+            rel[s:] >= s, values[s:] + values[:-s], values[s:])])
+    return values
+
+
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by a pairwise tree, the axis padded with
+    zeros to a power of two.  Zeros appended to the axis leave every
+    partial sum as it was, so a row gives the same bits at any padded
+    length and beside any other rows (``torch.sum`` of more than two
+    values picks its order by the tensor's shape; of two, every order
+    gives a + b)."""
+    n = x.shape[-1]
+    width = 1 << max(0, (n - 1).bit_length())
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        x = x.view(x.shape[:-1] + (-1, 2)).sum(dim=-1)
+    return x[..., 0]

@@ -349,6 +349,20 @@ def map_tensors(fn, obj):
     return fn(obj)
 
 
+def tensor_leaves(obj) -> list:
+    """Every tensor of a dataclass tree, in field order."""
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj)
+                for t in tensor_leaves(getattr(obj, f.name))]
+    return [obj]
+
+
+def with_leaves(obj, leaves):
+    """``obj`` rebuilt with ``leaves`` (in ``tensor_leaves`` order)."""
+    it = iter(leaves)
+    return map_tensors(lambda _: next(it), obj)
+
+
 def to_device(obj, device):
     """A copy of a state (or any block of it) on ``device``."""
     return map_tensors(lambda t: t.to(device), obj)

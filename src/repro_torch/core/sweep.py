@@ -1,0 +1,278 @@
+"""Batched scenario sweeps (``repro.core.sweep`` in PyTorch, one device).
+
+Every field of ``DatacenterState`` is a dense tensor, so B independent
+scenarios stack into a leading lane axis and ``engine.batched_run`` runs
+them together: each pass (sorts, sums, the simstep kernel) runs once
+for all lanes, and lane i gives the same bits as ``engine.run`` of its
+scenario alone.
+
+The policy grid is *fused* into the lane axis: ``run_grid`` broadcasts
+each of the P policy pairs over the B stacked scenarios into P*B lanes
+(lane ``p*B + b`` is scenario ``b`` under pair ``p``), runs them in one
+``batched_run`` and reshapes the result to [P, B, ...].
+``run_grid_nested`` runs one ``run_batch`` a policy pair instead, kept
+as the differential baseline.
+
+Ragged scenarios are padded to a common shape first: padded hosts are
+invalid, padded VMs ``VM_EMPTY``, padded cloudlets ``CL_EMPTY`` (with
+``vm = -1``), so padding is inert and a padded lane reproduces its
+unpadded run on the real slots.  ``pad_batch`` pads the lane axis with
+whole inert scenarios, which quiesce on their first step.
+
+The sharded runners (``run_sharded`` and the mesh arguments) belong to
+the multi-device slice of the port and are not here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence
+
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.energy import energy_total_j
+from repro_torch.core.provisioning import FIRST_FIT
+from repro_torch.core.state import (CL_DONE, CL_EMPTY, INF, VM_EMPTY,
+                                    DatacenterState, map_tensors,
+                                    tensor_leaves, with_leaves)
+
+__all__ = ["pad_scenario", "stack_scenarios", "run_batch", "run_grid",
+           "run_grid_nested", "fuse_grid", "inert_lane", "pad_batch",
+           "policy_grid", "SweepSummary", "summarize_batch"]
+
+
+# ---------------------------------------------------------------------------
+# Padding + stacking
+# ---------------------------------------------------------------------------
+def _pad_axis0(t: torch.Tensor, n: int, fill) -> torch.Tensor:
+    extra = n - t.shape[0]
+    if extra < 0:
+        raise ValueError(f"cannot shrink axis 0: {t.shape[0]} -> {n}")
+    if extra == 0:
+        return t
+    if not isinstance(fill, torch.Tensor):
+        fill = torch.tensor(fill, dtype=t.dtype, device=t.device)
+    return torch.cat([t, fill.to(t.dtype).expand((extra,) + t.shape[1:])])
+
+
+def pad_scenario(dc: DatacenterState, *, n_hosts: int | None = None,
+                 n_vms: int | None = None, n_cloudlets: int | None = None,
+                 n_events: int | None = None,
+                 n_spot: int | None = None) -> DatacenterState:
+    """Grow a scenario to fixed entity capacities with inert padding.
+
+    Padded event rows are all-zero (kind ``EV_NONE``) and unfired.  Spot
+    tables pad with duplicates of their final segment, which add no
+    boundary and keep the active segment's price.
+    """
+    h, v, c = dc.hosts, dc.vms, dc.cloudlets
+    nh = n_hosts if n_hosts is not None else h.num_pes.shape[0]
+    nv = n_vms if n_vms is not None else v.req_pes.shape[0]
+    nc = n_cloudlets if n_cloudlets is not None else c.vm.shape[0]
+    ne = n_events if n_events is not None else dc.events.shape[0]
+    sc = dc.scaler
+    ns = n_spot if n_spot is not None else sc.spot_t.shape[0]
+
+    # every host, VM and cloudlet field, with its inert fill
+    host_fill = dict(valid=False)
+    vm_fill = dict(host=-1, state=VM_EMPTY, create_time=INF)
+    cl_fill = dict(vm=-1, start_time=-1.0, finish_time=INF, state=CL_EMPTY)
+    pad = lambda blk, n, fills: dataclasses.replace(blk, **{
+        f.name: _pad_axis0(getattr(blk, f.name), n, fills.get(f.name, 0))
+        for f in dataclasses.fields(blk)})
+    return dataclasses.replace(
+        dc, hosts=pad(h, nh, host_fill), vms=pad(v, nv, vm_fill),
+        cloudlets=pad(c, nc, cl_fill),
+        events=_pad_axis0(dc.events, ne, 0.0),
+        event_fired=_pad_axis0(dc.event_fired, ne, False),
+        net=dataclasses.replace(
+            dc.net, cluster=_pad_axis0(dc.net.cluster, nh, 0)),
+        scaler=dataclasses.replace(
+            sc, spot_t=_pad_axis0(sc.spot_t, ns, sc.spot_t[-1]),
+            spot_price=_pad_axis0(sc.spot_price, ns, sc.spot_price[-1])),
+        metrics=dataclasses.replace(
+            dc.metrics,
+            host_busy_s=_pad_axis0(dc.metrics.host_busy_s, nh, 0.0)))
+
+
+def _stack(states: Sequence[DatacenterState]) -> DatacenterState:
+    leaves = zip(*(tensor_leaves(d) for d in states))
+    return with_leaves(states[0], [torch.stack(ts) for ts in leaves])
+
+
+def stack_scenarios(dcs: Sequence[DatacenterState]) -> DatacenterState:
+    """Stack scenarios into one batched state (leading axis B), padding
+    every entity block to the sweep-wide maximum capacity."""
+    if not dcs:
+        raise ValueError("empty scenario list")
+    cap = dict(
+        n_hosts=max(d.hosts.num_pes.shape[0] for d in dcs),
+        n_vms=max(d.vms.req_pes.shape[0] for d in dcs),
+        n_cloudlets=max(d.cloudlets.vm.shape[0] for d in dcs),
+        n_events=max(d.events.shape[0] for d in dcs),
+        n_spot=max(d.scaler.spot_t.shape[0] for d in dcs))
+    return _stack([pad_scenario(d, **cap) for d in dcs])
+
+
+def inert_lane(batch: DatacenterState) -> DatacenterState:
+    """One unbatched scenario that quiesces on its first step: every host
+    invalid, every VM ``VM_EMPTY``, every cloudlet ``CL_EMPTY``."""
+    lane = map_tensors(lambda t: torch.zeros_like(t[0]), batch)
+    full = lambda t, x: torch.full_like(t, x)
+    return dataclasses.replace(
+        lane,
+        vms=dataclasses.replace(
+            lane.vms, host=full(lane.vms.host, -1),
+            state=full(lane.vms.state, VM_EMPTY),
+            create_time=full(lane.vms.create_time, INF)),
+        cloudlets=dataclasses.replace(
+            lane.cloudlets, vm=full(lane.cloudlets.vm, -1),
+            start_time=full(lane.cloudlets.start_time, -1.0),
+            finish_time=full(lane.cloudlets.finish_time, INF),
+            state=full(lane.cloudlets.state, CL_EMPTY)))
+
+
+def pad_batch(batch: DatacenterState, n_lanes: int) -> DatacenterState:
+    """Grow the leading lane axis to ``n_lanes`` with inert lanes."""
+    have = batch.time.shape[0]
+    if n_lanes < have:
+        raise ValueError(f"cannot shrink lane axis: {have} -> {n_lanes}")
+    if n_lanes == have:
+        return batch
+    pad = tensor_leaves(inert_lane(batch))
+    return with_leaves(batch, [
+        torch.cat([x, p[None].expand((n_lanes - have,) + p.shape)])
+        for x, p in zip(tensor_leaves(batch), pad)])
+
+
+def policy_grid(*, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The paper's full 2x2 (vm_policy, task_policy) matrix, paired."""
+    vm_p = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=device)
+    task_p = torch.tensor([0, 1, 0, 1], dtype=torch.int32, device=device)
+    return vm_p, task_p
+
+
+def _policies(batch, vm_policies, task_policies):
+    dev = batch.time.device
+    vm_p = torch.as_tensor(vm_policies, dtype=torch.int32, device=dev)
+    task_p = torch.as_tensor(task_policies, dtype=torch.int32, device=dev)
+    if vm_p.shape != task_p.shape or vm_p.ndim != 1:
+        raise ValueError("vm_policies and task_policies must pair up: "
+                         f"{tuple(vm_p.shape)} vs {tuple(task_p.shape)}")
+    return vm_p, task_p
+
+
+def fuse_grid(batch: DatacenterState, vm_policies, task_policies
+              ) -> DatacenterState:
+    """Flatten a [B] scenario batch x i32[P] policy pairs into [P*B] lanes.
+
+    Lane ``p*B + b`` is scenario ``b`` with its ``vm_policy``/
+    ``task_policy`` overwritten by pair ``p``; every other leaf is
+    repeated.  The inverse is a reshape of each leaf to ``(P, B) +
+    rest``.
+    """
+    vm_p, task_p = _policies(batch, vm_policies, task_policies)
+    n_pol, n_scen = vm_p.shape[0], batch.time.shape[0]
+    fused = map_tensors(lambda x: x[None].expand(
+        (n_pol,) + x.shape).reshape((n_pol * n_scen,) + x.shape[1:]), batch)
+    return dataclasses.replace(
+        fused, vm_policy=vm_p.repeat_interleave(n_scen),
+        task_policy=task_p.repeat_interleave(n_scen))
+
+
+# ---------------------------------------------------------------------------
+# Batched runners
+# ---------------------------------------------------------------------------
+def run_batch(batch: DatacenterState, *, max_steps: int = 1_000_000,
+              provision_policy: int = FIRST_FIT, leap: bool | None = None
+              ) -> DatacenterState:
+    """Run a stacked scenario batch, every lane to its own quiescence
+    (``engine.batched_run``); lane i equals the single ``engine.run`` of
+    its scenario bit for bit."""
+    return engine.batched_run(batch, max_steps=max_steps,
+                              provision_policy=provision_policy, leap=leap)
+
+
+def _unfuse(out: DatacenterState, n_pol: int) -> DatacenterState:
+    return map_tensors(
+        lambda x: x.reshape((n_pol, x.shape[0] // n_pol) + x.shape[1:]), out)
+
+
+def run_grid(batch: DatacenterState, vm_policies, task_policies, *,
+             max_steps: int = 1_000_000, provision_policy: int = FIRST_FIT,
+             leap: bool | None = None) -> DatacenterState:
+    """Scenarios x policy grid as ONE fused batch: ``fuse_grid``, then
+    ``engine.batched_run``, then a reshape to a [P, B, ...] final state.
+
+    ``vm_policies``/``task_policies`` are i32[P], paired (the 2x2
+    Figure 3 matrix is P = 4, ``policy_grid``).  Every lane equals the
+    single ``engine.run`` of its cell and ``run_grid_nested``, bit for
+    bit.
+    """
+    vm_p, task_p = _policies(batch, vm_policies, task_policies)
+    out = engine.batched_run(fuse_grid(batch, vm_p, task_p),
+                             max_steps=max_steps,
+                             provision_policy=provision_policy, leap=leap)
+    return _unfuse(out, vm_p.shape[0])
+
+
+def run_grid_nested(batch: DatacenterState, vm_policies, task_policies, *,
+                    max_steps: int = 1_000_000,
+                    provision_policy: int = FIRST_FIT,
+                    leap: bool | None = None) -> DatacenterState:
+    """Reference grid runner: one ``run_batch`` a policy pair, stacked to
+    the same [P, B, ...] layout as ``run_grid`` (the differential
+    baseline for the fused path)."""
+    vm_p, task_p = _policies(batch, vm_policies, task_policies)
+    n_scen = batch.time.shape[0]
+    outs = []
+    for vp, tp in zip(vm_p, task_p):
+        cell = dataclasses.replace(batch, vm_policy=vp.expand(n_scen),
+                                   task_policy=tp.expand(n_scen))
+        outs.append(run_batch(cell, max_steps=max_steps,
+                              provision_policy=provision_policy, leap=leap))
+    return _stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# Reductions
+# ---------------------------------------------------------------------------
+class SweepSummary(NamedTuple):
+    """Per-scenario scalars over the trailing entity axes.
+
+    Leaf shape = the batch shape of the reduced state: [B] after
+    ``run_batch``, [P, B] after ``run_grid``.
+    """
+    n_done: torch.Tensor          # i32[...]  completed cloudlets
+    makespan: torch.Tensor        # f32[...]  latest completion, s (0: none)
+    mean_response: torch.Tensor   # f32[...]  mean finish - submit over done
+    total_cost: torch.Tensor      # f32[...]  market bill, $
+    energy_j: torch.Tensor        # f32[...]  total joules over real hosts
+    n_migrations: torch.Tensor    # i32[...]  live migrations performed
+    mig_downtime: torch.Tensor    # f32[...]  summed migration delays, VM-s
+    transferred_mb: torch.Tensor  # f32[...]  MB moved by transfers
+    spot_cost: torch.Tensor       # f32[...]  accrued spot spend, $
+    n_scale_up: torch.Tensor      # i32[...]  autoscaler VM creations
+    n_scale_down: torch.Tensor    # i32[...]  autoscaler VM destructions
+
+
+def summarize_batch(final: DatacenterState) -> SweepSummary:
+    """Reduce a batched final state (any leading batch dims) to
+    summaries."""
+    cl = final.cloudlets
+    done = cl.state == CL_DONE
+    n_done = done.sum(dim=-1, dtype=torch.int32)
+    resp = torch.where(done, cl.finish_time - cl.submit_time, 0.0)
+    denom = torch.clamp(n_done.to(torch.float32), min=1.0)
+    return SweepSummary(
+        n_done=n_done,
+        makespan=torch.where(done, cl.finish_time, 0.0).amax(dim=-1),
+        mean_response=resp.sum(dim=-1) / denom,
+        total_cost=final.acct.total,
+        energy_j=energy_total_j(final),
+        n_migrations=final.mig_count,
+        mig_downtime=final.mig_downtime,
+        transferred_mb=final.net_transferred_mb,
+        spot_cost=final.scaler.spot_cost,
+        n_scale_up=final.scaler.up_count,
+        n_scale_down=final.scaler.down_count)

@@ -1,0 +1,100 @@
+"""Telemetry reducers (``repro.core.telemetry`` in NumPy, static path).
+
+Turn the per-event ``StepRecord`` trace of ``engine.run_trace`` and a
+final state into analyses: the Fig. 8/9 completion curve, utilization
+and power timelines, trace energy, a Gantt chart and a trace summary.
+Everything here is NumPy post-processing of tensors brought to the host.
+The metrics-plane reducers come with the slice that ports the plane.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from repro_torch.core import state as S
+
+__all__ = ["completion_curve", "utilization_timeline", "watts_timeline",
+           "trace_energy_j", "gantt", "summarize_trace"]
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def completion_curve(trace) -> tuple[np.ndarray, np.ndarray]:
+    """(times, cumulative completions) — the Fig. 8/9 x/y data."""
+    act = _np(trace.active)
+    return _np(trace.time)[act], _np(trace.n_done)[act]
+
+
+def utilization_timeline(trace) -> tuple[np.ndarray, np.ndarray]:
+    """(times, fleet MIPS utilization in [0,1]) per event step."""
+    act = _np(trace.active)
+    return _np(trace.time)[act], _np(trace.utilization)[act]
+
+
+def watts_timeline(trace) -> tuple[np.ndarray, np.ndarray]:
+    """(times, fleet watts) per event step.
+
+    ``watts[i]`` is the power drawn during the interval *ending* at
+    ``times[i]`` (rates, hence power, are constant between events).
+    """
+    act = _np(trace.active)
+    return _np(trace.time)[act], _np(trace.watts)[act]
+
+
+def trace_energy_j(trace) -> float:
+    """Total fleet joules, ``sum(watts_i * dt_i)`` over the event grid
+    (exact: power is piecewise constant between events)."""
+    t, w = watts_timeline(trace)
+    if len(t) == 0:
+        return 0.0
+    dt = np.diff(np.concatenate([[0.0], t]))
+    return float(np.sum(np.asarray(w, np.float64) * np.maximum(dt, 0.0)))
+
+
+def gantt(dc: S.DatacenterState) -> Dict[int, list]:
+    """Per-VM list of (cloudlet slot, start, finish) for completed tasks."""
+    cl = dc.cloudlets
+    state, vm = _np(cl.state), _np(cl.vm)
+    st, ft = _np(cl.start_time), _np(cl.finish_time)
+    out: Dict[int, list] = {}
+    for i in np.nonzero(state == S.CL_DONE)[0]:
+        out.setdefault(int(vm[i]), []).append(
+            (int(i), float(st[i]), float(ft[i])))
+    return out
+
+
+def summarize_trace(trace) -> Dict[str, float]:
+    """Events, makespan, time-weighted and peak utilization and watts,
+    energy, and the last or peak value of each counter of the trace."""
+    act = _np(trace.active)
+    util = _np(trace.utilization)[act]
+    watts = _np(trace.watts)[act]
+    t = _np(trace.time)[act]
+    if len(t) == 0:
+        return {"events": 0, "makespan": 0.0, "mean_util": 0.0,
+                "peak_util": 0.0, "energy_total_j": 0.0,
+                "mean_watts": 0.0, "peak_watts": 0.0,
+                "migrations": 0, "peak_hosts_down": 0,
+                "transferred_mb": 0.0, "peak_flows": 0,
+                "peak_fleet": 0, "spot_cost": 0.0}
+    # time-weighted means over event intervals (interval i ends at t[i])
+    dt = np.diff(np.concatenate([[0.0], t]))
+    weights = np.maximum(dt, 1e-12)
+    return {
+        "events": int(act.sum()),
+        "makespan": float(t[-1]),
+        "mean_util": float(np.average(util, weights=weights)),
+        "peak_util": float(util.max()),
+        "energy_total_j": trace_energy_j(trace),
+        "mean_watts": float(np.average(watts, weights=weights)),
+        "peak_watts": float(watts.max()),
+        "migrations": int(_np(trace.migrations)[act][-1]),
+        "peak_hosts_down": int(_np(trace.hosts_down)[act].max()),
+        "transferred_mb": float(_np(trace.transferred_mb)[act][-1]),
+        "peak_flows": int(_np(trace.n_flows)[act].max()),
+        "peak_fleet": int(_np(trace.fleet)[act].max()),
+        "spot_cost": float(_np(trace.spot_cost)[act][-1]),
+    }

@@ -11,6 +11,9 @@
 //   space     = rank < int(pes) ? cap / pes : 0     (pes = max(req_pes, 1))
 //   time      = cap / max(n_run, pes)
 //   rate      = runnable ? (policy == SPACE_SHARED ? space : time) : 0
+// where policy is one i32 for every row, or the row's own entry of an
+// i32[V] (a batch of lanes, each with its own task policy, flattened into
+// one axis of rows)
 //   dt        = rate > 0 ? remaining / max(rate, 1e-30) : 1e30
 //   dt_min    = min over the row of dt
 // with the same IEEE float operations as the plain version
@@ -87,7 +90,7 @@ window_kernel(const float* __restrict__ remaining,
               const int32_t* __restrict__ slot_row,
               const float* __restrict__ vm_capacity,
               const float* __restrict__ req_pes,
-              const int32_t* __restrict__ task_policy,
+              const int32_t* __restrict__ task_policy, int per_row,
               const int32_t* __restrict__ window, int64_t n_windows,
               const int32_t* __restrict__ empty_rows, int64_t n_empty,
               float* __restrict__ rates, float* __restrict__ dt_min)
@@ -119,7 +122,6 @@ window_kernel(const float* __restrict__ remaining,
         __ballot_sync(kFull, row >= 0 && (lane == 0 || row != up));
     const unsigned bounds = starts | __ballot_sync(kFull, row < 0);
     const unsigned run = __ballot_sync(kFull, r);
-    const bool space = task_policy[0] == kSpaceShared;
 
     float d = kInf;
     int head = 0, end = 0;
@@ -130,6 +132,7 @@ window_kernel(const float* __restrict__ remaining,
         const unsigned seg = (end == 32 ? kFull : (1u << end) - 1u)
                              & ~((1u << head) - 1u);
         const int rank = __popc(run & seg & mask_le(lane)) - 1;
+        const bool space = task_policy[per_row ? row : 0] == kSpaceShared;
         const float rate = slot_rate(r, rank, __popc(run & seg),
                                      vm_capacity[row],
                                      fmaxf(req_pes[row], 1.0f), space);
@@ -183,7 +186,7 @@ long_rate_kernel(const float* __restrict__ remaining,
                  const uint8_t* __restrict__ runnable,
                  const float* __restrict__ vm_capacity,
                  const float* __restrict__ req_pes,
-                 const int32_t* __restrict__ task_policy,
+                 const int32_t* __restrict__ task_policy, int per_row,
                  const int32_t* __restrict__ row_start,
                  const int32_t* __restrict__ row_len,
                  const int32_t* __restrict__ chunk_row,
@@ -229,7 +232,7 @@ long_rate_kernel(const float* __restrict__ remaining,
 
     const float cap = vm_capacity[row];
     const float pes = fmaxf(req_pes[row], 1.0f);
-    const bool space = task_policy[0] == kSpaceShared;
+    const bool space = task_policy[per_row ? row : 0] == kSpaceShared;
     const unsigned le = lane == 31 ? kFull : (1u << (lane + 1)) - 1u;
     float best = kInf;
     for (int64_t j0 = begin; j0 < end && j0 < begin + kChunk;
@@ -272,13 +275,15 @@ long_rate_kernel(const float* __restrict__ remaining,
 
 // C entry point, bound with ctypes.  Pointers are device pointers on the
 // current device; the launches go on `stream` in order (the short-row
-// kernel, then the two long-row passes when n_chunks > 0).  chunk_count
+// kernel, then the two long-row passes when n_chunks > 0).  task_policy
+// holds one i32 (per_row == 0) or one a row (per_row != 0).  chunk_count
 // is scratch of n_chunks ints.  Returns the first non-zero cudaError_t of
 // the launches (0 when every one was accepted).
 extern "C" int simstep_ragged_launch(
     const float* remaining, const uint8_t* runnable, const int32_t* slot_row,
     const float* vm_capacity, const float* req_pes,
-    const int32_t* task_policy, const int32_t* window, int64_t n_windows,
+    const int32_t* task_policy, int per_row, const int32_t* window,
+    int64_t n_windows,
     const int32_t* empty_rows, int64_t n_empty, const int32_t* row_start,
     const int32_t* row_len, const int32_t* chunk_row,
     const int32_t* chunk_first, int64_t n_chunks, int32_t* chunk_count,
@@ -292,7 +297,7 @@ extern "C" int simstep_ragged_launch(
     if (blocks > 0) {
         window_kernel<<<static_cast<unsigned>(blocks), per_block, 0, s>>>(
             remaining, runnable, slot_row, vm_capacity, req_pes, task_policy,
-            window, n_windows, empty_rows, n_empty, rates, dt_min);
+            per_row, window, n_windows, empty_rows, n_empty, rates, dt_min);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
     }
@@ -304,8 +309,9 @@ extern "C" int simstep_ragged_launch(
     if (err != cudaSuccess) return static_cast<int>(err);
     long_rate_kernel<<<static_cast<unsigned>(n_chunks), kChunkThreads, 0,
                        s>>>(remaining, runnable, vm_capacity, req_pes,
-                            task_policy, row_start, row_len, chunk_row,
-                            chunk_first, chunk_count, rates, dt_min);
+                            task_policy, per_row, row_start, row_len,
+                            chunk_row, chunk_first, chunk_count, rates,
+                            dt_min);
     err = cudaGetLastError();
     return static_cast<int>(err);
 }

@@ -139,8 +139,10 @@ def simstep_ragged(remaining, runnable, index: RowIndex, vm_capacity,
     the flat cloudlet axis.
 
     remaining f32[C], runnable bool[C], ``index`` a ``RowIndex`` of C
-    slots and V rows, vm_capacity and req_pes f32[V]; task_policy an int
-    or an i32[] tensor.  Returns (rates f32[C], dt_min f32[V]).  CPU
+    slots and V rows, vm_capacity and req_pes f32[V]; task_policy an int,
+    an i32[] tensor, or an i32[V] tensor that gives each row its own
+    policy (a batch of lanes flattened into one axis of rows).  Returns
+    (rates f32[C], dt_min f32[V]).  CPU
     tensors take ``simstep_ragged_ref``; CUDA tensors launch the kernel
     on the current stream (no synchronisation), or the call raises.
     """
@@ -163,7 +165,9 @@ def simstep_ragged(remaining, runnable, index: RowIndex, vm_capacity,
     if not isinstance(task_policy, torch.Tensor):
         task_policy = torch.tensor(int(task_policy), dtype=torch.int32,
                                    device=device)
-    _check("task_policy", task_policy, torch.int32, (), device)
+    per_row = task_policy.ndim == 1
+    _check("task_policy", task_policy, torch.int32, (v,) if per_row else (),
+           device)
 
     rates = torch.empty((c,), dtype=torch.float32, device=device)
     dt_min = torch.empty((v,), dtype=torch.float32, device=device)
@@ -177,7 +181,7 @@ def simstep_ragged(remaining, runnable, index: RowIndex, vm_capacity,
         err = lib.simstep_ragged_launch(
             remaining.data_ptr(), runnable.data_ptr(),
             index.slot_row.data_ptr(), vm_capacity.data_ptr(),
-            req_pes.data_ptr(), task_policy.data_ptr(),
+            req_pes.data_ptr(), task_policy.data_ptr(), int(per_row),
             index.window.data_ptr(), index.window.shape[0] - 1,
             index.empty.data_ptr(), index.empty.shape[0],
             index.start.data_ptr(), index.length.data_ptr(),
@@ -194,8 +198,9 @@ def simstep(remaining, runnable, vm_capacity, req_pes, task_policy):
     """``simstep_ragged`` on the dense [V, K] layout of the JAX reference:
     row v holds slots v*K .. v*K + K - 1.
 
-    CPU tensors take ``simstep_ref``; CUDA tensors launch the kernel, or
-    the call raises.  Returns (rates f32[V, K], dt_min f32[V]).
+    task_policy as for ``simstep_ragged``.  CPU tensors take
+    ``simstep_ref``; CUDA tensors launch the kernel, or the call raises.
+    Returns (rates f32[V, K], dt_min f32[V]).
     """
     if remaining.device.type == "cpu":
         return simstep_ref(remaining, runnable, vm_capacity, req_pes,
@@ -222,8 +227,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.simstep_ragged_launch
     if fn.argtypes is None:
         p, n = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, p, p, p, p, p, p, n, p, n, p, p, p, p, n, p, p, p,
-                       p]
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, p, n, p, n, p, p, p,
+                       p, n, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 

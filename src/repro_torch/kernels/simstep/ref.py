@@ -29,7 +29,8 @@ def simstep_ref(remaining: torch.Tensor, runnable: torch.Tensor,
                 vm_capacity: torch.Tensor, req_pes: torch.Tensor,
                 task_policy):
     """remaining f32[V,K]; runnable bool[V,K]; vm_capacity f32[V];
-    req_pes f32[V]; policy scalar.  Returns (rates [V,K], dt_min [V])."""
+    req_pes f32[V]; policy a scalar or i32[V] (one a row).  Returns
+    (rates [V,K], dt_min [V])."""
     runnable = runnable & (remaining > 0.0)
     pes = torch.clamp(req_pes, min=1.0)[:, None]           # [V,1]
     cap = vm_capacity[:, None]                             # [V,1]
@@ -44,8 +45,9 @@ def simstep_ref(remaining: torch.Tensor, runnable: torch.Tensor,
     time = cap / torch.maximum(n_run, pes)
 
     policy = torch.as_tensor(task_policy, device=remaining.device)
-    rates = torch.where(policy == SPACE_SHARED,
-                        space, time)
+    if policy.ndim == 1:
+        policy = policy[:, None]
+    rates = torch.where(policy == SPACE_SHARED, space, time)
     rates = torch.where(runnable, rates, 0.0)
 
     dt = torch.where(rates > 0.0,
@@ -60,7 +62,8 @@ def simstep_ragged_ref(remaining: torch.Tensor, runnable: torch.Tensor,
                        index, vm_capacity: torch.Tensor,
                        req_pes: torch.Tensor, task_policy):
     """remaining f32[C]; runnable bool[C]; ``index`` the ``RowIndex`` of
-    the slots' VM ids; vm_capacity f32[V]; req_pes f32[V]; policy scalar.
+    the slots' VM ids; vm_capacity f32[V]; req_pes f32[V]; policy a scalar
+    or i32[V] (one a row).
     Returns (rates f32[C], dt_min f32[V]).  A slot with no row gets rate
     0, a row with no slot dt_min 1e30.  On uniform rows it equals
     ``simstep_ref`` bit for bit."""
@@ -87,6 +90,8 @@ def simstep_ragged_ref(remaining: torch.Tensor, runnable: torch.Tensor,
                                         pes))[owner]
 
     policy = torch.as_tensor(task_policy, device=remaining.device)
+    if policy.ndim == 1:
+        policy = policy[owner]
     rates = torch.where(policy == SPACE_SHARED, space, time)
     rates = torch.where(runnable, rates, 0.0)
 

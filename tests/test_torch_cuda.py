@@ -7,6 +7,8 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -178,6 +180,88 @@ def test_engine_on_card_matches_cpu(cuda, policy):
                      (gpu.hosts.energy_j, cpu.hosts.energy_j)):
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
                                        atol=1e-3)
+
+
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_simstep_ragged_kernel_per_row_policy(cuda, case):
+    """A task policy per row (lanes of a batch): bitwise, short and long
+    rows, one launch a call; a policy of the wrong length raises."""
+    for seed in range(3):
+        index, (rem, run, cap, pes) = _ragged_tile(seed, RAGGED[case], cuda)
+        pol = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 2, index.n_rows).astype(np.int32)).to(cuda)
+        before = simstep.launches
+        r, d = simstep_ragged(rem, run, index, cap, pes, pol)
+        r_ref, d_ref = simstep_ragged_ref(rem, run, index, cap, pes, pol)
+        torch.cuda.synchronize()
+        assert simstep.launches == before + 1
+        assert torch.equal(r, r_ref) and torch.equal(d, d_ref), (case, seed)
+    with pytest.raises(ValueError):
+        simstep_ragged(rem, run, index, cap, pes, pol[:-1])
+
+
+def shared_hosts(seed, n_hosts, device):
+    """benchmarks/bench_policies.py::bench_sweep's lanes with shared
+    hosts: 4 VMs on every 1-PE host, PEs not reserved, 4 waves of a
+    per-seed length.  Two VM classes of per-seed MIPS, each in one run
+    of slots (so first fit places a run at a time): 2*H VMs of 768 MB,
+    two to a 2 GB host, then 2*H of 256 MB in the 512 MB left.  A host's
+    time-shared demand is a sum of unequal f32 terms, whose value
+    depends on the order of the additions."""
+    rng = np.random.default_rng(seed)
+    half = 2 * n_hosts
+    mips = np.repeat(np.round(rng.uniform(200.0, 1000.0, 2), 3), half)
+    length = float(rng.integers(600, 1200) * 1000)
+    return S.make_datacenter(
+        S.make_uniform_hosts(n_hosts, ram=2048.0, idle_w=100.0,
+                             peak_w=200.0, device=device),
+        S.make_vms(np.ones(2 * half), mips, np.repeat([768.0, 256.0], half),
+                   10.0, 1000.0, device=device),
+        B.build_waves(2 * half, B.WaveSpec(waves=4, length_mi=length,
+                                           period=600.0), device=device),
+        reserve_pes=False, device=device)
+
+
+def test_lanes_equal_single_runs_on_card(cuda):
+    """4 seeds x the 2x2 grid of shared-host lanes in one run_grid: every
+    lane equals its single run on the card, bit for bit, and the single
+    runs equal the CPU's within the conformance tolerance."""
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import run
+    base = [shared_hosts(seed, 32, cuda) for seed in range(4)]
+    vm_p, task_p = sweep.policy_grid(device=cuda)
+    grid = sweep.run_grid(sweep.stack_scenarios(base), vm_p, task_p,
+                          max_steps=4096)
+    hosts = grid.vms.host[0, 0].cpu().numpy()
+    assert (np.bincount(hosts, minlength=32) == 4).all()
+    for p in range(4):
+        for b, dc in enumerate(base):
+            cell = dataclasses.replace(dc, vm_policy=vm_p[p],
+                                       task_policy=task_p[p])
+            single = run(cell, max_steps=4096)
+            for name, a in _leaves(single):
+                g = _leaf(grid, name)[p, b]
+                assert torch.equal(g, a), (p, b, name)
+            if b == 0:
+                cpu = run(S.to_device(cell, "cpu"), max_steps=4096)
+                np.testing.assert_allclose(
+                    single.cloudlets.finish_time.cpu().numpy(),
+                    cpu.cloudlets.finish_time.numpy(), rtol=0, atol=1e-3)
+
+
+def _leaves(state, path=""):
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from _leaves(v, f"{path}{f.name}.")
+        else:
+            yield f"{path}{f.name}", v
+
+
+def _leaf(state, name):
+    for part in name.split("."):
+        state = getattr(state, part)
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -138,8 +138,7 @@ def test_gather_scatter_matches_jax_vm_level_rates(seed):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
                                    err_msg=str((seed, vp, tp)))
         # the kernel's per-row minimum is the flat event-queue head
-        index = row_index(tdc.cloudlets.vm, tdc.vms.req_pes.shape[0])
-        rates, dt = scheduling.rates_and_dt(tdc, index)
+        rates, dt = scheduling.rates_and_dt(tdc)
         rem = np.asarray(jdc.cloudlets.remaining)
         fdt = np.where(want > 0, rem / np.maximum(want, np.float32(1e-30)),
                        np.float32(INF)).astype(np.float32)

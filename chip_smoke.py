@@ -45,15 +45,39 @@ script exits non-zero:
   8. 64 lanes (16 seeds x the grid) of 256 shared hosts, 4 VMs on every
      host: every lane equals its single run bitwise;
   9. the §5 CLI (``repro_torch.launch.simulate --hosts 10000 --trace 64``)
-     against the closed forms.
+     against the closed forms;
+ 10. ``s5-100k-dyn``: the paper's largest datacenter with an event table
+     of all four kinds (1,000 hosts of busy VMs fail mid-wave and
+     recover later, 500 other VMs are destroyed, 500 latent VMs with a
+     cloudlet each are created), both task policies, against closed
+     forms: surviving cloudlets at their static §5 times, exact FAILED
+     counts, created VMs' cloudlets at their closed-form times, per-host
+     joules with nothing drawn while a host is down;
+ 11. ``migration-16x``: ``bench_migration``'s threshold case at 16x its
+     size (4,096 hosts, 1,536 VMs, three host failures, THRESHOLD 0.6),
+     leap on == leap off bitwise, against the same run on the CPU, at
+     least one migration;
+ 12. ``s5-100k-net``: the paper's largest datacenter staging 50 MB in and
+     20 MB out per cloudlet over ``bench_network``'s topology, both task
+     policies: every cloudlet done, byte conservation within the f32
+     accumulation's bound; the same recipe at 10,000 hosts against the
+     CPU;
+ 13. ``dyn-lanes``: 16 small dynamic and networked scenarios (numpy
+     copies of the conformance recipes) x the 2x2 grid in one batch:
+     every lane equals its single run bitwise, and the batch agrees with
+     the CPU;
+ 14. what the migration and network passes cost a full step at 100,000
+     hosts (the same run, bit for bit, with each set switched on), and
+     the wall of a host-plan rebuild.
 
 Phase 2 also holds simstep with a task policy per row (a batch's lanes)
 against its plain version, and times it at 4 lanes of [50000, 10].
 
-Phases 3, 4 and 4b are the simulator's main path, and 6, 7, 8 and 9 each
-a path of its own: simstep's launch count is set to 0 just before phase 3
+Phases 3, 4 and 4b are the simulator's main path, and 6 to 13 each a
+path of its own: simstep's launch count is set to 0 just before phase 3
 and read just after phase 4b, and set to 0 just before and read just
-after each run of the later ones.  The full-depth
+after each run of the later ones (``launches_by_path`` in the kernels'
+record; every path must show launches).  The full-depth
 prefills are the LM slice's main path: the flash-attention and
 selective-scan counts are set to 0 just before each and read just after,
 and the bf16 prefill's dtype must route its flash launches to the
@@ -832,6 +856,595 @@ def phase_simulate(device, card, launched, n_hosts=10_000):
           f"simstep launches ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Dynamic datacenters and the network (phases 10-13)
+# ---------------------------------------------------------------------------
+# s5-100k-dyn's event times: failures mid-wave 0, a destroy mid-wave 2,
+# recoveries, then the latent VMs' creation; none falls on a completion
+T_FAIL, T_DESTROY, T_RECOVER, T_CREATE = 300.0, 3100.0, 4500.0, 6300.0
+
+
+def s5_dynamic(n_hosts, n_vms, policy, device, n_fail, n_destroy,
+               n_create):
+    """The §5 datacenter with an event table of all four kinds: the hosts
+    of VMs 0..n_fail-1 (first fit puts VM v on host v) fail at T_FAIL
+    and recover at T_RECOVER; VMs n_fail..n_fail+n_destroy-1 are
+    destroyed at T_DESTROY; n_create latent (VM_EMPTY) slots, each with
+    one 1,200,000 MI cloudlet submitted at T_CREATE, are created then.
+    Migration off, PEs reserved."""
+    import numpy as np
+    from repro_torch.core import broker as B
+    from repro_torch.core import state as S
+    hosts = S.make_uniform_hosts(n_hosts, idle_w=100.0, peak_w=200.0,
+                                 device=device)
+    vms = B.build_fleet([B.VmSpec(count=n_vms + n_create, pes=1,
+                                  mips=1000.0, ram=512.0, bw=10.0,
+                                  size=1000.0)], device=device)
+    vms.state[n_vms:] = S.VM_EMPTY
+    waves = B.build_waves(n_vms, B.WaveSpec(waves=10, length_mi=1_200_000.0,
+                                            period=600.0), device="cpu")
+    latent = np.arange(n_vms, n_vms + n_create)
+    cl = S.make_cloudlets(
+        np.concatenate([waves.vm.numpy(), latent]), 1_200_000.0,
+        np.concatenate([waves.submit_time.numpy(),
+                        np.full(n_create, T_CREATE, np.float32)]),
+        0.3, 0.3, device=device)
+    fail = np.arange(n_fail)
+    doomed = np.arange(n_fail, n_fail + n_destroy)
+    events = S.make_events(
+        np.repeat([T_FAIL, T_RECOVER, T_DESTROY, T_CREATE],
+                  [n_fail, n_fail, n_destroy, n_create]),
+        np.repeat([S.EV_HOST_FAIL, S.EV_HOST_RECOVER, S.EV_VM_DESTROY,
+                   S.EV_VM_CREATE], [n_fail, n_fail, n_destroy, n_create]),
+        np.concatenate([fail, fail, doomed, latent]), device=device)
+    return S.make_datacenter(hosts, vms, cl, vm_policy=S.SPACE_SHARED,
+                             task_policy=policy, reserve_pes=True,
+                             rates=S.make_market(0.01, 0.001, 1e-4, 0.002,
+                                                 device=device),
+                             events=events, device=device)
+
+
+def check_s5_dynamic(final, policy, n_vms, n_fail, n_destroy, n_create,
+                     tag):
+    """Closed forms of ``s5_dynamic``.  Every VM sits alone on an
+    identical 1-PE host, so an evicted VM re-placed in the same instant
+    keeps its schedule: every cloudlet of a surviving VM finishes at its
+    static §5 time (submit + the wave's response); a destroyed VM's
+    cloudlets with a static finish after T_DESTROY are FAILED, the others
+    DONE; a created VM's cloudlet finishes at T_CREATE + 1200 s.  A host
+    draws 100 W while up, 200 W while its VM runs, 0 W while down:
+    busy for 12,000 s under a surviving VM, until T_FAIL under an evicted
+    one and from T_FAIL on under its new host, until T_DESTROY under a
+    destroyed one, 1,200 s under a created one, and down from T_FAIL to
+    T_RECOVER.  Returns the largest errors."""
+    import numpy as np
+    from repro_torch.core import broker as B
+    from repro_torch.core import state as S
+    t_end = 12000.0
+    resp = SPACE_RESP if policy == S.SPACE_SHARED else TIME_RESP
+    cl, vms = final.cloudlets, final.vms
+    vm = cl.vm.cpu().numpy()
+    sub = cl.submit_time.double().cpu().numpy()
+    fin = cl.finish_time.double().cpu().numpy()
+    state = cl.state.cpu().numpy()
+    orig = vm < n_vms
+    wave = np.where(orig, np.rint(sub / 600.0), 0).astype(int)
+    static_fin = np.where(orig, sub + np.asarray(resp)[wave],
+                          T_CREATE + 1200.0)
+    doomed = (vm >= n_fail) & (vm < n_fail + n_destroy)
+    want_failed = doomed & (static_fin > T_DESTROY)
+    per_vm = int(sum(600.0 * w + resp[w] > T_DESTROY for w in range(10)))
+    rep = B.collect(final)
+    check(int(rep.n_failed) == n_destroy * per_vm == int(want_failed.sum()),
+          f"{tag}: {int(rep.n_failed)} FAILED, want {n_destroy} x {per_vm}")
+    check(bool(np.all((state == S.CL_FAILED) == want_failed))
+          and bool(np.all((state == S.CL_DONE) == ~want_failed)),
+          f"{tag}: cloudlet states off the closed form")
+    t_err = float(np.abs(fin - static_fin)[~want_failed].max())
+    check(t_err <= 1e-3, f"{tag}: finish times off by {t_err!r} s")
+    host = vms.host.cpu().numpy()
+    vstate = vms.state.cpu().numpy()
+    ids = np.arange(n_vms + n_create)
+    stays = (ids >= n_fail + n_destroy) & (ids < n_vms)
+    evicted, created = ids < n_fail, ids >= n_vms
+    check(bool(np.all(host[stays] == ids[stays])),
+          f"{tag}: a surviving VM left its first-fit host")
+    gone = (ids >= n_fail) & (ids < n_fail + n_destroy)
+    check(bool(np.all(vstate[gone] == S.VM_DESTROYED))
+          and bool(np.all(host[gone] == -1)), f"{tag}: destroyed VMs")
+    moved = np.concatenate([host[evicted], host[created]])
+    check(bool(np.all(vstate[evicted | created | stays] == S.VM_ACTIVE))
+          and np.unique(moved).size == moved.size
+          and bool(np.all(host[evicted] >= n_vms)),
+          f"{tag}: evicted and created VMs not on distinct free hosts")
+    check(bool(final.hosts.valid.all()) and bool(final.event_fired.all())
+          and abs(float(final.time) - t_end) <= 1e-3,
+          f"{tag}: hosts down, events unfired or clock "
+          f"{float(final.time)!r} at the end")
+    n_hosts = final.hosts.num_pes.shape[0]
+    up = np.full(n_hosts, t_end)
+    up[:n_fail] -= T_RECOVER - T_FAIL
+    busy = np.zeros(n_hosts)
+    np.add.at(busy, ids[stays], t_end)
+    np.add.at(busy, ids[evicted], T_FAIL)
+    np.add.at(busy, host[evicted], t_end - T_FAIL)
+    np.add.at(busy, ids[gone], T_DESTROY)
+    np.add.at(busy, host[created], 1200.0)
+    want_e = 100.0 * up + 100.0 * busy
+    energy = final.hosts.energy_j.double().cpu().numpy()
+    e_err = float(np.abs(energy / want_e - 1.0).max())
+    check(e_err <= 1e-5, f"{tag}: energy off by {e_err!r} relative")
+    return t_err, e_err, per_vm
+
+
+def run_line(stats):
+    """What a run did, for the phase lines."""
+    return (f"{stats.n_events} events, {stats.n_full} full steps of "
+            f"{stats.n_steps} evaluated, {stats.n_leap} leap iterations, "
+            f"{stats.n_blocks} host checks, {stats.n_plans} plan rebuilds")
+
+
+def phase_s5_dynamic(device, card, launched, n_hosts=100_000,
+                     n_vms=50_000, n_fail=1000, n_destroy=500,
+                     n_create=500):
+    """Phase 10: the paper's largest datacenter with host failures and
+    recoveries, VM destroys and VM creates (``s5_dynamic``), both task
+    policies, against its closed forms."""
+    import torch
+    from repro_torch.core.engine import run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    tag = "s5-100k-dyn" if n_hosts == 100_000 else f"s5-{n_hosts}-dyn"
+    simstep.launches = 0
+    for policy in (0, 1):
+        dc = s5_dynamic(n_hosts, n_vms, policy, device, n_fail, n_destroy,
+                        n_create)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, stats = run_stats(dc, max_steps=8192)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t_err, e_err, per_vm = check_s5_dynamic(
+            final, policy, n_vms, n_fail, n_destroy, n_create,
+            f"{tag}-{policy}")
+        print(f"[{tag}-{policy}] {n_hosts} hosts, {n_vms} VMs + {n_create} "
+              f"created, {10 * n_vms + n_create} cloudlets; {n_fail} hosts "
+              f"down {T_FAIL}-{T_RECOVER} s, {n_destroy} VMs destroyed at "
+              f"{T_DESTROY} s ({per_vm} cloudlets each FAILED), {n_create} "
+              f"created at {T_CREATE} s: closed forms hold (finish err "
+              f"{t_err:.3g} s, energy rel err {e_err:.3g}); wall {wall!r} s,"
+              f" {run_line(stats)} ({card})")
+    launched["s5-100k-dyn"] = simstep.launches
+
+
+def migration_scenario(device, scale=16):
+    """``benchmarks/bench_policies.py::bench_migration``'s threshold case
+    (its recipe, copied) at ``scale`` times its size: 256*scale hosts of
+    2 PEs and 2,048 MB, 96*scale one-PE VMs, 4 waves of 600,000 MI every
+    300 s with each length jittered by up to +-30%, hosts 0, 1 and 2
+    failing at 200, 500 and 900 s, THRESHOLD migration at 0.6, reserved
+    PEs, space-shared VMs and time-shared tasks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import broker as B
+    from repro_torch.core import state as S
+    n_hosts, n_vms = 256 * scale, 96 * scale
+    rng = np.random.default_rng(7)
+    hosts = S.make_uniform_hosts(n_hosts, pes=2, ram=2048.0, device=device)
+    vms = B.build_fleet([B.VmSpec(count=n_vms, pes=1, mips=1000.0,
+                                  ram=512.0, bw=10.0, size=1000.0)],
+                        device=device)
+    cl = B.build_waves(n_vms, B.WaveSpec(waves=4, length_mi=600_000.0,
+                                         period=300.0), device=device)
+    jit = torch.from_numpy((0.7 + 0.6 * rng.random(
+        tuple(cl.length.shape))).astype(np.float32)).to(device)
+    cl = dataclasses.replace(cl, length=cl.length * jit,
+                             remaining=cl.remaining * jit)
+    events = S.make_events([200.0, 500.0, 900.0], [S.EV_HOST_FAIL] * 3,
+                           [0, 1, 2], device=device)
+    return S.make_datacenter(hosts, vms, cl, vm_policy=S.SPACE_SHARED,
+                             task_policy=S.TIME_SHARED, reserve_pes=True,
+                             events=events, mig_policy=S.MIG_THRESHOLD,
+                             mig_threshold=0.6, device=device)
+
+
+def agree(gpu, cpu, g_stats, c_stats, tag):
+    """The card's final state against the CPU's (the plain kernel):
+    states, placements, event and migration counts exact; times, joules,
+    downtime and transferred MB within 1e-3.  Returns the largest float
+    error."""
+    import torch
+    check(g_stats.n_events == c_stats.n_events,
+          f"{tag}: events {g_stats.n_events} (card) vs {c_stats.n_events}")
+    for name, a, b in (("cloudlet states", gpu.cloudlets.state,
+                        cpu.cloudlets.state),
+                       ("VM states", gpu.vms.state, cpu.vms.state),
+                       ("placements", gpu.vms.host, cpu.vms.host),
+                       ("migrations", gpu.mig_count, cpu.mig_count)):
+        check(torch.equal(a.cpu(), b), f"{tag}: {name} differ")
+    err = 0.0
+    for a, b in ((gpu.cloudlets.finish_time, cpu.cloudlets.finish_time),
+                 (gpu.cloudlets.start_time, cpu.cloudlets.start_time),
+                 (gpu.hosts.energy_j, cpu.hosts.energy_j),
+                 (gpu.mig_downtime, cpu.mig_downtime),
+                 (gpu.net_transferred_mb, cpu.net_transferred_mb)):
+        err = max(err, float((a.cpu().double() - b.double()).abs().max()))
+    check(err <= 1e-3, f"{tag}: card and CPU differ by {err!r}")
+    return err
+
+
+def phase_migration(device, card, launched, scale=16):
+    """Phase 11: ``migration_scenario`` at 16x bench_migration's size on
+    the card, leap on and leap off (bitwise equal), against the same
+    run on the CPU."""
+    import torch
+    from repro_torch.core.engine import run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    tag = "migration-16x" if scale == 16 else f"migration-{scale}x"
+    runs = {}
+    for leap in (True, False):
+        dc = migration_scenario(device, scale)
+        torch.cuda.synchronize()
+        simstep.launches = 0
+        t0 = time.perf_counter()
+        final, stats = run_stats(dc, max_steps=1 << 20, leap=leap)
+        torch.cuda.synchronize()
+        runs[leap] = (final, stats, time.perf_counter() - t0)
+        if leap:
+            launched["migration-16x"] = simstep.launches
+    (on, s_on, w_on), (off, s_off, w_off) = runs[True], runs[False]
+    check(same_state(on, off), f"{tag}: leap on != leap off")
+    check(s_on.n_events == s_off.n_events, f"{tag}: leap changed events")
+    t0 = time.perf_counter()
+    cpu, s_cpu = run_stats(migration_scenario("cpu", scale),
+                           max_steps=1 << 20)
+    w_cpu = time.perf_counter() - t0
+    err = agree(on, cpu, s_on, s_cpu, tag)
+    n_mig = int(on.mig_count)
+    check(n_mig >= 1, f"{tag}: no migration")
+    n_cl = 4 * 96 * scale
+    done = int((on.cloudlets.state == CL_DONE).sum())
+    check(done == n_cl, f"{tag}: {done}/{n_cl} done")
+    print(f"[{tag}] {256 * scale} hosts x 2 PEs, {96 * scale} VMs, {n_cl} "
+          f"cloudlets, 3 host failures, THRESHOLD 0.6: {n_mig} migrations, "
+          f"{float(on.mig_downtime)!r} s downtime, {n_cl}/{n_cl} done; leap "
+          f"on == leap off bitwise; card == CPU (states, placements, events, "
+          f"migrations exact; max float err {err:.3g}); leap on wall "
+          f"{w_on!r} s: {run_line(s_on)}; leap off wall {w_off!r} s: "
+          f"{run_line(s_off)}; CPU {w_cpu!r} s ({card})")
+
+
+def s5_networked(n_hosts, n_vms, policy, device):
+    """The §5 datacenter on ``bench_network``'s topology
+    (``benchmarks/bench_policies.py:341-344``): hosts in 8 clusters by
+    ``i % 8``, 1000/500/200 MB/s access/uplink/WAN, 0.001/0.005/0.05 s
+    latencies; each cloudlet stages 50 MB in and 20 MB out."""
+    import numpy as np
+    from repro_torch.core import broker as B
+    from repro_torch.core import state as S
+    hosts = S.make_uniform_hosts(n_hosts, idle_w=100.0, peak_w=200.0,
+                                 device=device)
+    vms = B.build_fleet([B.VmSpec(count=n_vms, pes=1, mips=1000.0,
+                                  ram=512.0, bw=10.0, size=1000.0)],
+                        device=device)
+    cl = B.build_waves(n_vms, B.WaveSpec(waves=10, length_mi=1_200_000.0,
+                                         period=600.0, file_size=50.0,
+                                         output_size=20.0), device=device)
+    net = S.make_topology(np.arange(n_hosts) % 8, bw_intra=1000.0,
+                          lat_intra=0.001, bw_inter=500.0, lat_inter=0.005,
+                          bw_wan=200.0, lat_wan=0.05, device=device)
+    return S.make_datacenter(hosts, vms, cl, vm_policy=S.SPACE_SHARED,
+                             task_policy=policy, reserve_pes=True,
+                             rates=S.make_market(0.01, 0.001, 1e-4, 0.002,
+                                                 device=device),
+                             net=net, device=device)
+
+
+def check_bytes(final, stats, tag):
+    """Every cloudlet DONE, and byte conservation: the MB booked equal
+    the file and output sizes of the DONE cloudlets.  Each event adds
+    its drained MB (whole sizes, summed exactly: integers below 2^24) to
+    an f32 total, which rounds by at most half its spacing each time, so
+    the tolerance is events x spacing(total) / 2."""
+    import numpy as np
+    cl = final.cloudlets
+    n_cl = cl.state.shape[0]
+    done = int((cl.state == CL_DONE).sum())
+    check(done == n_cl, f"{tag}: {done}/{n_cl} done")
+    want = float((cl.file_size.double() + cl.output_size.double()).sum())
+    got = float(final.net_transferred_mb)
+    tol = stats.n_events * float(np.spacing(np.float32(want))) / 2
+    check(abs(got - want) <= tol, f"{tag}: {got!r} MB booked, {want!r} "
+          f"moved (tolerance {tol!r})")
+    return got, want, tol
+
+
+def phase_s5_networked(device, card, launched, n_hosts=100_000,
+                       n_vms=50_000, small=10_000):
+    """Phase 12: the paper's largest datacenter staging every cloudlet's
+    data over ``bench_network``'s topology, both task policies; then the
+    same recipe at ``small`` hosts on the card and on the CPU."""
+    import torch
+    from repro_torch.core.engine import run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    tag = "s5-100k-net" if n_hosts == 100_000 else f"s5-{n_hosts}-net"
+    simstep.launches = 0
+    for policy in (0, 1):
+        dc = s5_networked(n_hosts, n_vms, policy, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, stats = run_stats(dc, max_steps=1 << 16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, want, tol = check_bytes(final, stats, f"{tag}-{policy}")
+        print(f"[{tag}-{policy}] {n_hosts} hosts in 8 clusters, {n_vms} "
+              f"VMs, {10 * n_vms} cloudlets of 50 MB in and 20 MB out: all "
+              f"done, makespan {float(final.time)!r} s, {got!r} MB booked "
+              f"against {want!r} (tolerance {tol!r}); wall {wall!r} s, "
+              f"{run_line(stats)} ({card})")
+    launched["s5-100k-net"] = simstep.launches
+    outs = []
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        outs.append(run_stats(s5_networked(small, small // 2, 1, dev),
+                              max_steps=1 << 16))
+        outs[-1] += (time.perf_counter() - t0,)
+    (gpu, gs, gw), (cpu, cs, cw) = outs
+    check_bytes(gpu, gs, f"s5-{small}-net")
+    err = agree(gpu, cpu, gs, cs, f"s5-{small}-net")
+    print(f"[s5-{small}-net] card == CPU, time-shared, {small} hosts, "
+          f"{small // 2} VMs: states, placements, {gs.n_events} events "
+          f"exact, max float err {err:.3g}; card {gw!r} s, CPU {cw!r} s "
+          f"({card})")
+
+
+def _conformance_hosts(rng, n_hosts, device, pes=(1, 4)):
+    """``tests/test_conformance.py``'s random hosts: power models mixing
+    linear and SPECpower G4 curves."""
+    import numpy as np
+    from repro_torch.core import energy
+    from repro_torch.core import state as S
+    idle = rng.uniform(0.05, 0.2, n_hosts)
+    g4 = energy.normalize_watts(energy.SPEC_G4_WATTS, device="cpu")[2]
+    lin = energy.linear_curve(device="cpu")
+    curves = np.where(rng.integers(0, 2, n_hosts)[:, None] == 1,
+                      g4.numpy()[None], lin.numpy()[None])
+    return S.make_hosts(rng.integers(*pes, n_hosts),
+                        rng.choice([250.0, 500.0, 1000.0], n_hosts),
+                        4096.0, 1000.0, 1e6, idle_w=idle,
+                        peak_w=idle + rng.uniform(0.2, 0.8, n_hosts),
+                        power_curve=curves, device=device)
+
+
+def dynamic_scenario(seed, vm_policy, task_policy, device, n_hosts=4,
+                     n_vms=5, per_vm=3):
+    """``tests/test_conformance.py::make_dynamic_scenario`` (its recipe
+    and numpy draws, copied): random hosts, VMs and cloudlets, a host
+    failure and recovery, a VM destroy, a latent VM created by an event
+    (a second failure on every fourth seed), and migration OFF /
+    THRESHOLD / DRAIN by seed."""
+    import numpy as np
+    from repro_torch.core import state as S
+    rng = np.random.default_rng(10_000 + seed)
+    hosts = _conformance_hosts(rng, n_hosts, device)
+    nv = n_vms + 1
+    vms = S.make_vms(
+        rng.integers(1, 3, nv), rng.choice([250.0, 500.0, 1000.0], nv),
+        rng.choice([64.0, 128.0, 256.0], nv), 1.0, 10.0,
+        submit_time=np.round(rng.uniform(0, 5, nv), 2).astype(np.float32),
+        device=device)
+    vms.state[n_vms] = S.VM_EMPTY
+    owners = np.repeat(np.arange(nv, dtype=np.int32), per_vm)
+    submit = np.sort(np.round(rng.uniform(0, 20, (nv, per_vm)), 2),
+                     axis=1).reshape(-1).astype(np.float32)
+    lengths = np.round(rng.uniform(500, 8000, nv * per_vm)).astype(
+        np.float32)
+    cl = S.make_cloudlets(owners, lengths, submit, device=device)
+    fail_t = round(float(rng.uniform(5, 25)), 2)
+    recover_t = round(fail_t + float(rng.uniform(5, 15)), 2)
+    fail_host = int(rng.integers(0, n_hosts))
+    destroy_t = round(float(rng.uniform(15, 35)), 2)
+    destroy_vm = int(rng.integers(0, n_vms))
+    create_t = round(float(rng.uniform(1, 10)), 2)
+    times = [fail_t, recover_t, destroy_t, create_t]
+    kinds = [S.EV_HOST_FAIL, S.EV_HOST_RECOVER, S.EV_VM_DESTROY,
+             S.EV_VM_CREATE]
+    targets = [fail_host, fail_host, destroy_vm, n_vms]
+    if seed % 4 == 0:
+        times.append(round(float(rng.uniform(10, 30)), 2))
+        kinds.append(S.EV_HOST_FAIL)
+        targets.append(int(rng.integers(0, n_hosts)))
+    mig_policy = (S.MIG_OFF, S.MIG_THRESHOLD, S.MIG_DRAIN)[seed % 3]
+    return S.make_datacenter(
+        hosts, vms, cl, vm_policy=vm_policy, task_policy=task_policy,
+        reserve_pes=bool(seed % 2),
+        events=S.make_events(times, kinds, targets, device=device),
+        mig_policy=mig_policy,
+        mig_threshold=0.7 if mig_policy == S.MIG_THRESHOLD else 0.45,
+        mig_energy_per_mb=0.001, device=device)
+
+
+def networked_scenario(seed, vm_policy, task_policy, device, n_hosts=4,
+                       n_vms=4, per_vm=3):
+    """``tests/test_conformance.py::make_networked_scenario`` (its recipe
+    and numpy draws, copied): a random two-tier topology over 1-3
+    clusters, staged transfers with some of zero size, and on odd seeds
+    a host failure and recovery with THRESHOLD or DRAIN migration."""
+    import numpy as np
+    from repro_torch.core import state as S
+    rng = np.random.default_rng(20_000 + seed)
+    hosts = _conformance_hosts(rng, n_hosts, device)
+    net = S.make_topology(
+        rng.integers(0, int(rng.integers(1, 4)), n_hosts),
+        bw_intra=float(rng.choice([50.0, 100.0, 200.0])),
+        bw_inter=float(rng.choice([20.0, 50.0, 100.0])),
+        bw_wan=float(rng.choice([10.0, 25.0, 50.0])),
+        lat_intra=round(float(rng.uniform(0.0, 0.1)), 2),
+        lat_inter=round(float(rng.uniform(0.0, 0.2)), 2),
+        lat_wan=round(float(rng.uniform(0.0, 0.5)), 2),
+        energy_per_mb=0.001, device=device)
+    vms = S.make_vms(
+        rng.integers(1, 3, n_vms), rng.choice([250.0, 500.0, 1000.0], n_vms),
+        rng.choice([64.0, 128.0], n_vms), 1.0, 10.0,
+        submit_time=np.round(rng.uniform(0, 5, n_vms), 2).astype(np.float32),
+        device=device)
+    owners = np.repeat(np.arange(n_vms, dtype=np.int32), per_vm)
+    submit = np.sort(np.round(rng.uniform(0, 20, (n_vms, per_vm)), 2),
+                     axis=1).reshape(-1).astype(np.float32)
+    lengths = np.round(rng.uniform(500, 8000, n_vms * per_vm)).astype(
+        np.float32)
+    nc = n_vms * per_vm
+    file_mb = np.round(rng.uniform(0, 40, nc), 1).astype(np.float32)
+    out_mb = np.round(rng.uniform(0, 20, nc), 1).astype(np.float32)
+    file_mb[rng.uniform(size=nc) < 0.2] = 0.0
+    out_mb[rng.uniform(size=nc) < 0.2] = 0.0
+    cl = S.make_cloudlets(owners, lengths, submit, file_size=file_mb,
+                          output_size=out_mb, device=device)
+    kw = {}
+    if seed % 2 == 1:
+        fail_t = round(float(rng.uniform(5, 20)), 2)
+        kw["events"] = S.make_events(
+            [fail_t, round(fail_t + float(rng.uniform(5, 15)), 2)],
+            [S.EV_HOST_FAIL, S.EV_HOST_RECOVER],
+            [int(rng.integers(0, n_hosts))] * 2, device=device)
+        kw["mig_policy"] = (S.MIG_THRESHOLD, S.MIG_DRAIN)[seed % 4 == 1]
+        kw["mig_threshold"] = (0.7 if kw["mig_policy"] == S.MIG_THRESHOLD
+                               else 0.45)
+        kw["mig_energy_per_mb"] = 0.001
+    return S.make_datacenter(hosts, vms, cl, vm_policy=vm_policy,
+                             task_policy=task_policy,
+                             reserve_pes=bool(seed % 2), net=net,
+                             device=device, **kw)
+
+
+def dyn_lane_scenarios(n_seeds, device):
+    """``n_seeds`` small scenarios: dynamic on even seeds, networked on
+    odd ones (half of those also dynamic)."""
+    return [dynamic_scenario(s, 0, 0, device) if s % 2 == 0
+            else networked_scenario(s, 0, 0, device) for s in range(n_seeds)]
+
+
+def phase_dyn_lanes(device, card, launched, n_seeds=16):
+    """Phase 13: ``n_seeds`` x the 2x2 grid of small dynamic and
+    networked scenarios in one fused batch on the card: every lane
+    equals its single run on the card bitwise, and the card agrees with
+    the same batch on the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import batched_run_stats, run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    vm_p, task_p = sweep.policy_grid(device="cpu")
+    fused = {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        batch = sweep.fuse_grid(sweep.stack_scenarios(
+            dyn_lane_scenarios(n_seeds, dev)), vm_p.to(dev), task_p.to(dev))
+        torch.cuda.synchronize()
+        simstep.launches = 0
+        t0 = time.perf_counter()
+        out = batched_run_stats(batch, max_steps=4096)
+        torch.cuda.synchronize()
+        if where == "card":
+            launched["dyn-lanes"] = simstep.launches
+        fused[where] = (batch, *out, time.perf_counter() - t0)
+    (batch, grid, gstats, wall), (_, cgrid, cstats, cwall) = (
+        fused["card"], fused["cpu"])
+    err = agree(grid, cgrid, gstats, cstats, "dyn-lanes")
+    singles, lanes = 0.0, 4 * n_seeds
+    for i in range(lanes):
+        cell = lane(batch, i)
+        t0 = time.perf_counter()
+        single, _ = run_stats(cell, max_steps=4096)
+        torch.cuda.synchronize()
+        singles += time.perf_counter() - t0
+        check(same_state(lane(grid, i), single),
+              f"dyn-lanes: lane {i} != its single run")
+    n_mig = int(grid.mig_count.sum())
+    mb = float(grid.net_transferred_mb.sum())
+    check(n_mig > 0 and mb > 0.0, "dyn-lanes: no migration or no transfer")
+    print(f"[dyn-lanes] {lanes} lanes ({n_seeds} small dynamic and "
+          f"networked scenarios x the 2x2 grid) in one batch: every lane == "
+          f"its single run bitwise; card == CPU (states, placements, "
+          f"{gstats.n_events} events, migrations exact; max float err "
+          f"{err:.3g}); {n_mig} migrations, {mb!r} MB staged; batched wall "
+          f"{wall!r} s ({launched['dyn-lanes']} simstep launches, "
+          f"{run_line(gstats)}), the {lanes} single runs {singles!r} s, CPU "
+          f"batch {cwall!r} s ({card})")
+
+
+def plan_ms(dc, reps=20):
+    """Wall milliseconds of one host-plan rebuild of ``dc`` (its two host
+    syncs included)."""
+    import torch
+    from repro_torch.core import scheduling
+    batch = scheduling.lane_axis(dc)
+    lanes = scheduling.lanes_of(batch)
+    scheduling.host_plan(batch, lanes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        scheduling.host_plan(batch, lanes)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_pass_cost(device, card, n_hosts=100_000, n_vms=50_000):
+    """Phase 14: what the migration and network passes cost a full step
+    at the §5 datacenter's size (time-shared, placed, empty transfers):
+    the same scenario stepped to quiescence as it is, under THRESHOLD
+    migration at a threshold no host exceeds (the dynamic and migration
+    passes run every step, nothing migrates), and on an enabled topology
+    with zero-size, zero-latency transfers (the network passes run, no
+    transfer costs an event).  Each must give the static run's events
+    and finish times bit for bit; the line gives wall per evaluated
+    step, and the wall of a host-plan rebuild."""
+    import dataclasses
+    import torch
+    from repro_torch.core import state as S
+    from repro_torch.core.engine import run_stats
+    from repro_torch.core.provisioning import provision_pending
+
+    dc = provision_pending(section5(n_hosts, n_vms, S.TIME_SHARED, device))
+    cl = dc.cloudlets
+    dc = dataclasses.replace(dc, cloudlets=dataclasses.replace(
+        cl, file_size=torch.zeros_like(cl.file_size),
+        output_size=torch.zeros_like(cl.output_size)))
+    variants = {
+        "static": dc,
+        "migration": dataclasses.replace(
+            dc, mig_policy=torch.tensor(S.MIG_THRESHOLD, dtype=torch.int32,
+                                        device=device),
+            mig_threshold=torch.tensor(1.0, device=device)),
+        "network": dataclasses.replace(dc, net=S.make_topology(
+            torch.zeros(n_hosts, dtype=torch.int32), device=device)),
+    }
+    parts, ref = [], None
+    for name, variant in variants.items():
+        run_stats(variant, max_steps=8192)              # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, stats = run_stats(variant, max_steps=8192)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if ref is None:
+            ref = (final, stats)
+        check(stats.n_events == ref[1].n_events and torch.equal(
+            final.cloudlets.finish_time, ref[0].cloudlets.finish_time),
+            f"pass-cost: the {name} passes changed the run")
+        parts.append(f"{name} {wall!r} s for {stats.n_steps} steps "
+                     f"({wall / stats.n_steps * 1e3:.3f} ms a step)")
+    print(f"[pass-cost] §5 {n_hosts} hosts time-shared, {ref[1].n_events} "
+          f"events, the same bits with each set of passes: "
+          + "; ".join(parts) + f"; a host-plan rebuild {plan_ms(dc)!r} ms, "
+          f"at migration-16x's size "
+          f"{plan_ms(provision_pending(migration_scenario(device)))!r} ms "
+          f"({card})")
+
+
 def phase_profile(device, card):
     """Where a §5 run's device time goes: profiler traces of the
     time-shared runs at both scales (after the main path's counts are
@@ -1303,6 +1916,11 @@ def main():
     phase_grid(device, card, launched)
     phase_lanes(device, card, launched)
     phase_simulate(device, card, launched)
+    phase_s5_dynamic(device, card, launched)
+    phase_migration(device, card, launched)
+    phase_s5_networked(device, card, launched)
+    phase_dyn_lanes(device, card, launched)
+    phase_pass_cost(device, card)
     for path, n in launched.items():
         check(n > 0, f"simstep never launched on the {path} path")
     record["launches"] = sum(launched.values())

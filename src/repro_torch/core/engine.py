@@ -1,42 +1,58 @@
-"""Discrete-event engine for static scenarios (``repro.core.engine`` in
-PyTorch).
+"""Discrete-event engine (``repro.core.engine`` in PyTorch): static,
+dynamic and networked scenarios.
 
 Between two events every execution rate is constant, so the event queue
 collapses into min-reductions:
 
     next event = min( t + remaining/rate  over running cloudlets,
-                      submit times        of future cloudlets,
-                      submit times        of pending VMs )
+                      submit times        of future cloudlets and VMs,
+                      times               of pending event-table rows,
+                      migration-copy      completions,
+                      transfer            latency and payload wakeups,
+                      0                   if a migration triggers again )
 
 and the advance is one fused multiply-subtract.  A *full step* is one
-event: provision due VMs, fix every rate (two-level scheduling, level 2
-through the ``simstep`` kernel), jump the clock, commit progress,
-completions, §3.3 costs and per-host joules.
+event: stage due transfers (``network``), fix every rate (two-level
+scheduling, level 2 through the ``simstep`` kernel), pick at most one
+migration (``migration``), jump the clock, commit progress, completions,
+copy and transfer countdowns, §3.3 costs and per-host joules.
 
 The event-horizon leap (``leap``, on by default as in the JAX engine):
 after a full step that ends in a completion, while no decision can
-intervene — no arrival before the next completion, no completion that
-would reshuffle a surviving rate (``_drain_safe``) — further completions
-commit on the step's frozen rates, re-masked, with the step's own f32
-arithmetic and no rate pass (``_body``).  Leap on gives the same bits as
-leap off.
+intervene — no arrival, event or copy completion before the next
+completion, no completion that would reshuffle a surviving rate
+(``_drain_safe``), no migration that could trigger, no enabled topology
+— further completions commit on the step's frozen rates, re-masked, with
+the step's own f32 arithmetic and no rate pass (``_body``).  Leap on
+gives the same bits as leap off.
 
 Every run is a batch of lanes (a single state is a batch of one; see
 ``core/scheduling.py``), and the host waits for the device once per
 block, not once per event.  A step at quiescence is a bit-exact fixed
 point, and every other reason for a lane to stop — ``max_steps``,
-``horizon``, a VM whose submit time has come, an open leap window — is
-masked per lane and per step on the device: a masked step commits
-nothing.  At a block boundary the host reads one small tensor: it runs
-a block of leap iterations while some lane's window is open, else it
-provisions the due lanes, one after another, and runs a block of full
-steps.  The blocks' lengths adapt to what the last block did; the
-result does not depend on them, and each lane takes the JAX engine's
-sequence of events exactly.
+``horizon``, a VM whose submit time has come, a due event-table row, a
+migration that triggered, an open leap window — is masked per lane and
+per step on the device: a masked step commits nothing (every ``PEEK``
+steps the host reads whether any lane still steps, and ends the block
+early when none does).  At a block boundary the host reads one small
+tensor: it runs a block of leap
+iterations while some lane's window is open, else it applies the due
+event rows, the triggered migrations and the provisioning of the lanes
+that wait for them, rebuilds the host plan (``scheduling.HostPlan``,
+which holds the placement) and runs a block of full steps.  Every pass
+that moves a VM runs there, so no full step ever rates with a stale
+plan.
 
-This slice ports the static path: no event table, migration, network,
-autoscaler or metrics plane.  ``run`` refuses a scenario that needs one
-of them.
+A migration takes two full steps and the boundary between them: the
+first picks it (``migration.lane_select``) and commits nothing, the
+boundary applies it, and the second re-rates the moved state, asks the
+policy again (a same-instant cascade bounds that step's dt at 0, the JAX
+engine's ``trig_next``) and commits.  So each lane takes the JAX
+engine's sequence of events exactly, and the result does not depend on
+the blocks.  ``RunStats`` counts the plans built.
+
+Elastic and probed scenarios belong to later slices of the port; ``run``
+refuses them.
 """
 from __future__ import annotations
 
@@ -46,19 +62,28 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import energy, scheduling
+from repro_torch.core import energy, migration, network, scheduling
+from repro_torch.core.migration import Migration
+from repro_torch.core.network import wants_network
 from repro_torch.core.provisioning import (FIRST_FIT, alive_fleet,
-                                           pending_due, provision_pending)
+                                           alive_mask, pending_due,
+                                           provision_pending)
 from repro_torch.core.scheduling import (HostPlan, Lanes, host_plan,
-                                         lane_axis, lane_min, lanes_of)
+                                         host_sums, lane_axis, lane_min,
+                                         lanes_of)
 from repro_torch.core.segments import pairwise_sum
-from repro_torch.core.state import (CL_CREATED, CL_DONE, INF, VM_PENDING,
-                                    DatacenterState, map_tensors,
+from repro_torch.core.state import (CL_CREATED, CL_DONE, CL_FAILED,
+                                    EV_HOST_FAIL, EV_HOST_RECOVER, EV_NONE,
+                                    EV_VM_CREATE, EV_VM_DESTROY, INF,
+                                    MIG_OFF, MIG_THRESHOLD, NET_STAGE_OUT,
+                                    VM_ACTIVE, VM_DESTROYED, VM_EMPTY,
+                                    VM_PENDING, DatacenterState, map_tensors,
                                     tensor_leaves, with_leaves)
 
 __all__ = ["step", "run", "run_stats", "run_trace", "batched_run",
-           "batched_run_stats", "RunStats", "StepRecord", "wants_dynamic",
-           "wants_network", "wants_elastic", "wants_probes"]
+           "batched_run_stats", "RunStats", "StepRecord",
+           "apply_due_events", "wants_dynamic", "wants_network",
+           "wants_elastic", "wants_probes"]
 
 # completion snap band dt * (1 + 1e-5) + 1e-9, mirrored by the oracle's
 # _SNAP_REL/_SNAP_ABS.  The constants are the f32 values the JAX engine
@@ -68,6 +93,8 @@ _SNAP_REL = float(np.float32(1.0 + 1e-5))
 _SNAP_ABS = float(np.float32(1e-9))
 
 BLOCK = 32          # most steps (or leap iterations) per host check
+PEEK = 8            # inside a block of full steps, steps between reads of
+#                     whether any lane still steps
 _LEAP_DEFAULT = True
 
 
@@ -97,6 +124,178 @@ class RunStats(NamedTuple):
     n_steps: int        # full steps evaluated, masked ones included
     n_leap: int         # leap iterations evaluated, masked ones included
     n_blocks: int       # host checks
+    n_plans: int        # host plans built (after placements moved)
+
+
+class _Passes(NamedTuple):
+    """Which passes a step runs (decided on the host, per run and block)."""
+    dynamic: bool       # event table and migration-copy countdowns
+    migration: bool     # some lane has a migration policy
+    network: bool       # some lane has an enabled topology
+
+
+_STATIC = _Passes(False, False, False)
+
+
+# ---------------------------------------------------------------------------
+# The event table (EV_* rows), on every lane of a batch
+# ---------------------------------------------------------------------------
+def _event_rows(dc: DatacenterState):
+    """(time f32[B, E], kind i32[B, E], target i32[B, E]) of the table."""
+    ev = dc.events
+    return ev[..., 0], ev[..., 1].to(torch.int32), ev[..., 2].to(torch.int32)
+
+
+def _event_due(dc: DatacenterState) -> torch.Tensor:
+    """bool[B] — some unfired event row is due at the lane's clock."""
+    if dc.events.shape[-2] == 0:
+        return torch.zeros(dc.time.shape, dtype=torch.bool,
+                           device=dc.time.device)
+    ev_t, ev_k, _ = _event_rows(dc)
+    return (~dc.event_fired & (ev_k != EV_NONE)
+            & (ev_t <= dc.time[..., None])).any(dim=-1)
+
+
+def _hit(n: int, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """bool[B, n] — slots targeted by at least one masked event row."""
+    return torch.zeros((mask.shape[0], n), dtype=torch.int32,
+                       device=mask.device).scatter_add_(
+        1, idx, mask.to(torch.int32)) > 0
+
+
+def _apply_events(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
+                  mask: torch.Tensor) -> DatacenterState:
+    """``apply_due_events`` on the lanes ``mask`` (bool[B]); ``plan`` is
+    the host plan of ``dc``.
+
+    Kind order within one instant: VM destroys (resources back to their
+    hosts), VM creates (EMPTY -> PENDING), host failures (pools reset,
+    resident VMs evicted back to PENDING with their cloudlets' progress
+    kept), host recoveries.  The returns of several VMs destroyed on one
+    host add in the plan's fixed order.  With nothing due this is a
+    bit-exact identity."""
+    if dc.events.shape[-2] == 0:
+        return dc
+    hosts, vms, cl = dc.hosts, dc.vms, dc.cloudlets
+    b, h, v = lanes.n_lanes, lanes.n_hosts, lanes.n_vms
+    ev_t, ev_k, tgt = _event_rows(dc)
+    due = (~dc.event_fired & (ev_k != EV_NONE)
+           & (ev_t <= dc.time[:, None]) & mask[:, None])
+    # rows with out-of-range targets fire but act on nothing
+    due_v = due & (tgt >= 0) & (tgt < v)
+    due_h = due & (tgt >= 0) & (tgt < h)
+    tv = torch.clamp(tgt, 0, max(v - 1, 0)).long()
+    th = torch.clamp(tgt, 0, max(h - 1, 0)).long()
+
+    # ---- 1. VM destroys ---------------------------------------------------
+    destroy = (_hit(v, tv, due_v & (ev_k == EV_VM_DESTROY))
+               & alive_mask(vms))
+    returning = destroy & (vms.state == VM_ACTIVE) & (vms.host >= 0)
+
+    def give(pool, x):
+        back = torch.where(returning, x, 0.0).reshape(-1)
+        return pool + host_sums(back, plan, b * h).view(b, h)
+
+    reserve = torch.where(dc.reserve_pes[:, None] == 1,
+                          vms.req_pes.to(torch.float32), 0.0)
+    free_ram = give(hosts.free_ram, vms.ram)
+    free_bw = give(hosts.free_bw, vms.bw)
+    free_storage = give(hosts.free_storage, vms.size)
+    free_pes = give(hosts.free_pes, reserve)
+    vm_state = torch.where(destroy, VM_DESTROYED, vms.state)
+    vm_host = torch.where(destroy, -1, vms.host)
+    mig_rem = torch.where(destroy, 0.0, vms.mig_remaining)
+
+    # ---- 2. VM creates ----------------------------------------------------
+    create = (_hit(v, tv, due_v & (ev_k == EV_VM_CREATE))
+              & (vm_state == VM_EMPTY))
+    vm_state = torch.where(create, VM_PENDING, vm_state)
+
+    # ---- 3. host failures -------------------------------------------------
+    real = hosts.num_pes > 0
+    fail = (_hit(h, th, due_h & (ev_k == EV_HOST_FAIL)) & hosts.valid
+            & real)
+    evict = ((vm_state == VM_ACTIVE) & (vm_host >= 0)
+             & fail.gather(1, torch.clamp(vm_host, 0, h - 1).long()))
+    vm_state = torch.where(evict, VM_PENDING, vm_state)
+    vm_create_t = torch.where(evict, INF, vms.create_time)
+    vm_host = torch.where(evict, -1, vm_host)
+    mig_rem = torch.where(evict, 0.0, mig_rem)
+    cap_pes = hosts.num_pes.to(torch.float32)
+
+    def reset(mask_h, pools):
+        return [torch.where(mask_h, full, pool) for pool, full in zip(
+            pools, (hosts.ram, hosts.bw, hosts.storage, cap_pes))]
+
+    valid = hosts.valid & ~fail
+    pools = reset(fail, (free_ram, free_bw, free_storage, free_pes))
+
+    # ---- 4. host recoveries -----------------------------------------------
+    recover = (_hit(h, th, due_h & (ev_k == EV_HOST_RECOVER)) & ~valid
+               & real)
+    valid = valid | recover
+    free_ram, free_bw, free_storage, free_pes = reset(recover, pools)
+
+    # cloudlets of destroyed VMs can never run
+    owner = torch.clamp(cl.vm, 0, max(v - 1, 0)).long()
+    cancel = ((cl.state == CL_CREATED) & (cl.vm >= 0)
+              & destroy.gather(1, owner))
+    i32 = lambda t: t.to(torch.int32)
+    return dataclasses.replace(
+        dc,
+        hosts=dataclasses.replace(
+            hosts, free_ram=free_ram, free_bw=free_bw,
+            free_storage=free_storage, free_pes=free_pes, valid=valid),
+        vms=dataclasses.replace(
+            vms, state=i32(vm_state), host=i32(vm_host),
+            create_time=vm_create_t, mig_remaining=mig_rem),
+        cloudlets=dataclasses.replace(
+            cl, state=i32(torch.where(cancel, CL_FAILED, cl.state))),
+        event_fired=dc.event_fired | due)
+
+
+def apply_due_events(dc: DatacenterState) -> DatacenterState:
+    """Apply every pending event row due at ``dc.time`` and mark the rows
+    fired (one state).  ``vms.submit_time`` is never rewritten: evicted
+    VMs re-provision at once (their submit times are due), created ones
+    at ``max(event time, submit_time)``.  With every row fired this is a
+    bit-exact identity."""
+    batch = lane_axis(dc)
+    lanes = lanes_of(batch)
+    mask = torch.ones((1,), dtype=torch.bool, device=dc.time.device)
+    out = _apply_events(batch, lanes, host_plan(batch, lanes), mask)
+    return map_tensors(lambda t: t[0], out)
+
+
+def _dynamic_deltas(dc: DatacenterState, trig_next):
+    """(dt f32[B], arrive f32[B]) — each lane's earliest dynamic wakeup:
+    migration-copy completions (deltas) and a zero-dt chain event when a
+    migration triggers again on the moved state (``trig_next``, bool[B]
+    or None); the earliest pending event-table time (absolute)."""
+    t = dc.time
+    if dc.events.shape[-2]:
+        ev_t, ev_k, _ = _event_rows(dc)
+        pend = ~dc.event_fired & (ev_k != EV_NONE) & (ev_t > t[:, None])
+        arr_ev = lane_min(torch.where(pend, ev_t, INF))
+    else:
+        arr_ev = torch.full_like(t, INF)
+    mig = dc.vms.mig_remaining
+    dt = lane_min(torch.where(mig > 0.0, mig, INF))
+    if trig_next is not None:
+        dt = torch.minimum(dt, torch.where(trig_next, 0.0, INF))
+    return dt, arr_ev
+
+
+def _lane_dynamic(batch: DatacenterState) -> torch.Tensor:
+    """bool[B] — lanes that can still act dynamically: a migration
+    policy, a copy in flight or an unfired event row.  Monotone: once
+    False, False for the rest of the run."""
+    lane = (batch.mig_policy != MIG_OFF) | (batch.vms.mig_remaining
+                                            > 0.0).any(dim=-1)
+    if batch.events.shape[-2]:
+        _, kinds, _ = _event_rows(batch)
+        lane |= (~batch.event_fired & (kinds != EV_NONE)).any(dim=-1)
+    return lane
 
 
 # ---------------------------------------------------------------------------
@@ -118,86 +317,196 @@ def _arrivals(dc: DatacenterState) -> torch.Tensor:
 
 
 def _commit(dc: DatacenterState, lanes: Lanes, plan: HostPlan, rates,
-            finish_dt, dt, t_next, *, stamp_start: bool):
+            finish_dt, dt, t_next, *, stamp_start: bool,
+            passes: _Passes = _STATIC, flows=None):
     """The commit of one event at ``rates`` ([B, C]) over ``dt`` ([B]),
-    clock to ``t_next``.  Returns (new state, host watts f32[B, H])."""
+    clock to ``t_next``.  ``flows`` is (flow rates, flow deltas) of the
+    networked step.  Returns (new state, host watts f32[B, H], copies
+    done bool[B, V] or None)."""
     cl = dc.cloudlets
     executed = rates * dt[:, None]
     snap = dt * _SNAP_REL + _SNAP_ABS
+    snap_c = snap[:, None]
     # the argmin task(s) finish by construction, immune to f32 rounding
     finished = ((cl.state == CL_CREATED) & (rates > 0.0)
-                & (finish_dt <= snap[:, None]))
+                & (finish_dt <= snap_c))
     remaining = torch.where(finished, 0.0,
                             torch.clamp(cl.remaining - executed, min=0.0))
     start_time = cl.start_time
     if stamp_start:
         start_time = torch.where((rates > 0.0) & (cl.start_time < 0.0),
                                  dc.time[:, None], cl.start_time)
+    done_now = finished
+    staged = {}
+    if flows is not None:
+        # enabled lanes: a compute completion arms the output transfer
+        # (advance_phases marks it done once drained); the latency and
+        # payload countdowns take the completions' snap band
+        frates, flow_dt = flows
+        enabled = dc.net.enabled[:, None] == 1
+        done_now = finished & ~enabled
+        arm_out = finished & enabled
+        lat_active = network.lane_staging(dc, lanes) & (cl.net_lat > 0.0)
+        lat_done = lat_active & (cl.net_lat <= snap_c)
+        net_lat = torch.where(lat_done, 0.0, torch.where(
+            lat_active, torch.clamp(cl.net_lat - dt[:, None], min=0.0),
+            cl.net_lat))
+        xfer_done = (frates > 0.0) & (flow_dt <= snap_c)
+        net_rem = torch.where(xfer_done, 0.0, torch.where(
+            frates > 0.0,
+            torch.clamp(cl.net_remaining - frates * dt[:, None], min=0.0),
+            cl.net_remaining))
+        staged = dict(
+            net_phase=torch.where(arm_out, NET_STAGE_OUT,
+                                  cl.net_phase).to(torch.int32),
+            net_lat=torch.where(arm_out, network.stage_latency(dc)[:, None],
+                                net_lat),
+            net_remaining=torch.where(arm_out, cl.output_size, net_rem))
 
     # market accounting (§3.3), summed per lane in a fixed order
     pe = executed / torch.clamp(plan.slot_mips_pe.view_as(executed),
                                 min=1e-30)
-    moved = torch.where(finished, cl.file_size + cl.output_size, 0.0)
+    moved = torch.where(done_now, cl.file_size + cl.output_size, 0.0)
     pe_seconds, moved_mb = pairwise_sum(torch.stack([pe, moved]))
 
     # energy: rates, hence watts, are constant on [time, time + dt)
     host_watts = energy.host_power(dc.hosts, energy.utilization_of(
         dc.hosts, scheduling.host_consumed(rates.reshape(-1), lanes, plan)))
+    energy_j = dc.hosts.energy_j + host_watts * dt[:, None]
+    bw_cost = dc.acct.bw_cost + dc.rates.cost_per_bw * moved_mb
+    transferred = dc.net_transferred_mb
+    if flows is not None:
+        # drained transfers book their whole size on this step
+        xfer_j, xfer_mb = network.lane_transfer_accounting(
+            dc, xfer_done, lanes, plan)
+        energy_j = energy_j + xfer_j
+        bw_cost = bw_cost + dc.rates.cost_per_bw * xfer_mb
+        transferred = transferred + xfer_mb
+
+    vms, mig_done = dc.vms, None
+    if passes.dynamic:
+        # the migration copy counts down like a cloudlet's remaining,
+        # with the same snap band
+        mig = vms.mig_remaining
+        mig_done = (mig > 0.0) & (mig <= snap_c)
+        vms = dataclasses.replace(vms, mig_remaining=torch.where(
+            mig_done, 0.0, torch.where(
+                mig > 0.0, torch.clamp(mig - dt[:, None], min=0.0), mig)))
 
     new = dataclasses.replace(
         dc,
-        hosts=dataclasses.replace(
-            dc.hosts,
-            energy_j=dc.hosts.energy_j + host_watts * dt[:, None]),
+        hosts=dataclasses.replace(dc.hosts, energy_j=energy_j),
+        vms=vms,
         cloudlets=dataclasses.replace(
             cl, remaining=remaining, start_time=start_time,
-            finish_time=torch.where(finished, t_next[:, None],
+            finish_time=torch.where(done_now, t_next[:, None],
                                     cl.finish_time),
-            state=torch.where(finished, CL_DONE, cl.state).to(torch.int32)),
+            state=torch.where(done_now, CL_DONE, cl.state).to(torch.int32),
+            **staged),
         acct=dataclasses.replace(
             dc.acct,
             cpu_cost=dc.acct.cpu_cost
             + dc.rates.cost_per_cpu_sec * pe_seconds,
-            bw_cost=dc.acct.bw_cost + dc.rates.cost_per_bw * moved_mb),
-        time=t_next)
-    return new, host_watts
+            bw_cost=bw_cost),
+        time=t_next,
+        net_transferred_mb=transferred)
+    return new, host_watts, mig_done
 
 
-def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan):
-    """One full step of every lane, provisioning excluded.
+class _Step(NamedTuple):
+    """What one full step of every lane gives back."""
+    new: DatacenterState        # the committed state
+    active: torch.Tensor        # bool[B] the step advanced the lane
+    rates: torch.Tensor         # f32[B, C] the committed rates
+    host_watts: torch.Tensor    # f32[B, H]
+    counts: torch.Tensor        # i32[B*V] runnable cloudlets a VM, before
+    opens: torch.Tensor         # bool[B] the leap's gate before _drain_safe
+    hold: torch.Tensor | None   # bool[B] a migration triggered: no commit
+    mig: Migration | None       # each lane's decision
+    phased: DatacenterState     # the state after the staging phases
+    frates: torch.Tensor | None  # f32[B, C] transfer rates
 
-    Returns (new state, active bool[B], rates f32[B, C], host watts
-    f32[B, H], each VM's runnable cloudlets i32[B*V] before the step,
-    opens bool[B]: the step was a completion with no arrival at its end
-    and some cloudlet keeps its rate, the leap's gate before
-    ``_drain_safe``)."""
-    rates, dt_finish, counts = scheduling.lane_rates(dc, lanes, plan)
+
+def _quiet(new: DatacenterState, rates, lanes: Lanes, plan: HostPlan
+           ) -> torch.Tensor:
+    """bool[B] — no migration can trigger while completions drain on the
+    frozen rates: the policy is off, or THRESHOLD with no loaded host
+    over the threshold (utilization only falls as completions drop
+    out; DRAIN triggers on falling load, so DRAIN lanes never leap)."""
+    cl = new.cloudlets
+    r1 = torch.where((cl.state == CL_CREATED) & (cl.remaining > 0.0),
+                     rates, 0.0)
+    util = energy.utilization_of(new.hosts, scheduling.host_consumed(
+        r1.reshape(-1), lanes, plan))
+    loaded = new.hosts.valid & (plan.occupancy.view_as(util) > 0)
+    over = (loaded & (util > new.mig_threshold[:, None])).any(dim=-1)
+    return ((new.mig_policy == MIG_OFF)
+            | ((new.mig_policy == MIG_THRESHOLD) & ~over))
+
+
+def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
+          passes: _Passes = _STATIC, after=None) -> _Step:
+    """One full step of every lane, provisioning and the event table
+    excluded.  ``after`` (bool[B]) marks lanes whose migration was just
+    applied: their policy's answer is the cascade's ``trig_next``,
+    which bounds the step's dt at 0; on the other lanes a trigger holds
+    the lane (``_Step.hold``) for the boundary to apply."""
+    if passes.network:
+        dc = network.lane_advance_phases(dc, lanes)
+    phased = dc
+    rates, dt_finish, counts = scheduling.lane_rates(
+        dc, lanes, plan, networked=passes.network)
     cl = dc.cloudlets
     # per-slot completion deltas: the kernel's quotient elementwise
     finish_dt = torch.where(rates > 0.0,
                             cl.remaining / torch.clamp(rates, min=1e-30), INF)
     arrive = _arrivals(dc)
+    dt_other = dt_finish
+    hold = mig = trig_next = None
+    if passes.dynamic:
+        if passes.migration:
+            mig = migration.lane_select(dc, rates, lanes, plan,
+                                        networked=passes.network)
+            hold = mig.trigger & ~after
+            trig_next = mig.trigger & after
+        dt_dyn, arr_ev = _dynamic_deltas(dc, trig_next)
+        dt_other = torch.minimum(dt_other, dt_dyn)
+        arrive = torch.minimum(arrive, arr_ev)
+    flows = frates = None
+    if passes.network:
+        frates = network.lane_flow_rates(dc, lanes)
+        dt_net, flow_dt = network.lane_wake_deltas(dc, frates, lanes)
+        dt_other = torch.minimum(dt_other, dt_net)
+        flows = (frates, flow_dt)
     dt_arr = torch.where(arrive < INF, arrive - dc.time, INF)
-    dt = torch.minimum(dt_finish, dt_arr)
+    dt = torch.minimum(dt_other, dt_arr)
     active = dt < INF
     dt = torch.where(active, dt, 0.0)
     # arrivals win ties so the clock lands on the exact submitted time
     t_next = torch.where(active,
-                         torch.where(dt_arr <= dt_finish, arrive,
+                         torch.where(dt_arr <= dt_other, arrive,
                                      dc.time + dt),
                          dc.time)
-    new, host_watts = _commit(dc, lanes, plan, rates, finish_dt, dt, t_next,
-                              stamp_start=True)
+    new, host_watts, mig_done = _commit(dc, lanes, plan, rates, finish_dt,
+                                        dt, t_next, stamp_start=True,
+                                        passes=passes, flows=flows)
     # a window can commit only while some cloudlet keeps its rate
     survivors = ((rates > 0.0)
                  & (new.cloudlets.state == CL_CREATED)).any(dim=-1)
-    opens = (active & (dt_arr > dt_finish) & (arrive > new.time)
+    opens = (active & (dt_arr > dt_other) & (arrive > new.time)
              & survivors)
-    return new, active, rates, host_watts, counts, opens
+    if passes.dynamic:
+        opens &= ~mig_done.any(dim=-1)
+        if passes.migration:
+            opens &= ~trig_next & _quiet(new, rates, lanes, plan)
+    if passes.network:
+        opens &= dc.net.enabled != 1
+    return _Step(new, active, rates, host_watts, counts, opens, hold, mig,
+                 phased, frates)
 
 
 def _drain_safe(n_pre, post: DatacenterState, lanes: Lanes,
-                plan: HostPlan):
+                plan: HostPlan, *, networked: bool = False):
     """(bool[B], ``run_counts`` of ``post``) — per lane, the commit from
     a state with ``n_pre`` runnable cloudlets a VM to ``post`` cannot
     change any surviving rate.
@@ -210,60 +519,80 @@ def _drain_safe(n_pre, post: DatacenterState, lanes: Lanes,
     reserved, or the VM is alone on its host.  Conservative: False
     forgoes a leap, never corrupts one.
     """
-    n_post = scheduling.run_counts(scheduling.lane_runnable(post, lanes),
-                                   lanes)
+    n_post = scheduling.run_counts(
+        scheduling.lane_runnable(post, lanes, networked=networked), lanes)
     safe = (n_post == n_pre) | ((n_pre <= plan.pes)
                                 & ((n_post >= 1) | plan.keeps_work))
     return safe.view(lanes.n_lanes, lanes.n_vms).all(dim=-1), n_post
 
 
 def _body(dc: DatacenterState, lanes: Lanes, plan: HostPlan, r0, n_now,
-          go):
-    """One leap iteration on the lanes ``go``: the next completion on the
-    frozen rates ``r0`` ([B, C]), re-masked (survivors keep their exact
-    f32 rate, guaranteed by ``_drain_safe``; finished ones drop out).
-    It commits only when no arrival comes first and it is drain-safe.
-    ``n_now`` is ``run_counts`` of ``dc``.  Returns (state, do bool[B],
-    ``run_counts`` of the candidate)."""
+          go, passes: _Passes = _STATIC):
+    """One leap iteration on the lanes ``go``: the next completion (or
+    copy completion) on the frozen rates ``r0`` ([B, C]), re-masked
+    (survivors keep their exact f32 rate, guaranteed by ``_drain_safe``;
+    finished ones drop out).  It commits only when no arrival or event
+    comes first and it is drain-safe; a finished copy commits and closes
+    the window (the VM resumes, rates grow).  ``n_now`` is
+    ``run_counts`` of ``dc``.  Returns (state, committed bool[B], still
+    open bool[B], ``run_counts`` of the candidate)."""
     cl = dc.cloudlets
     r = torch.where((cl.state == CL_CREATED) & (cl.remaining > 0.0), r0,
                     0.0)
     finish_dt = torch.where(r > 0.0,
                             cl.remaining / torch.clamp(r, min=1e-30), INF)
-    dt_fin = lane_min(finish_dt)
+    dt_o = lane_min(finish_dt)
     arr = _arrivals(dc)
+    if passes.dynamic:
+        dt_dyn, arr_ev = _dynamic_deltas(dc, None)
+        dt_o = torch.minimum(dt_o, dt_dyn)
+        arr = torch.minimum(arr, arr_ev)
     d_arr = torch.where(arr < INF, arr - dc.time, INF)
-    dt = torch.minimum(dt_fin, d_arr)
+    dt = torch.minimum(dt_o, d_arr)
     act = dt < INF
     dt = torch.where(act, dt, 0.0)
     t_next = dc.time + dt
-    cand, _ = _commit(dc, lanes, plan, r, finish_dt, dt, t_next,
-                      stamp_start=False)
-    safe, n_post = _drain_safe(n_now, cand, lanes, plan)
-    do = go & act & (d_arr > dt_fin) & (arr > t_next) & safe
-    return _select(do, cand, dc), do, n_post
+    # enabled networked lanes never leap: the static commit serves
+    frozen = _Passes(passes.dynamic, False, False)
+    cand, _, mig_done = _commit(dc, lanes, plan, r, finish_dt, dt, t_next,
+                                stamp_start=False, passes=frozen)
+    safe, n_post = _drain_safe(n_now, cand, lanes, plan,
+                               networked=passes.network)
+    do = go & act & (d_arr > dt_o) & (arr > t_next) & safe
+    going = do
+    if mig_done is not None:
+        going = do & ~mig_done.any(dim=-1)
+    return _select(do, cand, dc, frozen), do, going, n_post
 
 
-def _select(go: torch.Tensor, new: DatacenterState,
-            old: DatacenterState) -> DatacenterState:
+def _select(go: torch.Tensor, new: DatacenterState, old: DatacenterState,
+            passes: _Passes = _STATIC) -> DatacenterState:
     """Lane by lane, ``new`` where ``go`` else ``old``, for the fields a
-    commit writes."""
+    step writes (the passes at block boundaries write the others)."""
     w = lambda a, b: torch.where(go.view(go.shape + (1,) * (a.ndim - 1)),
                                  a, b)
     nc, oc = new.cloudlets, old.cloudlets
+    cl_fields = ["remaining", "start_time", "finish_time", "state"]
+    if passes.network:
+        cl_fields += ["net_phase", "net_lat", "net_remaining"]
+    vms = old.vms
+    if passes.dynamic:
+        vms = dataclasses.replace(vms, mig_remaining=w(
+            new.vms.mig_remaining, vms.mig_remaining))
     return dataclasses.replace(
         old,
         hosts=dataclasses.replace(
             old.hosts, energy_j=w(new.hosts.energy_j, old.hosts.energy_j)),
-        cloudlets=dataclasses.replace(
-            oc, remaining=w(nc.remaining, oc.remaining),
-            start_time=w(nc.start_time, oc.start_time),
-            finish_time=w(nc.finish_time, oc.finish_time),
-            state=w(nc.state, oc.state)),
+        vms=vms,
+        cloudlets=dataclasses.replace(oc, **{
+            f: w(getattr(nc, f), getattr(oc, f)) for f in cl_fields}),
         acct=dataclasses.replace(
             old.acct, cpu_cost=w(new.acct.cpu_cost, old.acct.cpu_cost),
             bw_cost=w(new.acct.bw_cost, old.acct.bw_cost)),
-        time=w(new.time, old.time))
+        time=w(new.time, old.time),
+        net_transferred_mb=(w(new.net_transferred_mb,
+                              old.net_transferred_mb)
+                            if passes.network else old.net_transferred_mb))
 
 
 def _where_lanes(go: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
@@ -292,7 +621,7 @@ def _provision_lanes(batch: DatacenterState, which, policy: int
 
 
 # ---------------------------------------------------------------------------
-# Static-path guard
+# Which passes a scenario needs
 # ---------------------------------------------------------------------------
 def wants_dynamic(dc: DatacenterState) -> bool:
     """True when the scenario carries an event table, a migration policy,
@@ -300,11 +629,6 @@ def wants_dynamic(dc: DatacenterState) -> bool:
     return (dc.events.shape[-2] > 0
             or bool((dc.mig_policy != 0).any())
             or bool((dc.vms.mig_remaining > 0.0).any()))
-
-
-def wants_network(dc: DatacenterState) -> bool:
-    """True when the scenario carries an enabled topology."""
-    return bool((dc.net.enabled != 0).any())
 
 
 def wants_elastic(dc: DatacenterState) -> bool:
@@ -318,15 +642,24 @@ def wants_probes(dc: DatacenterState) -> bool:
     return bool((dc.metrics.enabled != 0).any())
 
 
-def _require_static(dc: DatacenterState) -> None:
-    for name, wants in (("dynamic", wants_dynamic),
-                        ("networked", wants_network),
-                        ("elastic", wants_elastic),
+def _require_supported(dc: DatacenterState) -> None:
+    for name, wants in (("elastic", wants_elastic),
                         ("probed", wants_probes)):
         if wants(dc):
             raise NotImplementedError(
-                f"repro_torch runs static scenarios only; this one is "
-                f"{name} (its slice of the port is not done yet)")
+                f"repro_torch does not run {name} scenarios yet (its slice "
+                f"of the port is not done)")
+
+
+def _passes_of(dc: DatacenterState) -> _Passes:
+    """The passes a run of ``dc`` (one state or a batch) may need: the
+    JAX engine's ``wants_dynamic``/``wants_network``, and whether any
+    lane has a migration policy at all."""
+    dynamic = wants_dynamic(dc)
+    return _Passes(dynamic=dynamic,
+                   migration=dynamic and bool((dc.mig_policy
+                                               != MIG_OFF).any()),
+                   network=wants_network(dc))
 
 
 # ---------------------------------------------------------------------------
@@ -335,23 +668,36 @@ def _require_static(dc: DatacenterState) -> None:
 def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
          leap: bool = False, leap_budget=None, leap_horizon=None
          ) -> tuple[DatacenterState, StepRecord]:
-    """Process one simulation event of a static scenario; with ``leap``,
-    also the run of completions that follows it while no decision can
-    intervene (at most ``leap_budget`` more, none at or past
-    ``leap_horizon``), counted in ``StepRecord.n_events``.
+    """Process one simulation event; with ``leap``, also the run of
+    completions that follows it while no decision can intervene (at most
+    ``leap_budget`` more, none at or past ``leap_horizon``), counted in
+    ``StepRecord.n_events``.
 
-    At quiescence (no runnable work, no future submissions) the state
-    comes back bit-for-bit unchanged with ``active == False``.
+    In order, as the JAX engine's ``step``: due event rows, provisioning,
+    staging phases, rates, at most one migration (and the rates again),
+    flow rates, the commit.  At quiescence (no runnable work, no future
+    submissions, no pending events or transfers) the state comes back
+    bit-for-bit unchanged with ``active == False``.
     """
-    _require_static(dc)
-    if bool(pending_due(dc)):
-        dc = provision_pending(dc, provision_policy)
+    _require_supported(dc)
+    passes = _passes_of(dc)
     batch = lane_axis(dc)
     lanes = lanes_of(batch)
+    dev = batch.time.device
+    if passes.dynamic and bool(_event_due(batch)[0]):
+        batch = _apply_events(batch, lanes, host_plan(batch, lanes),
+                              torch.ones((1,), dtype=torch.bool, device=dev))
+    if bool(pending_due(batch)[0]):
+        batch = lane_axis(provision_pending(
+            map_tensors(lambda t: t[0], batch), provision_policy))
     plan = host_plan(batch, lanes)
-    new, active, rates, host_watts, n_pre, opens = _full(batch, lanes,
-                                                         plan)
-    dev = rates.device
+    after = torch.zeros((1,), dtype=torch.bool, device=dev)
+    st = _full(batch, lanes, plan, passes, after)
+    if st.hold is not None and bool(st.hold[0]):
+        batch = migration.lane_apply(st.phased, st.mig)
+        plan = host_plan(batch, lanes)
+        st = _full(batch, lanes, plan, passes, ~after)
+    new, active, rates = st.new, st.active, st.rates
     n_events = active.to(torch.int32)
     if leap:
         budget = torch.as_tensor(2 ** 30 if leap_budget is None
@@ -359,33 +705,36 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
         horizon = torch.clamp(torch.as_tensor(
             INF if leap_horizon is None else leap_horizon,
             dtype=torch.float32, device=dev), max=INF)
-        safe, n_now = _drain_safe(n_pre, new, lanes, plan)
-        window = opens & safe
+        safe, n_now = _drain_safe(st.counts, new, lanes, plan,
+                                  networked=passes.network)
+        window = st.opens & safe
         extra = torch.zeros_like(n_events)
         while bool(window.any()):
             for _ in range(BLOCK):
                 go = window & (extra < budget) & (new.time < horizon)
-                new, window, n_post = _body(new, lanes, plan, rates, n_now,
-                                            go)
-                extra = extra + window.to(torch.int32)
-                n_now = _where_lanes(window, n_post, n_now, lanes)
+                new, do, window, n_post = _body(new, lanes, plan, rates,
+                                                n_now, go, passes)
+                extra = extra + do.to(torch.int32)
+                n_now = _where_lanes(do, n_post, n_now, lanes)
         n_events = n_events + extra
     new = map_tensors(lambda t: t[0], new)
     rates = rates[0]
-    valid_mips = torch.where(dc.hosts.valid, dc.hosts.capacity_mips, 0.0)
+    hosts = batch.hosts
+    valid_mips = torch.where(hosts.valid[0], hosts.capacity_mips[0], 0.0)
     count = lambda m: m.sum(dtype=torch.int32)
     rec = StepRecord(
         time=new.time,
         n_running=count(rates > 0.0),
         n_done=count(new.cloudlets.state == CL_DONE),
         utilization=rates.sum() / torch.clamp(valid_mips.sum(), min=1e-30),
-        watts=host_watts[0].sum(),
+        watts=st.host_watts[0].sum(),
         active=active[0],
         n_migrating=count(new.vms.mig_remaining > 0.0),
         migrations=new.mig_count,
         hosts_down=count(~new.hosts.valid & (new.hosts.num_pes > 0)),
         transferred_mb=new.net_transferred_mb,
-        n_flows=torch.zeros((), dtype=torch.int32, device=dev),
+        n_flows=(count(st.frates[0] > 0.0) if st.frates is not None
+                 else torch.zeros((), dtype=torch.int32, device=dev)),
         n_events=n_events[0],
         fleet=alive_fleet(new.vms),
         spot_cost=new.scaler.spot_cost)
@@ -393,10 +742,11 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
 
 
 def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
-           provision_policy: int, leap: bool, block: int
-           ) -> tuple[DatacenterState, RunStats]:
+           provision_policy: int, leap: bool, block: int,
+           passes: _Passes) -> tuple[DatacenterState, RunStats]:
     """Run every lane of ``batch`` to quiescence (see the module's
-    docstring)."""
+    docstring).  ``passes`` are the most a run may need; each block runs
+    only those some live lane still needs."""
     if block < 1:
         raise ValueError("block must be >= 1")
     dev = batch.time.device
@@ -405,20 +755,30 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
     hor = torch.clamp(torch.tensor(horizon, dtype=torch.float32,
                                    device=dev), max=INF)
     i32 = lambda: torch.zeros((nb,), dtype=torch.int32, device=dev)
+    no = lambda: torch.zeros((nb,), dtype=torch.bool, device=dev)
     n, n_full, used = i32(), i32(), i32()
     alive = torch.ones((nb,), dtype=torch.bool, device=dev)
-    window = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    window, held, after = no(), no(), no()
+    pend = None         # the decisions of the held lanes
     r0 = torch.zeros(batch.cloudlets.remaining.shape, dtype=torch.float32,
                      device=dev)
     n_now = torch.zeros((nb * lanes.n_vms,), dtype=torch.int32, device=dev)
     plan = None
     steps_len, leap_len, kind = block, 1, None
-    n_steps = n_leap = n_blocks = 0
+    n_steps = n_leap = n_blocks = n_plans = 0
     while True:
         live = alive & (n < max_steps) & (batch.time < hor)
-        live_h, due_h, window_h, used_h = torch.stack(
-            [live.to(torch.int32), (live & pending_due(batch)).to(torch.int32),
-             window.to(torch.int32), used]).tolist()
+        rows = [live, live & pending_due(batch), window, used, held]
+        if passes.dynamic:
+            rows += [live & _event_due(batch), live & _lane_dynamic(batch)]
+        if passes.network:
+            rows.append(live & (batch.net.enabled == 1))
+        read = torch.stack([r.to(torch.int32) for r in rows]).tolist()
+        live_h, due_h, window_h, used_h, held_h = read[:5]
+        ev_h = read[5] if passes.dynamic else [0]
+        dyn_now = passes.dynamic and any(read[6])
+        net_now = passes.network and any(read[-1])
+        bp = _Passes(dyn_now, passes.migration and dyn_now, net_now)
         n_blocks += 1
         most = max(used_h)
         if any(window_h):
@@ -433,11 +793,11 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
             used = torch.zeros_like(used)
             for _ in range(leap_len):
                 go = window & (n < max_steps) & (batch.time < hor)
-                batch, window, n_post = _body(batch, lanes, plan, r0, n_now,
-                                              go)
-                n = n + window.to(torch.int32)
-                used = used + window.to(torch.int32)
-                n_now = _where_lanes(window, n_post, n_now, lanes)
+                batch, do, window, n_post = _body(batch, lanes, plan, r0,
+                                                  n_now, go, bp)
+                n = n + do.to(torch.int32)
+                used = used + do.to(torch.int32)
+                n_now = _where_lanes(do, n_post, n_now, lanes)
             n_leap += leap_len
             kind = "leap"
             continue
@@ -445,35 +805,74 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
             steps_len = min(block, 2 * steps_len)   # no window opened
         if not any(live_h):
             break
+        # the passes that move VMs: due event rows, the held migrations,
+        # then provisioning; the plan is rebuilt once after them
+        moved = False
+        if any(ev_h):
+            if plan is None:
+                plan = host_plan(batch, lanes)
+                n_plans += 1
+            batch = _apply_events(batch, lanes, plan, torch.tensor(
+                ev_h, dtype=torch.bool, device=dev))
+            due_h = (live & pending_due(batch)).tolist()
+            moved = True
+        if any(held_h):
+            batch = migration.lane_apply(batch, pend._replace(
+                trigger=pend.trigger & held))
+            after, held = after | held, no()
+            # the re-rated step, then the cascade's next decision
+            steps_len = min(steps_len, 2)
+            moved = True
         due_lanes = [b for b, due in enumerate(due_h) if due]
         if due_lanes:
             batch = _provision_lanes(batch, due_lanes, provision_policy)
-            plan = None
-        if plan is None:
+            moved = True
+        if moved or plan is None:
             plan = host_plan(batch, lanes)
+            n_plans += 1
         used = torch.zeros_like(used)
-        for _ in range(steps_len):
+        for i in range(steps_len):
             go = (alive & (n < max_steps) & (batch.time < hor)
                   & ~pending_due(batch) & ~window)
-            new, active, rates, _, n_pre, opens = _full(batch, lanes, plan)
-            done = (go & active).to(torch.int32)
+            if bp.dynamic:
+                go &= ~_event_due(batch) & ~held
+            if i and i % PEEK == 0:
+                # every lane may be waiting for the boundary already
+                n_blocks += 1
+                if not bool(go.any()):
+                    break
+            st = _full(batch, lanes, plan, bp, after)
+            commit = go
+            if st.hold is not None:
+                hold = go & st.hold
+                commit = go & ~hold
+                held = held | hold
+                pend = st.mig if pend is None else Migration(*(
+                    torch.where(hold, a, b) for a, b in zip(st.mig, pend)))
+                after = after & ~commit
+            done = (commit & st.active).to(torch.int32)
             if leap:
-                safe, n_post = _drain_safe(n_pre, new, lanes, plan)
-                gate = (go & opens & safe & (n + done < max_steps)
-                        & (new.time < hor))
+                safe, n_post = _drain_safe(st.counts, st.new, lanes, plan,
+                                           networked=bp.network)
+                gate = (commit & st.opens & safe & (n + done < max_steps)
+                        & (st.new.time < hor))
                 window = window | gate
-                r0 = torch.where(gate[:, None], rates, r0)
+                r0 = torch.where(gate[:, None], st.rates, r0)
                 n_now = _where_lanes(gate, n_post, n_now, lanes)
-            batch = _select(go, new, batch)
+            new = _select(commit, st.new, batch, bp)
+            if st.hold is not None and bp.network:
+                # a held lane keeps its staging phases
+                new = _select(hold, st.phased, new, bp)
+            batch = new
             n = n + done
             n_full = n_full + done
             used = used + go.to(torch.int32)
-            alive = torch.where(go, active, alive)
-        n_steps += steps_len
+            alive = torch.where(commit, st.active, alive)
+            n_steps += 1
         kind = "step"
     n_events, full = torch.stack([n.sum(), n_full.sum()]).tolist()
     return batch, RunStats(n_events=n_events, n_full=full, n_steps=n_steps,
-                           n_leap=n_leap, n_blocks=n_blocks)
+                           n_leap=n_leap, n_blocks=n_blocks, n_plans=n_plans)
 
 
 def run_stats(dc: DatacenterState, *, max_steps: int = 1_000_000,
@@ -481,25 +880,26 @@ def run_stats(dc: DatacenterState, *, max_steps: int = 1_000_000,
               provision_policy: int = FIRST_FIT, leap: bool | None = None,
               block: int = BLOCK) -> tuple[DatacenterState, RunStats]:
     """``run``, also returning what it did (``RunStats``)."""
-    _require_static(dc)
+    _require_supported(dc)
     out, stats = _drive(lane_axis(dc), max_steps=max_steps,
                         horizon=horizon, provision_policy=provision_policy,
                         leap=_LEAP_DEFAULT if leap is None else leap,
-                        block=block)
+                        block=block, passes=_passes_of(dc))
     return map_tensors(lambda t: t[0], out), stats
 
 
 def run(dc: DatacenterState, *, max_steps: int = 1_000_000,
         horizon: float = float("inf"), provision_policy: int = FIRST_FIT,
         leap: bool | None = None, block: int = BLOCK) -> DatacenterState:
-    """Run a static scenario to quiescence.
+    """Run a scenario to quiescence.
 
-    Stops when the event queue is empty, once the clock has passed
-    ``horizon`` (simulated seconds), or after ``max_steps`` events, as
-    the JAX engine's ``run`` does; ``leap`` (default on) as there.  At
-    most ``block`` steps run between two host checks; the result does
-    not depend on it.  Raises ``NotImplementedError`` for a dynamic,
-    networked, elastic or probed scenario.
+    Stops when the event queue is empty (no runnable work, no future
+    submissions, no pending event rows, copies or transfers), once the
+    clock has passed ``horizon`` (simulated seconds), or after
+    ``max_steps`` events, as the JAX engine's ``run`` does; ``leap``
+    (default on) as there.  At most ``block`` steps run between two host
+    checks; the result does not depend on it.  Raises
+    ``NotImplementedError`` for an elastic or probed scenario.
     """
     return run_stats(dc, max_steps=max_steps, horizon=horizon,
                      provision_policy=provision_policy, leap=leap,
@@ -513,10 +913,11 @@ def batched_run_stats(batch: DatacenterState, *, max_steps: int,
                       ) -> tuple[DatacenterState, RunStats]:
     """``batched_run``, also returning what it did (``RunStats``, summed
     over lanes)."""
-    _require_static(batch)
+    _require_supported(batch)
     return _drive(batch, max_steps=max_steps, horizon=horizon,
                   provision_policy=provision_policy,
-                  leap=_LEAP_DEFAULT if leap is None else leap, block=block)
+                  leap=_LEAP_DEFAULT if leap is None else leap, block=block,
+                  passes=_passes_of(batch))
 
 
 def batched_run(batch: DatacenterState, *, max_steps: int,
@@ -529,8 +930,9 @@ def batched_run(batch: DatacenterState, *, max_steps: int,
     Each lane is masked on ``alive & n < max_steps & time < horizon``,
     finished lanes are frozen by a per-lane select, and the loop ends
     when no lane is live.  Every pass runs once for all lanes (one
-    simstep launch a full step), and lane i equals ``run`` of that
-    scenario bit for bit.
+    simstep launch a full step), a block runs the dynamic and networked
+    passes only while a live lane needs them, and lane i equals ``run``
+    of that scenario bit for bit.
     """
     return batched_run_stats(batch, max_steps=max_steps, horizon=horizon,
                              provision_policy=provision_policy, leap=leap,

@@ -84,41 +84,55 @@ def _feasible(pools, need, static_ok) -> torch.Tensor:
 def feasible_hosts(dc: DatacenterState, free_ram, free_bw, free_storage,
                    free_pes, *, ram, bw, size, req_pes, req_mips
                    ) -> torch.Tensor:
-    """bool[H] — hosts able to admit a VM with the given requirements.
+    """bool[..., H] — hosts able to admit a VM with the given
+    requirements (one state, or a batch of lanes with each lane's
+    requirements as [B, 1]).
 
     The paper's admission chain: RAM, bandwidth, storage, per-PE MIPS
     and PEs.  Under ``reserve_pes`` PEs are held exclusively, so
     unreserved PEs are needed; otherwise the host must merely have
     enough PEs.
     """
-    reserve = bool(dc.reserve_pes == 1)
-    return _feasible(_pools(free_ram, free_bw, free_storage, free_pes,
-                            reserve),
-                     _needs(ram, bw, size, req_pes, reserve),
-                     _static_ok(dc, req_pes, req_mips, reserve))
+    hosts = dc.hosts
+    reserve = dc.reserve_pes
+    if reserve.ndim:
+        reserve = reserve[..., None]
+    pes_ok = torch.where(reserve == 1,
+                         free_pes >= torch.as_tensor(req_pes).to(
+                             torch.float32),
+                         hosts.num_pes >= req_pes)
+    return (hosts.valid & (free_ram >= ram) & (free_bw >= bw)
+            & (free_storage >= size) & (hosts.mips_per_pe >= req_mips)
+            & pes_ok)
+
+
+def _pick(feas, free_ram, total_ram, policy: int, rr_cursor, idx
+          ) -> torch.Tensor:
+    """i64[...] — the host ``policy`` picks over the last axis, whether
+    or not any is feasible."""
+    nh = feas.shape[-1]
+    if policy == BEST_FIT:
+        return torch.argmin(torch.where(feas, free_ram, _BIG), dim=-1)
+    if policy == WORST_FIT:
+        return torch.argmax(torch.where(feas, free_ram, -_BIG), dim=-1)
+    if policy == ROUND_ROBIN:
+        after = torch.where(feas & (idx >= rr_cursor), idx, nh).amin(-1)
+        return torch.where(after < nh, after,
+                           torch.where(feas, idx, nh).amin(-1))
+    if policy == MOST_FULL:
+        frac_used = 1.0 - free_ram / torch.clamp(total_ram, min=1e-30)
+        return torch.argmax(torch.where(feas, frac_used, -_BIG), dim=-1)
+    raise ValueError(f"unknown provisioning policy {policy}")
 
 
 def _choose(feas, free_ram, total_ram, policy: int, rr_cursor, idx
             ) -> torch.Tensor:
-    """i64[] — host chosen by a policy other than FIRST_FIT, or H when no
-    host is feasible.  Ties go to the lowest index, as ``argmax`` and
-    ``argmin`` give them.
+    """i64[...] — host chosen over the last axis by a policy other than
+    FIRST_FIT, or H when no host is feasible.  Ties go to the lowest
+    index, as ``argmax`` and ``argmin`` give them.
     """
-    nh = feas.shape[0]
-    if policy == BEST_FIT:
-        pick = torch.argmin(torch.where(feas, free_ram, _BIG))
-    elif policy == WORST_FIT:
-        pick = torch.argmax(torch.where(feas, free_ram, -_BIG))
-    elif policy == ROUND_ROBIN:
-        after = torch.where(feas & (idx >= rr_cursor), idx, nh).amin()
-        pick = torch.where(after < nh, after,
-                           torch.where(feas, idx, nh).amin())
-    elif policy == MOST_FULL:
-        frac_used = 1.0 - free_ram / torch.clamp(total_ram, min=1e-30)
-        pick = torch.argmax(torch.where(feas, frac_used, -_BIG))
-    else:
-        raise ValueError(f"unknown provisioning policy {policy}")
-    return torch.where(feas.any(), pick, nh)
+    pick = _pick(feas, free_ram, total_ram, policy, rr_cursor, idx)
+    return torch.where(feas.any(dim=-1), pick, feas.shape[-1])
 
 
 def _accrue(total: torch.Tensor, terms: torch.Tensor, ok: np.ndarray):

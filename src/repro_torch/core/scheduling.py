@@ -35,16 +35,16 @@ import dataclasses
 import torch
 
 from repro_torch.core.segments import rounds_for, run_scan, run_starts
-from repro_torch.core.state import (CL_CREATED, INF, SPACE_SHARED, VM_ACTIVE,
-                                    DatacenterState, map_tensors)
+from repro_torch.core.state import (CL_CREATED, INF, NET_RUN, SPACE_SHARED,
+                                    VM_ACTIVE, DatacenterState, map_tensors)
 from repro_torch.kernels.simstep.ops import (RowIndex, row_index,
                                              simstep_ragged)
 
 __all__ = ["cloudlet_runnable", "vm_has_work", "host_level_shares",
            "vm_level_rates", "cloudlet_rates", "rates_and_dt", "Lanes",
            "lanes_of", "HostPlan", "host_plan", "host_sums",
-           "host_consumed", "lane_axis", "lane_rates", "lane_min",
-           "lane_runnable", "run_counts"]
+           "host_consumed", "vm_sums", "lane_axis", "lane_rates",
+           "lane_min", "lane_runnable", "run_counts"]
 
 
 def lane_axis(dc: DatacenterState) -> DatacenterState:
@@ -55,7 +55,7 @@ def lane_axis(dc: DatacenterState) -> DatacenterState:
 @dataclasses.dataclass
 class Lanes:
     """What a batched run keeps from start to end (``cl.vm`` and the
-    policies never change on the static path)."""
+    policies never change during a run)."""
     n_lanes: int
     n_hosts: int                # per lane
     n_vms: int
@@ -65,10 +65,13 @@ class Lanes:
     row_policy: torch.Tensor    # i32[B*V] each row's task policy
     space_rows: torch.Tensor    # bool[B*V] its lane's vm_policy is SPACE
     reserve_rows: torch.Tensor  # bool[B*V] its lane reserves PEs
+    slot_rel: torch.Tensor      # i64[B*C] slot - its row's first slot (0
+    #                             for a slot of no row)
+    row_rounds: int             # run_scan rounds for the longest row
 
 
 def lanes_of(dc: DatacenterState) -> Lanes:
-    """``Lanes`` of a batched state (one host sync)."""
+    """``Lanes`` of a batched state (two host syncs)."""
     b, c = dc.cloudlets.vm.shape
     v = dc.vms.req_pes.shape[1]
     h = dc.hosts.num_pes.shape[1]
@@ -78,12 +81,20 @@ def lanes_of(dc: DatacenterState) -> Lanes:
     in_row = (vm >= 0) & (vm < v)
     slot_vm = (torch.clamp(vm, 0, max(v - 1, 0)) + base).reshape(-1)
     slot_row = torch.where(in_row, vm + base, -1).reshape(-1)
+    index = row_index(slot_row.to(torch.int32), b * v)
+    row = index.slot_row.long()
+    first = (index.start.long()[torch.clamp(row, min=0)] if index.n_rows
+             else torch.zeros_like(row))
+    longest = int(index.length.max()) if index.n_rows else 0
     return Lanes(
         n_lanes=b, n_hosts=h, n_vms=v, n_cloudlets=c, slot_vm=slot_vm,
-        index=row_index(slot_row.to(torch.int32), b * v),
+        index=index,
         row_policy=dc.task_policy.to(torch.int32).repeat_interleave(v),
         space_rows=(dc.vm_policy == SPACE_SHARED).repeat_interleave(v),
-        reserve_rows=(dc.reserve_pes == 1).repeat_interleave(v))
+        reserve_rows=(dc.reserve_pes == 1).repeat_interleave(v),
+        slot_rel=torch.where(row >= 0, torch.arange(b * c, device=dev)
+                             - first, 0),
+        row_rounds=rounds_for(longest))
 
 
 @dataclasses.dataclass
@@ -161,6 +172,19 @@ def host_sums(per_vm: torch.Tensor, plan: HostPlan, n_hosts: int
         (plan.end_host,), ran[plan.ends])
 
 
+def vm_sums(per_slot: torch.Tensor, lanes: Lanes) -> torch.Tensor:
+    """[B*V] sum of ``per_slot`` ([B*C]) over each VM's slots, in a fixed
+    order (a doubling scan along each row, ``segments.run_scan``), so a
+    lane gives the same bits alone or in a batch."""
+    ran = run_scan(per_slot, lanes.slot_rel, lanes.row_rounds)
+    index = lanes.index
+    last = torch.clamp(index.start.long() + index.length.long() - 1, min=0)
+    if ran.shape[0] == 0:
+        return torch.zeros(index.n_rows, dtype=per_slot.dtype,
+                           device=per_slot.device)
+    return torch.where(index.length > 0, ran[last], 0.0)
+
+
 def host_consumed(rates: torch.Tensor, lanes: Lanes, plan: HostPlan
                   ) -> torch.Tensor:
     """f64[B*H] MIPS consumed on each host at cloudlet ``rates`` ([B*C]).
@@ -183,17 +207,21 @@ def host_consumed(rates: torch.Tensor, lanes: Lanes, plan: HostPlan
 # ---------------------------------------------------------------------------
 # The passes, on a batched state and its flat axes
 # ---------------------------------------------------------------------------
-def lane_runnable(dc: DatacenterState, lanes: Lanes) -> torch.Tensor:
+def lane_runnable(dc: DatacenterState, lanes: Lanes, *,
+                  networked: bool = False) -> torch.Tensor:
     """bool[B*C] — ``cloudlet_runnable`` of every lane."""
     cl, vms = dc.cloudlets, dc.vms
     owner = lanes.slot_vm
     vm_ok = vms.state.reshape(-1)[owner] == VM_ACTIVE
     not_migrating = vms.mig_remaining.reshape(-1)[owner] <= 0.0
-    return (((cl.state == CL_CREATED)
-             & (cl.submit_time <= dc.time[:, None])
-             & (cl.remaining > 0.0)
-             & (cl.vm >= 0)).reshape(-1)
-            & vm_ok & not_migrating)
+    ok = ((cl.state == CL_CREATED)
+          & (cl.submit_time <= dc.time[:, None])
+          & (cl.remaining > 0.0)
+          & (cl.vm >= 0))
+    if networked:
+        # an enabled lane's cloudlet draws CPU only once staged in
+        ok &= (dc.net.enabled[:, None] != 1) | (cl.net_phase == NET_RUN)
+    return ok.reshape(-1) & vm_ok & not_migrating
 
 
 def run_counts(runnable: torch.Tensor, lanes: Lanes) -> torch.Tensor:
@@ -263,11 +291,12 @@ def lane_min(x: torch.Tensor) -> torch.Tensor:
     return x.amin(dim=-1)
 
 
-def lane_rates(dc: DatacenterState, lanes: Lanes, plan: HostPlan):
+def lane_rates(dc: DatacenterState, lanes: Lanes, plan: HostPlan, *,
+               networked: bool = False):
     """(rates f32[B, C], dt_finish f32[B], counts i32[B*V]) — the full
     two-level pass of every lane, each lane's earliest completion delta
     (INF when nothing runs) and each VM's runnable cloudlets."""
-    runnable = lane_runnable(dc, lanes)
+    runnable = lane_runnable(dc, lanes, networked=networked)
     counts = run_counts(runnable, lanes)
     vm_cap = _level1(dc, lanes, plan, _eligible(dc, lanes, counts))
     rates, dt_min = _level2(dc, lanes, vm_cap, runnable)
@@ -284,11 +313,13 @@ def _one(dc: DatacenterState):
     return batch, lanes
 
 
-def cloudlet_runnable(dc: DatacenterState) -> torch.Tensor:
+def cloudlet_runnable(dc: DatacenterState, *,
+                      networked: bool = False) -> torch.Tensor:
     """bool[C] — submitted, unfinished, and its VM is placed and running
-    (and not mid-migration)."""
+    (and not mid-migration).  ``networked``: on an enabled topology the
+    cloudlet must also be staged in (``net_phase == NET_RUN``)."""
     batch, lanes = _one(dc)
-    return lane_runnable(batch, lanes)
+    return lane_runnable(batch, lanes, networked=networked)
 
 
 def vm_has_work(dc: DatacenterState, runnable: torch.Tensor) -> torch.Tensor:
@@ -320,14 +351,16 @@ def vm_level_rates(dc: DatacenterState, vm_capacity: torch.Tensor,
     return _level2(batch, lanes, vm_capacity, runnable)[0]
 
 
-def rates_and_dt(dc: DatacenterState):
+def rates_and_dt(dc: DatacenterState, *, networked: bool = False):
     """(rates f32[C], dt_finish f32[]) — the full two-level pass and the
     earliest completion delta (INF when nothing runs)."""
     batch, lanes = _one(dc)
-    rates, dt, _ = lane_rates(batch, lanes, host_plan(batch, lanes))
+    rates, dt, _ = lane_rates(batch, lanes, host_plan(batch, lanes),
+                              networked=networked)
     return rates[0], dt[0]
 
 
-def cloudlet_rates(dc: DatacenterState) -> torch.Tensor:
+def cloudlet_rates(dc: DatacenterState, *,
+                   networked: bool = False) -> torch.Tensor:
     """f32[C] — execution rate (MIPS) of every cloudlet at ``dc.time``."""
-    return rates_and_dt(dc)[0]
+    return rates_and_dt(dc, networked=networked)[0]

@@ -6,8 +6,7 @@ as plain dataclasses of tensors: every array is 1-D over its entity axis
 field names, dtypes and codes are those of the JAX package, so a state
 converts leaf by leaf in either direction (``core/convert.py``).
 
-Only the static builders are here; the stream, topology, autoscaler and
-event builders come with the slices that use them.
+The stream and autoscaler builders come with the slices that use them.
 """
 from __future__ import annotations
 
@@ -299,6 +298,30 @@ def validate_cloudlet_order(vm_ids) -> bool:
     return True
 
 
+def make_topology(cluster, *, bw_intra=1000.0, lat_intra=0.0,
+                  bw_inter=500.0, lat_inter=0.0, bw_wan=100.0,
+                  lat_wan=0.0, energy_per_mb=0.0, device=None) -> NetTopology:
+    """An *enabled* two-tier topology from a host -> cluster map.
+
+    ``cluster`` is a length-H sequence of edge-cluster ids in ``[0, H)``
+    (hosts sharing an id share an edge cluster).  Bandwidths in MB/s,
+    latencies in seconds, ``energy_per_mb`` in J charged to the serving
+    host per staged MB.
+    """
+    dev = resolve_device(device)
+    if isinstance(cluster, torch.Tensor):
+        cluster = cluster.detach().cpu().numpy()
+    g = lambda x: _scalar(x, torch.float32, dev)
+    return NetTopology(
+        enabled=_scalar(1, torch.int32, dev),
+        cluster=torch.from_numpy(
+            np.asarray(cluster, np.int32).reshape(-1).copy()).to(dev),
+        bw_intra=g(bw_intra), lat_intra=g(lat_intra),
+        bw_inter=g(bw_inter), lat_inter=g(lat_inter),
+        bw_wan=g(bw_wan), lat_wan=g(lat_wan),
+        energy_per_mb=g(energy_per_mb))
+
+
 def no_network(n_hosts: int, *, device=None) -> NetTopology:
     """The disabled topology (all zeros) — the non-networked default."""
     dev = resolve_device(device)
@@ -324,6 +347,24 @@ def no_autoscaler(n_segments: int = 1, *, device=None) -> AutoscalerState:
         spot_price=torch.zeros((n_segments,), dtype=torch.float32,
                                device=dev),
         spot_cost=z())
+
+
+def make_events(times, kinds, targets, params=0.0, *, device=None
+                ) -> torch.Tensor:
+    """f32[E, 4] event table from per-event sequences.
+
+    ``times`` in seconds, ``kinds`` EV_* codes, ``targets`` the VM slot
+    (EV_VM_*) or host slot (EV_HOST_*) the event acts on, ``params``
+    reserved (0).  Rows need not be sorted by time: the engine applies
+    every due row.
+    """
+    dev = resolve_device(device)
+    if isinstance(times, torch.Tensor):
+        times = times.detach().cpu().numpy()
+    t = np.asarray(times, np.float32).reshape(-1)
+    col = lambda x: np.broadcast_to(np.asarray(x, np.float32), t.shape)
+    return torch.from_numpy(np.stack(
+        [t, col(kinds), col(targets), col(params)], axis=1)).to(dev)
 
 
 def no_events(*, device=None) -> torch.Tensor:

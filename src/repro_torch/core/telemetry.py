@@ -1,8 +1,9 @@
-"""Telemetry reducers (``repro.core.telemetry`` in NumPy, static path).
+"""Telemetry reducers (``repro.core.telemetry`` in NumPy).
 
 Turn the per-event ``StepRecord`` trace of ``engine.run_trace`` and a
 final state into analyses: the Fig. 8/9 completion curve, utilization
-and power timelines, trace energy, a Gantt chart and a trace summary.
+and power timelines, trace energy, the migration, outage and transfer
+timelines, a Gantt chart and a trace summary.
 Everything here is NumPy post-processing of tensors brought to the host.
 The metrics-plane reducers come with the slice that ports the plane.
 """
@@ -15,7 +16,9 @@ import numpy as np
 from repro_torch.core import state as S
 
 __all__ = ["completion_curve", "utilization_timeline", "watts_timeline",
-           "trace_energy_j", "gantt", "summarize_trace"]
+           "trace_energy_j", "migration_timeline", "failure_timeline",
+           "transfer_timeline", "link_utilization_timeline", "gantt",
+           "summarize_trace"]
 
 
 def _np(x) -> np.ndarray:
@@ -52,6 +55,41 @@ def trace_energy_j(trace) -> float:
         return 0.0
     dt = np.diff(np.concatenate([[0.0], t]))
     return float(np.sum(np.asarray(w, np.float64) * np.maximum(dt, 0.0)))
+
+
+def migration_timeline(trace) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(times, cumulative migrations, VMs mid-copy after the step) per
+    event step."""
+    act = _np(trace.active)
+    return (_np(trace.time)[act], _np(trace.migrations)[act],
+            _np(trace.n_migrating)[act])
+
+
+def failure_timeline(trace) -> tuple[np.ndarray, np.ndarray]:
+    """(times, failed real hosts) per event step: the outage profile."""
+    act = _np(trace.active)
+    return _np(trace.time)[act], _np(trace.hosts_down)[act]
+
+
+def transfer_timeline(trace) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(times, cumulative MB of completed staged transfers after the
+    step, transfers that drew bandwidth during it) per event step."""
+    act = _np(trace.active)
+    return (_np(trace.time)[act], _np(trace.transferred_mb)[act],
+            _np(trace.n_flows)[act])
+
+
+def link_utilization_timeline(trace, wan_bw_mbps: float
+                              ) -> tuple[np.ndarray, np.ndarray]:
+    """(times, WAN gateway utilization in [0, 1]) per event step: each
+    interval's completed MB over its length, over the gateway's MB/s."""
+    t, mb, _ = transfer_timeline(trace)
+    if len(t) == 0:
+        return t, np.zeros(0, dtype=mb.dtype)
+    dt = np.diff(np.concatenate([[0.0], t]))
+    dmb = np.diff(np.concatenate([[0.0], mb]))
+    util = np.where(dt > 0, dmb / np.maximum(dt, 1e-12), 0.0)
+    return t, np.clip(util / max(float(wan_bw_mbps), 1e-12), 0.0, 1.0)
 
 
 def gantt(dc: S.DatacenterState) -> Dict[int, list]:

@@ -92,7 +92,7 @@ def _window_marks(slot_row: torch.Tensor) -> torch.Tensor:
 def row_index(cl_vm: torch.Tensor, n_vms: int) -> RowIndex:
     """Build the rows of ``cl_vm`` (i32[C] VM id per slot) with one host
     sync.  Raises ``ValueError`` when the slots of a VM are not one
-    contiguous run.  On the static path ``cl.vm`` never changes, so a run
+    contiguous run.  ``cl.vm`` never changes during a run, so a run
     builds it once."""
     dev = cl_vm.device
     vm = cl_vm.long()

@@ -459,3 +459,39 @@ def test_smoke_model_on_card_matches_cpu(cuda, arch):
     sg = serve(cfg, gpu, requests=4, slots=2, max_new=8).state
     for field in ("generated", "n_generated", "active", "position"):
         assert torch.equal(getattr(sg, field).cpu(), getattr(sc, field))
+
+
+def test_dynamic_and_networked_lanes_on_card(cuda):
+    """Small dynamic and networked lanes (chip_smoke.py's copies of the
+    conformance recipes) x the 2x2 grid in one batch on the card: every
+    lane equals its single run there bit for bit, and the batch equals
+    the CPU's in states, placements and migration counts, with times,
+    joules and MB within 1e-3."""
+    import importlib.util
+    import pathlib
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import batched_run_stats
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    vm_p, task_p = sweep.policy_grid(device="cpu")
+    outs = []
+    for dev in (cuda, "cpu"):
+        batch = sweep.fuse_grid(sweep.stack_scenarios(
+            cs.dyn_lane_scenarios(6, dev)), vm_p.to(dev), task_p.to(dev))
+        outs.append((batch, *batched_run_stats(batch, max_steps=4096)))
+    (batch, grid, stats), (_, cpu, cstats) = outs
+    assert stats.n_events == cstats.n_events
+    for name in ("cloudlets.state", "vms.state", "vms.host", "mig_count"):
+        assert torch.equal(_leaf(grid, name).cpu(), _leaf(cpu, name)), name
+    for name in ("cloudlets.finish_time", "hosts.energy_j", "mig_downtime",
+                 "net_transferred_mb"):
+        np.testing.assert_allclose(_leaf(grid, name).cpu().numpy(),
+                                   _leaf(cpu, name).numpy(), rtol=0,
+                                   atol=1e-3, err_msg=name)
+    for i in range(batch.time.shape[0]):
+        single, _ = run_stats(S.map_tensors(lambda t: t[i], batch),
+                              max_steps=4096)
+        for name, a in _leaves(single):
+            assert torch.equal(_leaf(grid, name)[i], a), (i, name)

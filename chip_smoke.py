@@ -66,14 +66,30 @@ script exits non-zero:
      copies of the conformance recipes) x the 2x2 grid in one batch:
      every lane equals its single run bitwise, and the batch agrees with
      the CPU;
- 14. what the migration and network passes cost a full step at 100,000
-     hosts (the same run, bit for bit, with each set switched on), and
-     the wall of a host-plan rebuild.
+ 14. streamed arrivals (``engine.run_stream``), level 2 on simstep
+     through the regrouped window: ``stream-s5-100k``, the paper's
+     largest datacenter as a stream in chunks of 65,536, space-shared
+     through a window of two waves (a backlog of up to four; the
+     resident closed forms, and the reservoir equal to the resident run)
+     and time-shared through a window of every slot (equal to the
+     resident run bitwise); ``stream-tight``, 10,000 hosts and 50,000
+     arrivals through 5,000 slots, card == CPU and chunk 1,024 == chunk
+     8,192 bitwise; ``stream-poisson``, ``bench_streaming``'s lane at
+     4,000 arrivals, leap on == off bitwise and card == CPU, with
+     cloudlets/s; ``stream-lanes``, 8 small streamed scenarios x the 2x2
+     grid in one ``run_stream_grid``, every lane == its single run (the
+     resident comparisons read every arrival's times from a reservoir of
+     stride 1);
+ 15. what the migration, network and streaming passes cost a full step at
+     100,000 hosts (the same run, bit for bit, with each set switched
+     on), and the wall of a host-plan rebuild.
 
 Phase 2 also holds simstep with a task policy per row (a batch's lanes)
-against its plain version, and times it at 4 lanes of [50000, 10].
+against its plain version, and times it at 4 lanes of [50000, 10]; and
+on padded indexes (a streamed window's), against its plain version and
+against the unpadded index.
 
-Phases 3, 4 and 4b are the simulator's main path, and 6 to 13 each a
+Phases 3, 4 and 4b are the simulator's main path, and 6 to 14 each a
 path of its own: simstep's launch count is set to 0 just before phase 3
 and read just after phase 4b, and set to 0 just before and read just
 after each run of the later ones (``launches_by_path`` in the kernels'
@@ -232,6 +248,25 @@ def ragged_tile(seed, lengths, device, gaps=True):
                    for a in (rem, run, cap, pes)]
 
 
+def padded_tile(seed, lengths, tail, device):
+    """``ragged_tile``'s rows in VM order with ``tail`` slots of no row
+    after them, as a streamed window's regrouped view lays them out.
+    Returns (its ``row_index``, its ``padded_row_index``, [remaining,
+    runnable, cap, pes])."""
+    import torch
+    from repro_torch.kernels.simstep import padded_row_index, row_index
+    _, (rem, run, cap, pes) = ragged_tile(seed, lengths, device, gaps=False)
+    v = len(lengths)
+    vm = torch.cat([torch.arange(v, dtype=torch.int32).repeat_interleave(
+        torch.as_tensor(lengths)), torch.full((tail,), -1,
+                                              dtype=torch.int32)]).to(device)
+    rem = torch.cat([rem, torch.full((tail,), 5.0, device=device)])
+    run = torch.cat([run, torch.ones((tail,), dtype=torch.bool,
+                                     device=device)])
+    return (row_index(vm, v), padded_row_index(vm, v),
+            [rem, run, cap, pes])
+
+
 def simstep_bound(index, per_row=False):
     """(bound ms, bound_by, bytes) of one simstep call on ``index``: each
     slot's remaining, runnable and row id read and its rate written, each
@@ -321,8 +356,41 @@ def phase_kernels(device):
     check(pbitwise == pcases, "simstep with a task policy per row is not "
           "bitwise equal to its plain version")
 
+    # a padded index (a streamed window's, sizes fixed by the slot count):
+    # empty spans, -1 empty rows and -1 chunks must write nothing
+    from repro_torch.kernels.simstep import padded_row_index
+    dcases = dbitwise = 0
+    for name, lengths in RAGGED.items():
+        for tail in (0, 37):
+            index, padded, (rem, run, cap, pes) = padded_tile(
+                0, lengths, tail, device)
+            pol = torch.from_numpy(np.random.default_rng(tail).integers(
+                0, 2, index.n_rows).astype(np.int32)).to(device)
+            got = simstep_ragged(rem, run, padded, cap, pes, pol)
+            want = simstep_ragged_ref(rem, run, padded, cap, pes, pol)
+            exact = simstep_ragged(rem, run, index, cap, pes, pol)
+            torch.cuda.synchronize()
+            dcases += 1
+            dbitwise += all(torch.equal(g, w) and torch.equal(g, e)
+                            for g, w, e in zip(got, want, exact))
+    print(f"[kernels] simstep_ragged on padded indexes (empty spans, -1 "
+          f"empty-row and chunk entries) vs plain version and vs the "
+          f"unpadded index: {dcases} grouped tiles ({', '.join(RAGGED)}, "
+          f"with and without slots of no row at the end): bitwise equal on "
+          f"{dbitwise}/{dcases}")
+    check(dbitwise == dcases, "simstep on a padded index disagrees")
+
     times = {}
     pol = torch.tensor(1, dtype=torch.int32, device=device)
+    index, padded, (rem, run, cap, pes) = padded_tile(0, RAGGED["uniform"],
+                                                      0, device)
+    padded_ms = device_ms(lambda: simstep_ragged(rem, run, padded, cap, pes,
+                                                 pol))
+    print(f"[kernels] simstep_ragged uniform on its padded index "
+          f"({padded.window.numel() - 1} spans, "
+          f"{padded.chunk_row.numel()} chunk entries, all padding past "
+          f"{index.window.numel() - 1} and 0): kernel {padded_ms!r} ms "
+          f"(device, graph replay)")
     for name in ("uniform", "skewed"):
         index, (rem, run, cap, pes) = ragged_tile(0, RAGGED[name], device,
                                                   gaps=False)
@@ -370,6 +438,7 @@ def phase_kernels(device):
             "skewed_ms": times["skewed"][0],
             "skewed_plain_ms": times["skewed"][1],
             "skewed_bound_ms": times["skewed"][2],
+            "padded_ms": padded_ms,
             "per_row_slots": index.n_slots, "per_row_ms": grid_ms,
             "per_row_plain_ms": grid_plain_ms,
             "per_row_bound_ms": grid_bound_ms}
@@ -1376,6 +1445,373 @@ def phase_dyn_lanes(device, card, launched, n_seeds=16):
           f"batch {cwall!r} s ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Streamed arrivals (phase 14)
+# ---------------------------------------------------------------------------
+def stream_line(stats):
+    """What a streamed run did, for the phase lines."""
+    return (f"{run_line(stats)}, {stats.n_passes} admission passes")
+
+
+def as_stream(dc, window, chunk):
+    """A resident scenario's cloudlets as a stream into a window of
+    ``window`` slots: (windowed state, stream, arrival order), where
+    arrival ``sid`` is resident cloudlet ``order[sid]``."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import state as S
+    cl = dc.cloudlets
+    dev = dc.time.device
+    submit = cl.submit_time.cpu().numpy()
+    order = np.lexsort((np.arange(submit.shape[0]), submit))
+    stream = S.make_stream(cl.vm, cl.length, cl.submit_time,
+                           file_size=cl.file_size,
+                           output_size=cl.output_size, chunk=chunk,
+                           device=dev)
+    win = dataclasses.replace(dc, cloudlets=S.make_window(window,
+                                                          device=dev))
+    return win, stream, order
+
+
+def timed_stream(dc, stream, **kw):
+    """``run_stream_stats`` with its wall time and simstep launches."""
+    import torch
+    from repro_torch.core.engine import run_stream_stats
+    from repro_torch.kernels.simstep import simstep
+    torch.cuda.synchronize()
+    before = simstep.launches
+    t0 = time.perf_counter()
+    out = run_stream_stats(dc, stream, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = simstep.launches - before
+    check(launched == out[3].n_steps > 0 or dc.time.device.type == "cpu",
+          f"simstep launches {launched}, steps {out[3].n_steps}")
+    return (*out, wall, launched)
+
+
+def same_stream(a, b):
+    """Two streamed runs' (state, StreamState, records) equal bitwise."""
+    import torch
+    return (same_state(a[0], b[0]) and same_state(a[1], b[1])
+            and all(bool(torch.equal(x, y)) for x, y in zip(a[2], b[2])))
+
+
+def same_chunking(a, b):
+    """Two streamed runs of one trace in different chunk sizes: the state,
+    the stats and the admission counters equal bitwise (the cursor, the
+    backlog and the records follow the chunks)."""
+    import torch
+    return (same_state(a[0], b[0]) and same_state(a[1].stats, b[1].stats)
+            and all(bool(torch.equal(getattr(a[1], f), getattr(b[1], f)))
+                    for f in ("next_sid", "vm_rank", "slot_sid",
+                              "peak_occupancy")))
+
+
+def stream_agree(gpu, cpu, tag):
+    """A streamed run on the card against the CPU: counts, reservoir ids,
+    the window's states, VMs and ranks, peak occupancy, backlog and the
+    records' integer fields exact; sums, times and joules within the
+    oracle's tolerances.  Returns the largest float error."""
+    import torch
+    (g, gs, gr), (c, cs, cr) = gpu[:3], cpu[:3]
+    for name in ("n_retired", "n_failed", "per_vm_done", "res_sid"):
+        check(torch.equal(getattr(gs.stats, name).cpu(),
+                          getattr(cs.stats, name)), f"{tag}: {name} differ")
+    for name in ("peak_occupancy", "max_backlog", "slot_sid", "vm_rank"):
+        check(torch.equal(getattr(gs, name).cpu(), getattr(cs, name)),
+              f"{tag}: {name} differ")
+    for name in ("state", "vm", "rank_in_vm"):
+        check(torch.equal(getattr(g.cloudlets, name).cpu(),
+                          getattr(c.cloudlets, name)),
+              f"{tag}: cloudlets.{name} differ")
+    for x, y in zip(gr[1:], cr[1:]):
+        check(torch.equal(x.cpu(), y), f"{tag}: chunk records differ")
+    err = 0.0
+    for a, b, rel in ((gs.stats.sum_exec, cs.stats.sum_exec, True),
+                      (gs.stats.sum_response, cs.stats.sum_response, True),
+                      (gs.stats.makespan, cs.stats.makespan, False),
+                      (g.time, c.time, False),
+                      (g.hosts.energy_j, c.hosts.energy_j, True)):
+        d = (a.cpu().double() - b.double()).abs()
+        if rel:
+            d = d / torch.clamp(b.double().abs(), min=1.0)
+        err = max(err, float(d.max()))
+    fin = cs.stats.res_finish < 1e29
+    for a, b in ((gs.stats.res_start, cs.stats.res_start),
+                 (gs.stats.res_finish, cs.stats.res_finish)):
+        err = max(err, float((a.cpu()[fin].double()
+                              - b[fin].double()).abs().max()))
+    check(err <= 1e-3, f"{tag}: card and CPU differ by {err!r}")
+    return err
+
+
+def phase_stream_s5(device, card, launched, n_hosts=100_000,
+                    n_vms=50_000, chunk=65_536):
+    """Phase 14a: the paper's largest datacenter as a stream, with a
+    reservoir of every arrival (stride 1), so each cloudlet's start and
+    finish is read back.  Space-shared through a window of two waves
+    (100,000 slots): the backlog holds up to four waves, yet each VM
+    always has its next cloudlet in the window, so the resident closed
+    forms hold: every cloudlet retired, exec exactly 1200 s, per-wave
+    response 1200 + 600 w s, makespan 12,000 s, busy and idle host
+    joules.  Time-shared through a window of all 500,000 slots (retired
+    slots still recycle).  In both, every arrival's start and finish,
+    the joules and the clock equal the resident run's bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import state as S
+    from repro_torch.core.engine import run_stats
+
+    n_cl = 10 * n_vms
+    for policy, window in ((S.SPACE_SHARED, 2 * n_vms),
+                           (S.TIME_SHARED, n_cl)):
+        tag = f"stream-s5-100k-{policy}"
+        resident = section5(n_hosts, n_vms, policy, device)
+        ref, _ = run_stats(resident, max_steps=8192)
+        win, stream, order = as_stream(resident, window, chunk)
+        torch.cuda.reset_peak_memory_stats()
+        final, st, recs, stats, wall, n_launch = timed_stream(
+            win, stream, reservoir=n_cl)
+        launched[tag] = n_launch
+        peak = torch.cuda.max_memory_allocated()
+        sts = st.stats
+        check(int(sts.n_retired) == n_cl and int(sts.n_failed) == 0,
+              f"{tag}: {int(sts.n_retired)}/{n_cl} retired")
+        check(float(sts.makespan) == 12000.0 == float(final.time),
+              f"{tag}: makespan {float(sts.makespan)!r}")
+        check(int(st.peak_occupancy) <= window, f"{tag}: occupancy")
+        check(torch.equal(sts.res_sid.cpu(), torch.arange(
+            n_cl, dtype=torch.int32)), f"{tag}: reservoir ids")
+        slot = torch.from_numpy(order).to(device)
+        check(torch.equal(sts.res_start, ref.cloudlets.start_time[slot])
+              and torch.equal(sts.res_finish,
+                              ref.cloudlets.finish_time[slot]),
+              f"{tag}: start and finish times differ from the resident "
+              f"run")
+        check(torch.equal(final.hosts.energy_j, ref.hosts.energy_j)
+              and torch.equal(final.time, ref.time),
+              f"{tag}: joules or clock differ from the resident run")
+        sub = resident.cloudlets.submit_time.cpu().double().numpy()[order]
+        fin = sts.res_finish.cpu().double().numpy()
+        wave = np.rint(sub / 600.0).astype(int)
+        resp = [float((fin - sub)[wave == w].mean()) for w in range(10)]
+        want = SPACE_RESP if policy == S.SPACE_SHARED else TIME_RESP
+        r_err = max(abs(a - b) for a, b in zip(resp, want))
+        check(r_err <= 1e-3, f"{tag}: response by wave {resp}")
+        energy = final.hosts.energy_j.double().cpu().numpy()
+        busy = np.zeros(n_hosts, bool)
+        busy[final.vms.host.cpu().numpy()] = True
+        e_busy = np.abs(energy[busy] / 2.4e6 - 1.0).max()
+        e_idle = np.abs(energy[~busy] / 1.2e6 - 1.0).max()
+        check(e_busy <= 1e-5 and e_idle <= 1e-5,
+              f"{tag}: energy off by {e_busy!r} / {e_idle!r}")
+        what = ""
+        if policy == S.SPACE_SHARED:
+            check(float(sts.sum_exec) == 1200.0 * n_cl and bool(
+                (sts.res_finish - sts.res_start == 1200.0).all()),
+                f"{tag}: exec != 1200 s")
+            check(int(st.max_backlog) > 0, f"{tag}: no backlog")
+            what = "exec exactly 1200 s, "
+        print(f"[{tag}] {n_hosts} hosts, {n_vms} VMs, {n_cl} arrivals in "
+              f"chunks of {chunk} through a window of {window}: "
+              f"{n_cl}/{n_cl} retired, max backlog {int(st.max_backlog)}, "
+              f"peak occupancy {int(st.peak_occupancy)}; every start and "
+              f"finish, the joules and the clock == the resident run "
+              f"bitwise; {what}response by wave within {r_err:.3g} s of "
+              f"the JAX answers, makespan 12000 s, energy rel err busy "
+              f"{e_busy:.3g} idle {e_idle:.3g}; wall {wall!r} s, "
+              f"{stream_line(stats)}, simstep launches {n_launch}, peak "
+              f"allocated {peak} bytes ({card})")
+
+
+def phase_stream_tight(device, card, launched, n_hosts=10_000, n_vms=5_000,
+                       window=5_000):
+    """Phase 14b: 10,000 hosts, 5,000 VMs, 50,000 wave cloudlets through a
+    window of 5,000, both task policies: the card against the CPU, and
+    chunk 1,024 against chunk 8,192 on the card, bitwise."""
+    import torch
+    from repro_torch.core import state as S
+
+    for policy in (S.SPACE_SHARED, S.TIME_SHARED):
+        tag = f"stream-tight-{policy}"
+        runs = {}
+        for where, dev, chunk in (("card", device, 1024),
+                                  ("card-8192", device, 8192),
+                                  ("cpu", "cpu", 1024)):
+            win, stream, _ = as_stream(section5(n_hosts, n_vms, policy, dev),
+                                       window, chunk)
+            runs[where] = timed_stream(win, stream, reservoir=256)
+        launched[tag] = runs["card"][5]
+        check(same_chunking(runs["card"], runs["card-8192"]),
+              f"{tag}: chunk 1024 != chunk 8192")
+        err = stream_agree(runs["card"], runs["cpu"], tag)
+        st = runs["card"][1]
+        check(int(st.stats.n_retired) == 10 * n_vms,
+              f"{tag}: {int(st.stats.n_retired)} retired")
+        print(f"[{tag}] {n_hosts} hosts, {n_vms} VMs, {10 * n_vms} wave "
+              f"arrivals through a window of {window}: all retired, max "
+              f"backlog {int(st.max_backlog)}; chunk 1024 == chunk 8192 "
+              f"bitwise on the card; card == CPU (counts, states, reservoir "
+              f"ids, records exact; max float err {err:.3g}); card "
+              f"{runs['card'][4]!r} s ({stream_line(runs['card'][3])}), "
+              f"chunk 8192 {runs['card-8192'][4]!r} s, CPU "
+              f"{runs['cpu'][4]!r} s ({card})")
+
+
+def poisson_stream(n, device, n_vms=32, n_hosts=8, window=64, chunk=4096):
+    """``benchmarks/bench_policies.py::_streaming_scenario`` (its recipe,
+    copied): n arrivals over n/40 s to 32 VMs of 500 MIPS on 8 hosts of
+    4 PEs, lengths 100-2000 MI, through a window of 64."""
+    import numpy as np
+    from repro_torch.core import state as S
+    rng = np.random.default_rng(0)
+    vm = rng.integers(0, n_vms, n).astype(np.int32)
+    sub = np.sort(rng.uniform(0, n / 40.0, n)).astype(np.float32)
+    length = rng.uniform(100.0, 2000.0, n).astype(np.float32)
+    hosts = S.make_uniform_hosts(n_hosts, pes=4, mips=1000.0, ram=8192.0,
+                                 bw=1000.0, storage=1e6, idle_w=100.0,
+                                 peak_w=250.0, device=device)
+    vms = S.make_vms([1] * n_vms, [500.0] * n_vms, [512.0] * n_vms,
+                     [100.0] * n_vms, [1000.0] * n_vms, device=device)
+    dc = S.make_datacenter(hosts, vms, S.make_window(window, device=device),
+                           device=device)
+    return dc, S.make_stream(vm, length, sub, chunk=chunk, device=device)
+
+
+def phase_stream_poisson(device, card, launched, n=4000):
+    """Phase 14c: ``bench_streaming``'s lane at n arrivals: leap on ==
+    leap off bitwise on the card, the card against the CPU, and
+    cloudlets per second for each."""
+    runs = {}
+    for where, dev, leap in (("card", device, True),
+                             ("card-leap-off", device, False),
+                             ("cpu", "cpu", True)):
+        dc, stream = poisson_stream(n, dev)
+        runs[where] = timed_stream(dc, stream, leap=leap,
+                                   max_steps_per_chunk=4 * 4096)
+    launched["stream-poisson"] = runs["card"][5]
+    check(same_stream(runs["card"], runs["card-leap-off"]),
+          "stream-poisson: leap on != leap off")
+    err = stream_agree(runs["card"], runs["cpu"], "stream-poisson")
+    st = runs["card"][1]
+    check(int(st.stats.n_retired) == n, "stream-poisson: not all retired")
+    rate = lambda r: n / r[4]
+    print(f"[stream-poisson] {n} arrivals, 32 VMs on 8 hosts, a window of "
+          f"64: all retired, max backlog {int(st.max_backlog)}; leap on == "
+          f"leap off bitwise; card == CPU (max float err {err:.3g}); card "
+          f"leap on {runs['card'][4]!r} s ({rate(runs['card'])!r} "
+          f"cloudlets/s; {stream_line(runs['card'][3])}), leap off "
+          f"{runs['card-leap-off'][4]!r} s "
+          f"({rate(runs['card-leap-off'])!r} cloudlets/s), CPU "
+          f"{runs['cpu'][4]!r} s ({rate(runs['cpu'])!r} cloudlets/s) "
+          f"({card})")
+
+
+def streamed_scenario(seed, device, n_hosts=3, n_vms=5):
+    """``tests/test_conformance.py::make_streamed_scenario`` (its recipe
+    and numpy draws, copied), policies (0, 0): a window of 4-12 slots
+    under 40-80 arrivals; odd seeds add a host failure and recovery, a
+    VM destroy, migration and a staged-transfer topology."""
+    import numpy as np
+    from repro_torch.core import state as S
+    rng = np.random.default_rng(30_000 + seed)
+    hosts = _conformance_hosts(rng, n_hosts, device, pes=(2, 5))
+    vms = S.make_vms(
+        rng.integers(1, 3, n_vms), rng.choice([250.0, 500.0, 1000.0], n_vms),
+        64.0, 1.0, 10.0,
+        submit_time=np.round(rng.uniform(0, 3, n_vms), 2).astype(np.float32),
+        device=device)
+    n_slots = int(rng.integers(4, 13))
+    n = int(rng.integers(40, 81))
+    vm_ids = rng.integers(0, n_vms, n).astype(np.int32)
+    submit = np.sort(np.round(rng.uniform(0, 30, n), 2)).astype(np.float32)
+    lengths = np.round(rng.uniform(300, 4000, n)).astype(np.float32)
+    kw = {}
+    file_mb = out_mb = 0.0
+    if seed % 2 == 1:
+        fail_t = round(float(rng.uniform(5, 15)), 2)
+        destroy_t = round(float(rng.uniform(18, 28)), 2)
+        kw["events"] = S.make_events(
+            [fail_t, round(fail_t + float(rng.uniform(4, 10)), 2),
+             destroy_t],
+            [S.EV_HOST_FAIL, S.EV_HOST_RECOVER, S.EV_VM_DESTROY],
+            [int(rng.integers(0, n_hosts))] * 2
+            + [int(rng.integers(0, n_vms))], device=device)
+        kw["mig_policy"] = (S.MIG_THRESHOLD, S.MIG_DRAIN)[seed % 4 == 1]
+        kw["mig_threshold"] = (0.7 if kw["mig_policy"] == S.MIG_THRESHOLD
+                               else 0.45)
+        kw["mig_energy_per_mb"] = 0.001
+        kw["net"] = S.make_topology(
+            rng.integers(0, 2, n_hosts),
+            bw_intra=float(rng.choice([50.0, 100.0])),
+            bw_inter=float(rng.choice([20.0, 50.0])),
+            bw_wan=float(rng.choice([10.0, 25.0])),
+            lat_intra=round(float(rng.uniform(0.0, 0.1)), 2),
+            lat_inter=round(float(rng.uniform(0.0, 0.2)), 2),
+            lat_wan=round(float(rng.uniform(0.0, 0.4)), 2),
+            energy_per_mb=0.001, device=device)
+        file_mb = np.round(rng.uniform(0, 20, n), 1).astype(np.float32)
+        out_mb = np.round(rng.uniform(0, 10, n), 1).astype(np.float32)
+        file_mb[rng.uniform(size=n) < 0.2] = 0.0
+        out_mb[rng.uniform(size=n) < 0.2] = 0.0
+    dc = S.make_datacenter(hosts, vms, S.make_window(n_slots, device=device),
+                           reserve_pes=bool(seed % 2), device=device, **kw)
+    stream = S.make_stream(vm_ids, lengths, submit, file_size=file_mb,
+                           output_size=out_mb, chunk=16, device=device)
+    return dc, stream
+
+
+def phase_stream_lanes(device, card, launched, n_seeds=8):
+    """Phase 14d: ``n_seeds`` small streamed scenarios x the 2x2 grid in
+    one ``run_stream_grid`` on the card: every lane equals its single
+    run bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import run_stream_stats
+    from repro_torch.kernels.simstep import simstep
+
+    pairs = [streamed_scenario(s, device) for s in range(n_seeds)]
+    dcs = [p[0] for p in pairs]
+    streams = [p[1] for p in pairs]
+    batch = sweep.stack_scenarios(dcs)
+    vm_p, task_p = sweep.policy_grid(device=device)
+    torch.cuda.synchronize()
+    simstep.launches = 0
+    t0 = time.perf_counter()
+    gdc, gst, grec = sweep.run_stream_grid(batch, streams, vm_p, task_p,
+                                           reservoir=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched["stream-lanes"] = simstep.launches
+    singles, events, failed = 0.0, 0, 0
+    for p in range(4):
+        for b in range(n_seeds):
+            cell = dataclasses.replace(lane(batch, b),
+                                       vm_policy=vm_p[p].clone(),
+                                       task_policy=task_p[p].clone())
+            t0 = time.perf_counter()
+            out, st, rec, stats = run_stream_stats(cell, streams[b],
+                                                   reservoir=32)
+            torch.cuda.synchronize()
+            singles += time.perf_counter() - t0
+            events += stats.n_events
+            failed += int(st.stats.n_failed)
+            k = rec.time.shape[0]
+            check(same_state(lane(gdc, p, b), out)
+                  and same_state(lane(gst.stats, p, b), st.stats)
+                  and all(bool(torch.equal(x[p, b, :k], y))
+                          for x, y in zip(grec, rec)),
+                  f"stream-lanes: lane {p},{b} != its single run")
+    print(f"[stream-lanes] {4 * n_seeds} lanes ({n_seeds} small streamed "
+          f"scenarios x the 2x2 grid) in one run_stream_grid: every lane == "
+          f"its single run bitwise; {events} events, {failed} dead-VM or "
+          f"failed arrivals; batched wall {wall!r} s "
+          f"({launched['stream-lanes']} simstep launches), the "
+          f"{4 * n_seeds} single runs {singles!r} s ({card})")
+
+
 def plan_ms(dc, reps=20):
     """Wall milliseconds of one host-plan rebuild of ``dc`` (its two host
     syncs included)."""
@@ -1393,15 +1829,16 @@ def plan_ms(dc, reps=20):
 
 
 def phase_pass_cost(device, card, n_hosts=100_000, n_vms=50_000):
-    """Phase 14: what the migration and network passes cost a full step
-    at the §5 datacenter's size (time-shared, placed, empty transfers):
-    the same scenario stepped to quiescence as it is, under THRESHOLD
-    migration at a threshold no host exceeds (the dynamic and migration
-    passes run every step, nothing migrates), and on an enabled topology
-    with zero-size, zero-latency transfers (the network passes run, no
-    transfer costs an event).  Each must give the static run's events
-    and finish times bit for bit; the line gives wall per evaluated
-    step, and the wall of a host-plan rebuild."""
+    """Phase 15: what the migration, network and streaming passes cost a
+    full step at the §5 datacenter's size (time-shared, placed, empty
+    transfers): the same scenario stepped to quiescence as it is, under
+    THRESHOLD migration at a threshold no host exceeds (the dynamic and
+    migration passes run every step, nothing migrates), on an enabled
+    topology with zero-size, zero-latency transfers (the network passes
+    run, no transfer costs an event), and streamed through a window of
+    every slot.  Each must give the static run's events and finish times
+    bit for bit; the line gives wall per evaluated step, and the wall of
+    a host-plan rebuild."""
     import dataclasses
     import torch
     from repro_torch.core import state as S
@@ -1437,6 +1874,27 @@ def phase_pass_cost(device, card, n_hosts=100_000, n_vms=50_000):
             f"pass-cost: the {name} passes changed the run")
         parts.append(f"{name} {wall!r} s for {stats.n_steps} steps "
                      f"({wall / stats.n_steps * 1e3:.3f} ms a step)")
+    # streamed through a window of every slot: the admission pass, the
+    # regrouped view and its padded index join every full step (every
+    # arrival's finish read back from a reservoir of stride 1)
+    from repro_torch.core.engine import run_stream_stats
+    n_cl = dc.cloudlets.vm.shape[0]
+    win, stream, order = as_stream(dc, n_cl, 65_536)
+    run_stream_stats(win, stream, reservoir=n_cl)       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, st, _, stats = run_stream_stats(win, stream, reservoir=n_cl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    slot = torch.from_numpy(order).to(device)
+    check(stats.n_events == ref[1].n_events and torch.equal(
+        st.stats.res_finish, ref[0].cloudlets.finish_time[slot])
+        and torch.equal(final.hosts.energy_j, ref[0].hosts.energy_j),
+        "pass-cost: the streamed run differs from the static one")
+    parts.append(f"streamed through a window of all "
+                 f"{dc.cloudlets.vm.shape[0]} slots {wall!r} s for "
+                 f"{stats.n_steps} steps ({wall / stats.n_steps * 1e3:.3f} "
+                 f"ms a step, {stats.n_passes} admission passes)")
     print(f"[pass-cost] §5 {n_hosts} hosts time-shared, {ref[1].n_events} "
           f"events, the same bits with each set of passes: "
           + "; ".join(parts) + f"; a host-plan rebuild {plan_ms(dc)!r} ms, "
@@ -1920,6 +2378,10 @@ def main():
     phase_migration(device, card, launched)
     phase_s5_networked(device, card, launched)
     phase_dyn_lanes(device, card, launched)
+    phase_stream_s5(device, card, launched)
+    phase_stream_tight(device, card, launched)
+    phase_stream_poisson(device, card, launched)
+    phase_stream_lanes(device, card, launched)
     phase_pass_cost(device, card)
     for path, n in launched.items():
         check(n > 0, f"simstep never launched on the {path} path")

@@ -1,5 +1,5 @@
 """The simulator core in PyTorch (``repro.core`` ported: the static,
-dynamic and networked paths).
+dynamic, networked and streamed paths).
 
   state.py         entity model (Datacenter/Host/VM/Cloudlet/Market)
   convert.py       leaf-by-leaf state conversion to and from other packages
@@ -9,7 +9,10 @@ dynamic and networked paths).
   scheduling.py    two-level space/time-shared shares (Fig. 3 2x2)
   provisioning.py  VMProvisioner + admission (first/best/worst-fit, ...)
   engine.py        discrete-event engine: full steps, the event table,
-                   the event-horizon leap, batched runs over lanes
+                   the event-horizon leap, batched runs over lanes,
+                   streamed runs (``run_stream``)
+  streaming.py     admission and retirement of streamed windows
+  workloads.py     NumPy-seeded streamed arrival processes
   migration.py     live migration: THRESHOLD / DRAIN, delay, joules
   network.py       staged transfers as fair-shared flows, routed copies
   sweep.py         stacked scenario batches and fused policy grids

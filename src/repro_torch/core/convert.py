@@ -4,7 +4,9 @@
 ``np.asarray`` of the same-named leaf of any object that has them — a
 JAX ``DatacenterState``, a tree of numpy arrays (attributes or dict
 keys), or a port state — so scenarios built by either package run in
-either.  ``to_numpy`` goes the other way.  Dtypes (``bool``, ``int32``,
+either.  The same goes for any other port dataclass (``cls=``), such as
+a stream (``state.ArrivalStream``) or its carry (``state.StreamState``).
+``to_numpy`` goes the other way.  Dtypes (``bool``, ``int32``,
 ``float32``) and 0-d scalars are kept exactly.
 """
 from __future__ import annotations

@@ -51,8 +51,18 @@ engine's ``trig_next``) and commits.  So each lane takes the JAX
 engine's sequence of events exactly, and the result does not depend on
 the blocks.  ``RunStats`` counts the plans built.
 
-Elastic and probed scenarios belong to later slices of the port; ``run``
-refuses them.
+Streamed scenarios (``run_stream``; ``core/streaming.py``): a lane's
+cloudlet block is a window of recycled slots fed by a chunked arrival
+queue.  The admission pass runs on the device at the top of every full
+step of a streamed lane, and at a block boundary before the event table
+(JAX admits before its step applies the instant's event rows); level 2
+reads the window through a regrouped view rebuilt after every pass
+(``scheduling.stream_lanes``), and the next unadmitted arrival is an
+absolute arrival of ``_full`` and of the leap, whose window a backlog
+keeps closed.
+
+Elastic and probed scenarios, streamed or not, belong to later slices
+of the port; the entry points refuse them.
 """
 from __future__ import annotations
 
@@ -63,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import energy, migration, network, scheduling
+from repro_torch.core.streaming import StreamChunkRecord, StreamRun
 from repro_torch.core.migration import Migration
 from repro_torch.core.network import wants_network
 from repro_torch.core.provisioning import (FIRST_FIT, alive_fleet,
@@ -70,18 +81,23 @@ from repro_torch.core.provisioning import (FIRST_FIT, alive_fleet,
                                            provision_pending)
 from repro_torch.core.scheduling import (HostPlan, Lanes, host_plan,
                                          host_sums, lane_axis, lane_min,
-                                         lanes_of)
+                                         lanes_of, refresh_slots,
+                                         stream_lanes)
 from repro_torch.core.segments import pairwise_sum
 from repro_torch.core.state import (CL_CREATED, CL_DONE, CL_FAILED,
                                     EV_HOST_FAIL, EV_HOST_RECOVER, EV_NONE,
                                     EV_VM_CREATE, EV_VM_DESTROY, INF,
                                     MIG_OFF, MIG_THRESHOLD, NET_STAGE_OUT,
                                     VM_ACTIVE, VM_DESTROYED, VM_EMPTY,
-                                    VM_PENDING, DatacenterState, map_tensors,
+                                    VM_PENDING, ArrivalStream,
+                                    DatacenterState, StreamState,
+                                    make_stream_states, map_tensors,
                                     tensor_leaves, with_leaves)
 
 __all__ = ["step", "run", "run_stats", "run_trace", "batched_run",
-           "batched_run_stats", "RunStats", "StepRecord",
+           "batched_run_stats", "run_stream", "run_stream_stats",
+           "batched_run_stream", "RunStats", "StepRecord",
+           "StreamChunkRecord",
            "apply_due_events", "wants_dynamic", "wants_network",
            "wants_elastic", "wants_probes"]
 
@@ -125,6 +141,7 @@ class RunStats(NamedTuple):
     n_leap: int         # leap iterations evaluated, masked ones included
     n_blocks: int       # host checks
     n_plans: int        # host plans built (after placements moved)
+    n_passes: int = 0   # admission passes evaluated (streamed runs)
 
 
 class _Passes(NamedTuple):
@@ -316,6 +333,18 @@ def _arrivals(dc: DatacenterState) -> torch.Tensor:
                                               INF)))
 
 
+def _with_stream(arrive: torch.Tensor, dc: DatacenterState, next_arrival
+                 ) -> torch.Tensor:
+    """``arrive`` with a stream's next unadmitted arrival (f32[B] or
+    None) as an absolute arrival.  A backlogged one (submit at or
+    before the clock, the window full) is no event: a completion frees
+    a slot first, and the next admission pass takes it."""
+    if next_arrival is None:
+        return arrive
+    return torch.minimum(arrive, torch.where(next_arrival > dc.time,
+                                             next_arrival, INF))
+
+
 def _commit(dc: DatacenterState, lanes: Lanes, plan: HostPlan, rates,
             finish_dt, dt, t_next, *, stamp_start: bool,
             passes: _Passes = _STATIC, flows=None):
@@ -445,12 +474,16 @@ def _quiet(new: DatacenterState, rates, lanes: Lanes, plan: HostPlan
 
 
 def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
-          passes: _Passes = _STATIC, after=None) -> _Step:
+          passes: _Passes = _STATIC, after=None, next_arrival=None
+          ) -> _Step:
     """One full step of every lane, provisioning and the event table
     excluded.  ``after`` (bool[B]) marks lanes whose migration was just
     applied: their policy's answer is the cascade's ``trig_next``,
     which bounds the step's dt at 0; on the other lanes a trigger holds
-    the lane (``_Step.hold``) for the boundary to apply."""
+    the lane (``_Step.hold``) for the boundary to apply.
+    ``next_arrival`` (f32[B]) is each streamed lane's next unadmitted
+    arrival; a backlog (one at or before the new clock) keeps the leap's
+    window shut, since any completion would make its admission due."""
     if passes.network:
         dc = network.lane_advance_phases(dc, lanes)
     phased = dc
@@ -460,7 +493,7 @@ def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
     # per-slot completion deltas: the kernel's quotient elementwise
     finish_dt = torch.where(rates > 0.0,
                             cl.remaining / torch.clamp(rates, min=1e-30), INF)
-    arrive = _arrivals(dc)
+    arrive = _with_stream(_arrivals(dc), dc, next_arrival)
     dt_other = dt_finish
     hold = mig = trig_next = None
     if passes.dynamic:
@@ -495,6 +528,8 @@ def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
                  & (new.cloudlets.state == CL_CREATED)).any(dim=-1)
     opens = (active & (dt_arr > dt_other) & (arrive > new.time)
              & survivors)
+    if next_arrival is not None:
+        opens &= next_arrival > new.time
     if passes.dynamic:
         opens &= ~mig_done.any(dim=-1)
         if passes.migration:
@@ -527,14 +562,15 @@ def _drain_safe(n_pre, post: DatacenterState, lanes: Lanes,
 
 
 def _body(dc: DatacenterState, lanes: Lanes, plan: HostPlan, r0, n_now,
-          go, passes: _Passes = _STATIC):
+          go, passes: _Passes = _STATIC, next_arrival=None):
     """One leap iteration on the lanes ``go``: the next completion (or
     copy completion) on the frozen rates ``r0`` ([B, C]), re-masked
     (survivors keep their exact f32 rate, guaranteed by ``_drain_safe``;
     finished ones drop out).  It commits only when no arrival or event
     comes first and it is drain-safe; a finished copy commits and closes
     the window (the VM resumes, rates grow).  ``n_now`` is
-    ``run_counts`` of ``dc``.  Returns (state, committed bool[B], still
+    ``run_counts`` of ``dc``; a streamed lane's ``next_arrival`` closes
+    the window before it.  Returns (state, committed bool[B], still
     open bool[B], ``run_counts`` of the candidate)."""
     cl = dc.cloudlets
     r = torch.where((cl.state == CL_CREATED) & (cl.remaining > 0.0), r0,
@@ -542,7 +578,7 @@ def _body(dc: DatacenterState, lanes: Lanes, plan: HostPlan, r0, n_now,
     finish_dt = torch.where(r > 0.0,
                             cl.remaining / torch.clamp(r, min=1e-30), INF)
     dt_o = lane_min(finish_dt)
-    arr = _arrivals(dc)
+    arr = _with_stream(_arrivals(dc), dc, next_arrival)
     if passes.dynamic:
         dt_dyn, arr_ev = _dynamic_deltas(dc, None)
         dt_o = torch.minimum(dt_o, dt_dyn)
@@ -666,12 +702,19 @@ def _passes_of(dc: DatacenterState) -> _Passes:
 # Entry points
 # ---------------------------------------------------------------------------
 def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
-         leap: bool = False, leap_budget=None, leap_horizon=None
+         leap: bool = False, leap_budget=None, leap_horizon=None,
+         streaming: bool = False, next_arrival=None
          ) -> tuple[DatacenterState, StepRecord]:
     """Process one simulation event; with ``leap``, also the run of
     completions that follows it while no decision can intervene (at most
     ``leap_budget`` more, none at or past ``leap_horizon``), counted in
     ``StepRecord.n_events``.
+
+    ``streaming``: the cloudlet block is a window of recycled slots
+    (``run_stream``), read through its regrouped view, and
+    ``next_arrival`` (the submit time of the stream's next unadmitted
+    arrival, or INF) joins the event queue as an absolute arrival;
+    admission itself happens between steps.
 
     In order, as the JAX engine's ``step``: due event rows, provisioning,
     staging phases, rates, at most one migration (and the rates again),
@@ -682,8 +725,12 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
     _require_supported(dc)
     passes = _passes_of(dc)
     batch = lane_axis(dc)
-    lanes = lanes_of(batch)
+    lanes = lanes_of(batch, streaming=streaming)
     dev = batch.time.device
+    nxt = None
+    if streaming and next_arrival is not None:
+        nxt = torch.as_tensor(next_arrival, dtype=torch.float32,
+                              device=dev).reshape(1)
     if passes.dynamic and bool(_event_due(batch)[0]):
         batch = _apply_events(batch, lanes, host_plan(batch, lanes),
                               torch.ones((1,), dtype=torch.bool, device=dev))
@@ -692,11 +739,11 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
             map_tensors(lambda t: t[0], batch), provision_policy))
     plan = host_plan(batch, lanes)
     after = torch.zeros((1,), dtype=torch.bool, device=dev)
-    st = _full(batch, lanes, plan, passes, after)
+    st = _full(batch, lanes, plan, passes, after, nxt)
     if st.hold is not None and bool(st.hold[0]):
         batch = migration.lane_apply(st.phased, st.mig)
         plan = host_plan(batch, lanes)
-        st = _full(batch, lanes, plan, passes, ~after)
+        st = _full(batch, lanes, plan, passes, ~after, nxt)
     new, active, rates = st.new, st.active, st.rates
     n_events = active.to(torch.int32)
     if leap:
@@ -713,7 +760,7 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
             for _ in range(BLOCK):
                 go = window & (extra < budget) & (new.time < horizon)
                 new, do, window, n_post = _body(new, lanes, plan, rates,
-                                                n_now, go, passes)
+                                                n_now, go, passes, nxt)
                 extra = extra + do.to(torch.int32)
                 n_now = _where_lanes(do, n_post, n_now, lanes)
         n_events = n_events + extra
@@ -743,14 +790,18 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
 
 def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
            provision_policy: int, leap: bool, block: int,
-           passes: _Passes) -> tuple[DatacenterState, RunStats]:
+           passes: _Passes, stream: StreamRun | None = None
+           ) -> tuple[DatacenterState, RunStats]:
     """Run every lane of ``batch`` to quiescence (see the module's
     docstring).  ``passes`` are the most a run may need; each block runs
-    only those some live lane still needs."""
+    only those some live lane still needs.  With ``stream``, every lane
+    is a streamed lane: it lives while its chunks last (JAX's chunk
+    loop, ``StreamRun``), not until its first inactive step, and
+    ``max_steps`` and ``horizon`` give way to ``max_steps_per_chunk``."""
     if block < 1:
         raise ValueError("block must be >= 1")
     dev = batch.time.device
-    lanes = lanes_of(batch)
+    lanes = lanes_of(batch, streaming=stream is not None)
     nb = lanes.n_lanes
     hor = torch.clamp(torch.tensor(horizon, dtype=torch.float32,
                                    device=dev), max=INF)
@@ -764,20 +815,36 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
                      device=dev)
     n_now = torch.zeros((nb * lanes.n_vms,), dtype=torch.int32, device=dev)
     plan = None
+    nxt = None          # each streamed lane's next unadmitted arrival
     steps_len, leap_len, kind = block, 1, None
     n_steps = n_leap = n_blocks = n_plans = 0
+
+    def admit(batch, lanes, plan, mask, ends=False):
+        # the admission pass, then the regrouped view it changed
+        batch = stream.begin(batch, mask, ends=ends)
+        lanes = stream_lanes(batch, lanes)
+        if plan is not None:
+            plan = refresh_slots(batch, plan, lanes)
+        return batch, lanes, plan, stream.next_arrival()
+
     while True:
-        live = alive & (n < max_steps) & (batch.time < hor)
+        if stream is None:
+            live = alive & (n < max_steps) & (batch.time < hor)
+        else:
+            live = stream.live()
         rows = [live, live & pending_due(batch), window, used, held]
         if passes.dynamic:
             rows += [live & _event_due(batch), live & _lane_dynamic(batch)]
         if passes.network:
             rows.append(live & (batch.net.enabled == 1))
+        if stream is not None:
+            rows.append(live & stream.ending())
         read = torch.stack([r.to(torch.int32) for r in rows]).tolist()
         live_h, due_h, window_h, used_h, held_h = read[:5]
         ev_h = read[5] if passes.dynamic else [0]
         dyn_now = passes.dynamic and any(read[6])
-        net_now = passes.network and any(read[-1])
+        net_now = passes.network and any(read[5 + 2 * passes.dynamic])
+        ends_h = read[-1] if stream is not None else [0]
         bp = _Passes(dyn_now, passes.migration and dyn_now, net_now)
         n_blocks += 1
         most = max(used_h)
@@ -793,8 +860,12 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
             used = torch.zeros_like(used)
             for _ in range(leap_len):
                 go = window & (n < max_steps) & (batch.time < hor)
+                if stream is not None:
+                    go &= stream.budget()
                 batch, do, window, n_post = _body(batch, lanes, plan, r0,
-                                                  n_now, go, bp)
+                                                  n_now, go, bp, nxt)
+                if stream is not None:
+                    stream.leap(do)
                 n = n + do.to(torch.int32)
                 used = used + do.to(torch.int32)
                 n_now = _where_lanes(do, n_post, n_now, lanes)
@@ -806,7 +877,18 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
         if not any(live_h):
             break
         # the passes that move VMs: due event rows, the held migrations,
-        # then provisioning; the plan is rebuilt once after them
+        # then provisioning; the plan is rebuilt once after them.  In an
+        # instant, admission comes first: the lanes they act on finish
+        # their pass before them, as do the lanes whose chunk ends here
+        if stream is not None and (any(ev_h) or any(due_h) or any(ends_h)):
+            waits = torch.tensor([e or d or x for e, d, x in zip(
+                ev_h, due_h, ends_h)], device=dev)
+            while True:
+                batch, lanes, plan, nxt = admit(batch, lanes, plan,
+                                                live & ~window, ends=True)
+                n_blocks += 1
+                if not bool((waits & stream.admitting()).any()):
+                    break
         moved = False
         if any(ev_h):
             if plan is None:
@@ -832,8 +914,12 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
             n_plans += 1
         used = torch.zeros_like(used)
         for i in range(steps_len):
-            go = (alive & (n < max_steps) & (batch.time < hor)
-                  & ~pending_due(batch) & ~window)
+            if stream is None:
+                go = alive & (n < max_steps) & (batch.time < hor)
+            else:
+                batch, lanes, plan, nxt = admit(batch, lanes, plan, ~window)
+                go = stream.ready()
+            go = go & ~pending_due(batch) & ~window
             if bp.dynamic:
                 go &= ~_event_due(batch) & ~held
             if i and i % PEEK == 0:
@@ -841,7 +927,7 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
                 n_blocks += 1
                 if not bool(go.any()):
                     break
-            st = _full(batch, lanes, plan, bp, after)
+            st = _full(batch, lanes, plan, bp, after, nxt)
             commit = go
             if st.hold is not None:
                 hold = go & st.hold
@@ -856,6 +942,8 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
                                            networked=bp.network)
                 gate = (commit & st.opens & safe & (n + done < max_steps)
                         & (st.new.time < hor))
+                if stream is not None:
+                    gate &= stream.n_chunk + done < stream.max_steps
                 window = window | gate
                 r0 = torch.where(gate[:, None], st.rates, r0)
                 n_now = _where_lanes(gate, n_post, n_now, lanes)
@@ -868,11 +956,14 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
             n_full = n_full + done
             used = used + go.to(torch.int32)
             alive = torch.where(commit, st.active, alive)
+            if stream is not None:
+                stream.commit(commit, st.active, done)
             n_steps += 1
         kind = "step"
     n_events, full = torch.stack([n.sum(), n_full.sum()]).tolist()
     return batch, RunStats(n_events=n_events, n_full=full, n_steps=n_steps,
-                           n_leap=n_leap, n_blocks=n_blocks, n_plans=n_plans)
+                           n_leap=n_leap, n_blocks=n_blocks, n_plans=n_plans,
+                           n_passes=stream.n_passes if stream else 0)
 
 
 def run_stats(dc: DatacenterState, *, max_steps: int = 1_000_000,
@@ -955,3 +1046,72 @@ def run_trace(dc: DatacenterState, *, num_steps: int,
         dc, rec = step(dc, provision_policy=provision_policy)
         records.append(rec)
     return dc, StepRecord(*(torch.stack(leaf) for leaf in zip(*records)))
+
+
+# ---------------------------------------------------------------------------
+# Streamed arrivals (core/streaming.py)
+# ---------------------------------------------------------------------------
+def batched_run_stream(batch: DatacenterState, streams: ArrivalStream, *,
+                       reservoir: int = 64,
+                       provision_policy: int = FIRST_FIT,
+                       leap: bool | None = None,
+                       max_steps_per_chunk: int = 4096, block: int = BLOCK
+                       ) -> tuple[DatacenterState, StreamState,
+                                  StreamChunkRecord, RunStats]:
+    """``run_stream`` on every lane of a batch: ``batch``'s cloudlet
+    blocks are windows, ``streams`` a stacked [B, K, M] queue
+    (``sweep.stack_streams``).  Returns (final state, ``StreamState``,
+    per-chunk records [B, K], ``RunStats``); lane i equals the single
+    ``run_stream`` of its scenario bit for bit."""
+    _require_supported(batch)
+    n_vms = batch.vms.req_pes.shape[-1]
+    n_slots = batch.cloudlets.vm.shape[-1]
+    run = StreamRun(streams, make_stream_states(streams, n_vms, n_slots,
+                                                reservoir=reservoir),
+                    n_slots=n_slots, max_steps_per_chunk=max_steps_per_chunk)
+    out, stats = _drive(batch, max_steps=2 ** 31 - 1, horizon=INF,
+                        provision_policy=provision_policy,
+                        leap=_LEAP_DEFAULT if leap is None else leap,
+                        block=block, passes=_passes_of(batch), stream=run)
+    st, recs = run.finish(out)
+    return out, st, recs, stats
+
+
+def run_stream_stats(dc: DatacenterState, stream: ArrivalStream, *,
+                     reservoir: int = 64, provision_policy: int = FIRST_FIT,
+                     leap: bool | None = None,
+                     max_steps_per_chunk: int = 4096, block: int = BLOCK
+                     ) -> tuple[DatacenterState, StreamState,
+                                StreamChunkRecord, RunStats]:
+    """``run_stream``, also returning what it did (``RunStats``)."""
+    out, st, recs, stats = batched_run_stream(
+        lane_axis(dc), map_tensors(lambda t: t.unsqueeze(0), stream),
+        reservoir=reservoir, provision_policy=provision_policy, leap=leap,
+        max_steps_per_chunk=max_steps_per_chunk, block=block)
+    one = lambda tree: map_tensors(lambda t: t[0], tree)
+    return (one(out), one(st), StreamChunkRecord(*(r[0] for r in recs)),
+            stats)
+
+
+def run_stream(dc: DatacenterState, stream: ArrivalStream, *,
+               reservoir: int = 64, provision_policy: int = FIRST_FIT,
+               leap: bool | None = None, max_steps_per_chunk: int = 4096,
+               block: int = BLOCK
+               ) -> tuple[DatacenterState, StreamState, StreamChunkRecord]:
+    """Run a streamed-arrival scenario to quiescence.
+
+    ``dc`` carries the infrastructure and an empty window
+    (``state.make_window(W)``), ``stream`` the workload as chunked
+    arrivals (``state.make_stream``).  W bounds the cloudlets in flight
+    (arrivals past it queue, FCFS); the chunk size changes no result.
+    Each chunk runs until its rows are admitted and the clock reaches
+    the next chunk's head, an inactive step, or ``max_steps_per_chunk``
+    events, as in the JAX engine.  Returns (final state,
+    ``StreamState``, per-chunk ``StreamChunkRecord`` [K]): the workload's
+    answers are in ``StreamState.stats``, energy and costs on the state.
+    Raises ``NotImplementedError`` for an elastic or probed scenario.
+    """
+    return run_stream_stats(dc, stream, reservoir=reservoir,
+                            provision_policy=provision_policy, leap=leap,
+                            max_steps_per_chunk=max_steps_per_chunk,
+                            block=block)[:3]

@@ -11,17 +11,20 @@ batch of one).  Hosts, VMs and cloudlets are flattened to [B*H], [B*V]
 and [B*C], lane b's VM ids offset by b*V and its host ids by b*H, so
 every sort, sum and kernel launch runs once for the whole batch:
 
-  * ``Lanes`` holds what a run keeps from start to end: each slot's
-    global VM, the rows of the flat cloudlet axis (``row_index``) and
-    each row's task policy;
+  * ``Lanes`` holds each slot's global VM, the rows of the flat
+    cloudlet axis (``row_index``) and each row's task policy.  A
+    resident run builds it once; a streamed window, whose admissions
+    recycle slots across VMs, rebuilds it on the device after every
+    admission pass (``stream_lanes``) through a regrouped view ``perm``:
+    the slots sorted by (lane, VM, ``rank_in_vm``);
   * ``HostPlan`` holds what changes only when VMs are placed: the VMs
     sorted by (host, creation time, slot), each VM's demand and each
     cloudlet's host.
 
 Level 2 runs through the ``simstep`` kernel, which reads the flat
 grouped-by-VM cloudlet axis directly (each VM's slots are one contiguous
-run) with a task policy per row: one launch per pass, whatever the
-number of lanes.
+run; on a streamed window, the regrouped view) with a task policy per
+row: one launch per pass, whatever the number of lanes.
 
 Sums of floats per host and per lane run in a fixed order
 (``segments.run_scan``, ``segments.pairwise_sum``), never through
@@ -37,12 +40,13 @@ import torch
 from repro_torch.core.segments import rounds_for, run_scan, run_starts
 from repro_torch.core.state import (CL_CREATED, INF, NET_RUN, SPACE_SHARED,
                                     VM_ACTIVE, DatacenterState, map_tensors)
-from repro_torch.kernels.simstep.ops import (RowIndex, row_index,
-                                             simstep_ragged)
+from repro_torch.kernels.simstep.ops import (RowIndex, padded_row_index,
+                                             row_index, simstep_ragged)
 
 __all__ = ["cloudlet_runnable", "vm_has_work", "host_level_shares",
            "vm_level_rates", "cloudlet_rates", "rates_and_dt", "Lanes",
-           "lanes_of", "HostPlan", "host_plan", "host_sums",
+           "lanes_of", "stream_lanes", "HostPlan", "host_plan",
+           "refresh_slots", "host_sums",
            "host_consumed", "vm_sums", "lane_axis", "lane_rates",
            "lane_min", "lane_runnable", "run_counts"]
 
@@ -54,8 +58,11 @@ def lane_axis(dc: DatacenterState) -> DatacenterState:
 
 @dataclasses.dataclass
 class Lanes:
-    """What a batched run keeps from start to end (``cl.vm`` and the
-    policies never change during a run)."""
+    """The flat axes of a batched run.  A resident run keeps them from
+    start to end (its ``cl.vm`` never changes); a streamed one rebuilds
+    the slot fields after each admission pass (``stream_lanes``), and
+    ``index`` and ``slot_rel`` then describe the regrouped view: slot
+    ``perm[p]`` at position ``p``."""
     n_lanes: int
     n_hosts: int                # per lane
     n_vms: int
@@ -68,10 +75,24 @@ class Lanes:
     slot_rel: torch.Tensor      # i64[B*C] slot - its row's first slot (0
     #                             for a slot of no row)
     row_rounds: int             # run_scan rounds for the longest row
+    perm: torch.Tensor | None = None    # i64[B*C] the regrouped view's
+    #                                     slot order (streamed windows)
 
 
-def lanes_of(dc: DatacenterState) -> Lanes:
-    """``Lanes`` of a batched state (two host syncs)."""
+def lanes_of(dc: DatacenterState, *, streaming: bool = False) -> Lanes:
+    """``Lanes`` of a batched state (two host syncs; none when
+    ``streaming``, whose slot fields ``stream_lanes`` builds)."""
+    if streaming:
+        b, c = dc.cloudlets.vm.shape
+        v = dc.vms.req_pes.shape[1]
+        empty = torch.zeros((0,), dtype=torch.long, device=dc.time.device)
+        return stream_lanes(dc, Lanes(
+            n_lanes=b, n_hosts=dc.hosts.num_pes.shape[1], n_vms=v,
+            n_cloudlets=c, slot_vm=empty, index=None,
+            row_policy=dc.task_policy.to(torch.int32).repeat_interleave(v),
+            space_rows=(dc.vm_policy == SPACE_SHARED).repeat_interleave(v),
+            reserve_rows=(dc.reserve_pes == 1).repeat_interleave(v),
+            slot_rel=empty, row_rounds=rounds_for(c)))
     b, c = dc.cloudlets.vm.shape
     v = dc.vms.req_pes.shape[1]
     h = dc.hosts.num_pes.shape[1]
@@ -95,6 +116,38 @@ def lanes_of(dc: DatacenterState) -> Lanes:
         slot_rel=torch.where(row >= 0, torch.arange(b * c, device=dev)
                              - first, 0),
         row_rounds=rounds_for(longest))
+
+
+def stream_lanes(dc: DatacenterState, lanes: Lanes) -> Lanes:
+    """``lanes`` with its slot fields rebuilt for a streamed window, on
+    the device and with no host read.
+
+    ``perm`` sorts the slots by (lane, VM, ``rank_in_vm``), slots of no
+    VM last.  Admission gives each VM's arrivals strictly increasing
+    ranks, so there are no ties, and along each row of the sorted axis
+    the kernel's running count of runnable slots is the FCFS rank the
+    JAX engine counts pairwise.  The row index is padded
+    (``padded_row_index``), and ``row_rounds`` is the bound the window
+    size gives, not a read of the longest row."""
+    b, c, v = lanes.n_lanes, lanes.n_cloudlets, lanes.n_vms
+    dev = dc.time.device
+    cl = dc.cloudlets
+    vm = cl.vm.long()
+    base = torch.arange(b, device=dev)[:, None] * v
+    in_row = (vm >= 0) & (vm < v)
+    slot_vm = (torch.clamp(vm, 0, max(v - 1, 0)) + base).reshape(-1)
+    group = torch.where(in_row, vm + base, b * v).reshape(-1)
+    key = group * (1 << 31) + torch.where(
+        in_row, cl.rank_in_vm.long(), 0).reshape(-1)
+    perm = torch.argsort(key, stable=True)
+    row = group[perm]
+    index = padded_row_index(
+        torch.where(row < b * v, row, -1).to(torch.int32), b * v)
+    pos = torch.arange(b * c, device=dev)
+    first = index.start.long()[torch.clamp(row, max=max(b * v - 1, 0))]
+    return dataclasses.replace(
+        lanes, slot_vm=slot_vm, index=index, perm=perm,
+        slot_rel=torch.where(row < b * v, pos - first, 0))
 
 
 @dataclasses.dataclass
@@ -162,6 +215,16 @@ def host_plan(dc: DatacenterState, lanes: Lanes) -> HostPlan:
         slot_mips_pe=mips_pe[slot_host])
 
 
+def refresh_slots(dc: DatacenterState, plan: HostPlan, lanes: Lanes
+                  ) -> HostPlan:
+    """``plan`` with its slot fields read again through ``lanes.slot_vm``
+    (a streamed window's admissions move slots between VMs)."""
+    slot_host = plan.vm_host[lanes.slot_vm]
+    return dataclasses.replace(
+        plan, slot_host=slot_host,
+        slot_mips_pe=dc.hosts.mips_per_pe.reshape(-1)[slot_host])
+
+
 def host_sums(per_vm: torch.Tensor, plan: HostPlan, n_hosts: int
               ) -> torch.Tensor:
     """[B*H] sum of ``per_vm`` ([B*V], in VM order) over each host's VMs,
@@ -176,6 +239,8 @@ def vm_sums(per_slot: torch.Tensor, lanes: Lanes) -> torch.Tensor:
     """[B*V] sum of ``per_slot`` ([B*C]) over each VM's slots, in a fixed
     order (a doubling scan along each row, ``segments.run_scan``), so a
     lane gives the same bits alone or in a batch."""
+    if lanes.perm is not None:
+        per_slot = per_slot[lanes.perm]
     ran = run_scan(per_slot, lanes.slot_rel, lanes.row_rounds)
     index = lanes.index
     last = torch.clamp(index.start.long() + index.length.long() - 1, min=0)
@@ -276,11 +341,18 @@ def _level1(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
 def _level2(dc: DatacenterState, lanes: Lanes, vm_capacity: torch.Tensor,
             runnable: torch.Tensor):
     """(rates f32[B*C], dt_min f32[B*V]) through the simstep kernel: one
-    launch for every lane."""
-    return simstep_ragged(dc.cloudlets.remaining.reshape(-1), runnable,
-                          lanes.index, vm_capacity,
-                          dc.vms.req_pes.reshape(-1).to(torch.float32),
-                          lanes.row_policy)
+    launch for every lane.  A streamed window is read through its
+    regrouped view, and the rates are scattered back to the slots."""
+    remaining = dc.cloudlets.remaining.reshape(-1)
+    perm = lanes.perm
+    if perm is not None:
+        remaining, runnable = remaining[perm], runnable[perm]
+    rates, dt_min = simstep_ragged(
+        remaining, runnable, lanes.index, vm_capacity,
+        dc.vms.req_pes.reshape(-1).to(torch.float32), lanes.row_policy)
+    if perm is not None:
+        rates = torch.empty_like(rates).index_copy_(0, perm, rates)
+    return rates, dt_min
 
 
 def lane_min(x: torch.Tensor) -> torch.Tensor:
@@ -307,9 +379,9 @@ def lane_rates(dc: DatacenterState, lanes: Lanes, plan: HostPlan, *,
 # ---------------------------------------------------------------------------
 # One state (a batch of one lane)
 # ---------------------------------------------------------------------------
-def _one(dc: DatacenterState):
+def _one(dc: DatacenterState, streaming: bool = False):
     batch = lane_axis(dc)
-    lanes = lanes_of(batch)
+    lanes = lanes_of(batch, streaming=streaming)
     return batch, lanes
 
 
@@ -340,27 +412,32 @@ def host_level_shares(dc: DatacenterState, eligible: torch.Tensor
 
 
 def vm_level_rates(dc: DatacenterState, vm_capacity: torch.Tensor,
-                   runnable: torch.Tensor) -> torch.Tensor:
+                   runnable: torch.Tensor, *,
+                   streaming: bool = False) -> torch.Tensor:
     """f32[C] MIPS given to each cloudlet from its VM's granted capacity.
 
-    SPACE_SHARED: the first ``req_pes`` runnable cloudlets (by slot order)
+    SPACE_SHARED: the first ``req_pes`` runnable cloudlets (by slot order;
+    by ``rank_in_vm`` when ``streaming``, on a window of recycled slots)
     each get one virtual PE.  TIME_SHARED: capacity / max(n_runnable,
     req_pes).
     """
-    batch, lanes = _one(dc)
+    batch, lanes = _one(dc, streaming)
     return _level2(batch, lanes, vm_capacity, runnable)[0]
 
 
-def rates_and_dt(dc: DatacenterState, *, networked: bool = False):
+def rates_and_dt(dc: DatacenterState, *, networked: bool = False,
+                 streaming: bool = False):
     """(rates f32[C], dt_finish f32[]) — the full two-level pass and the
     earliest completion delta (INF when nothing runs)."""
-    batch, lanes = _one(dc)
+    batch, lanes = _one(dc, streaming)
     rates, dt, _ = lane_rates(batch, lanes, host_plan(batch, lanes),
                               networked=networked)
     return rates[0], dt[0]
 
 
-def cloudlet_rates(dc: DatacenterState, *,
-                   networked: bool = False) -> torch.Tensor:
-    """f32[C] — execution rate (MIPS) of every cloudlet at ``dc.time``."""
-    return rates_and_dt(dc, networked=networked)[0]
+def cloudlet_rates(dc: DatacenterState, *, networked: bool = False,
+                   streaming: bool = False) -> torch.Tensor:
+    """f32[C] — execution rate (MIPS) of every cloudlet at ``dc.time``;
+    ``streaming`` reads a window of recycled slots through its regrouped
+    view (FCFS by ``rank_in_vm``)."""
+    return rates_and_dt(dc, networked=networked, streaming=streaming)[0]

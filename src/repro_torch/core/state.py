@@ -6,7 +6,10 @@ as plain dataclasses of tensors: every array is 1-D over its entity axis
 field names, dtypes and codes are those of the JAX package, so a state
 converts leaf by leaf in either direction (``core/convert.py``).
 
-The stream and autoscaler builders come with the slices that use them.
+Streamed scenarios (``engine.run_stream``) carry an arrival queue
+(``ArrivalStream``) beside a window of recycled cloudlet slots
+(``make_window``); their running aggregates live in ``StreamState``.
+The autoscaler builders come with the slice that uses them.
 """
 from __future__ import annotations
 
@@ -282,6 +285,141 @@ def make_cloudlets(vm, length, submit_time=0.0, file_size=0.0,
         net_phase=torch.full((c,), NET_PRE, dtype=torch.int32, device=dev),
         net_remaining=torch.zeros((c,), dtype=torch.float32, device=dev),
         net_lat=torch.zeros((c,), dtype=torch.float32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Streaming arrivals (engine.run_stream): a bounded window of W recycled
+# cloudlet slots fed by a chunked arrival queue, so a lane's cloudlet axis
+# is W, not the trace length.  The queue is sorted by submit time when it
+# is built (NumPy), padded with vm = -1 / submit = INF rows in its last
+# chunk only; due arrivals enter the lowest free slots in arrival order,
+# and the occupants they displace fold into ``StreamStats``.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class ArrivalStream:
+    """Chunked arrival queue: K chunks of M rows (f32/i32[K, M]).
+
+    Rows are sorted by (submit time, original index); padding rows
+    (``vm == -1``, ``submit == INF``) sit in the final chunk only, so a
+    chunk's first row tells whether it carries arrivals.  Every ``vm``
+    must name a non-EMPTY VM slot (or one an EV_VM_CREATE row brings to
+    life before the arrival); an arrival for a FAILED or DESTROYED VM
+    enters the window already failed.
+    """
+    vm: torch.Tensor            # i32[K, M]  owning VM slot (-1 = padding)
+    length: torch.Tensor        # f32[K, M]  MI
+    file_size: torch.Tensor     # f32[K, M]  MB staged in
+    output_size: torch.Tensor   # f32[K, M]  MB staged out
+    submit: torch.Tensor        # f32[K, M]  seconds (INF = padding)
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """Running aggregates over retired cloudlets.
+
+    The reservoir samples arrival ``sid`` where ``sid % stride == 0``
+    into row ``sid // stride``: a subset fixed by the trace alone, which
+    the f64 oracle reproduces.
+    """
+    n_retired: torch.Tensor     # i32[]  DONE cloudlets folded out
+    n_failed: torch.Tensor      # i32[]  FAILED cloudlets folded out
+    makespan: torch.Tensor      # f32[]  latest finish over retired DONE
+    sum_exec: torch.Tensor      # f32[]  sum of finish - start (DONE)
+    sum_response: torch.Tensor  # f32[]  sum of finish - submit (DONE)
+    sum_len: torch.Tensor       # f32[]  MI completed
+    per_vm_done: torch.Tensor   # i32[V] completed cloudlets per VM
+    stride: torch.Tensor        # i32[]  reservoir stride
+    res_sid: torch.Tensor       # i32[R] sampled arrival ids (-1 = unfilled)
+    res_start: torch.Tensor     # f32[R] their start times
+    res_finish: torch.Tensor    # f32[R] their finish times
+
+
+@dataclasses.dataclass
+class StreamState:
+    """What a streamed lane carries besides its ``DatacenterState``."""
+    cursor: torch.Tensor          # i32[]  next unadmitted row of its chunk
+    next_sid: torch.Tensor        # i32[]  arrivals admitted so far
+    vm_rank: torch.Tensor         # i32[V] per-VM admission counter
+    slot_sid: torch.Tensor        # i32[W] arrival id in each slot (-1)
+    peak_occupancy: torch.Tensor  # i32[]  most in-flight cloudlets seen
+    max_backlog: torch.Tensor     # i32[]  most due, unadmitted rows seen
+    stats: StreamStats
+
+
+def make_stream(vm, length, submit_time, *, file_size=0.0, output_size=0.0,
+                chunk: int = 64, device=None) -> ArrivalStream:
+    """A chunked arrival queue, sorted by (submit time, index) with a
+    stable NumPy sort and padded in its final chunk with inert
+    ``vm = -1 / submit = INF`` rows."""
+    dev = resolve_device(device)
+    as_np = lambda x: (x.detach().cpu().numpy()
+                       if isinstance(x, torch.Tensor) else x)
+    vm = np.asarray(as_np(vm), np.int32).reshape(-1)
+    n = vm.shape[0]
+    f = lambda x: np.broadcast_to(
+        np.asarray(as_np(x), np.float32), (n,)).astype(np.float32)
+    length, submit = f(length), f(submit_time)
+    fs, os_ = f(file_size), f(output_size)
+    order = np.lexsort((np.arange(n), submit))
+    k = max(1, -(-n // chunk))          # ceil; at least one chunk
+    pad = k * chunk - n
+    pad_i = lambda a, v: torch.from_numpy(np.concatenate(
+        [a[order], np.full(pad, v, a.dtype)]).reshape(k, chunk)).to(dev)
+    return ArrivalStream(
+        vm=pad_i(vm, -1), length=pad_i(length, 0.0),
+        file_size=pad_i(fs, 0.0), output_size=pad_i(os_, 0.0),
+        submit=pad_i(submit, np.float32(INF)))
+
+
+def make_window(n_slots: int, *, device=None) -> CloudletState:
+    """W empty cloudlet slots: the cloudlet block of a streamed lane."""
+    dev = resolve_device(device)
+    z = lambda: torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+    i = lambda x: torch.full((n_slots,), x, dtype=torch.int32, device=dev)
+    return CloudletState(
+        vm=i(-1), length=z(), remaining=z(), file_size=z(),
+        output_size=z(), submit_time=z(),
+        start_time=torch.full((n_slots,), -1.0, device=dev),
+        finish_time=torch.full((n_slots,), INF, device=dev),
+        rank_in_vm=i(0), state=i(CL_EMPTY), net_phase=i(NET_PRE),
+        net_remaining=z(), net_lat=z())
+
+
+def make_stream_states(streams: ArrivalStream, n_vms: int, n_slots: int, *,
+                       reservoir: int = 64) -> StreamState:
+    """The initial carry of each lane of a stacked [B, K, M] queue, on
+    its device, with no host read.
+
+    Each lane's reservoir stride is ``ceil(n_total / reservoir)`` of its
+    real arrival count, so the sampled subset depends on its trace
+    alone."""
+    dev = streams.vm.device
+    b = streams.vm.shape[0]
+    n_total = (streams.vm >= 0).reshape(b, -1).sum(dim=1)
+    r = max(reservoir, 1)
+    stride = torch.clamp((n_total + r - 1) // r, min=1).to(torch.int32)
+    zi = lambda *s: torch.zeros((b,) + s, dtype=torch.int32, device=dev)
+    zf = lambda: torch.zeros((b,), dtype=torch.float32, device=dev)
+    full = lambda n, x, dt: torch.full((b, n), x, dtype=dt, device=dev)
+    stats = StreamStats(
+        n_retired=zi(), n_failed=zi(), makespan=zf(), sum_exec=zf(),
+        sum_response=zf(), sum_len=zf(), per_vm_done=zi(n_vms),
+        stride=stride, res_sid=full(reservoir, -1, torch.int32),
+        res_start=full(reservoir, -1.0, torch.float32),
+        res_finish=full(reservoir, INF, torch.float32))
+    return StreamState(
+        cursor=zi(), next_sid=zi(), vm_rank=zi(n_vms),
+        slot_sid=full(n_slots, -1, torch.int32), peak_occupancy=zi(),
+        max_backlog=zi(), stats=stats)
+
+
+def make_stream_state(stream: ArrivalStream, n_vms: int, n_slots: int, *,
+                      reservoir: int = 64) -> StreamState:
+    """The initial carry of one streamed lane (``make_stream_states`` of
+    a batch of one)."""
+    one = map_tensors(lambda t: t.unsqueeze(0), stream)
+    return map_tensors(lambda t: t[0], make_stream_states(
+        one, n_vms, n_slots, reservoir=reservoir))
 
 
 def validate_cloudlet_order(vm_ids) -> bool:

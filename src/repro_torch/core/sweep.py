@@ -19,6 +19,12 @@ invalid, padded VMs ``VM_EMPTY``, padded cloudlets ``CL_EMPTY`` (with
 unpadded run on the real slots.  ``pad_batch`` pads the lane axis with
 whole inert scenarios, which quiesce on their first step.
 
+Streamed lanes (``run_stream_batch``, ``run_stream_grid``) stack their
+arrival queues to one [B, K, M] table (``stack_streams``, which pads
+ragged chunk counts with all-padding chunks) and run through
+``engine.batched_run_stream``: one admission pass and one simstep
+launch a full step for every lane.
+
 The sharded runners (``run_sharded`` and the mesh arguments) belong to
 the multi-device slice of the port and are not here.
 """
@@ -33,12 +39,16 @@ from repro_torch.core import engine
 from repro_torch.core.energy import energy_total_j
 from repro_torch.core.provisioning import FIRST_FIT
 from repro_torch.core.state import (CL_DONE, CL_EMPTY, INF, VM_EMPTY,
-                                    DatacenterState, map_tensors,
-                                    tensor_leaves, with_leaves)
+                                    ArrivalStream, DatacenterState,
+                                    StreamState, map_tensors, tensor_leaves,
+                                    with_leaves)
+from repro_torch.core.streaming import StreamChunkRecord
 
 __all__ = ["pad_scenario", "stack_scenarios", "run_batch", "run_grid",
            "run_grid_nested", "fuse_grid", "inert_lane", "pad_batch",
-           "policy_grid", "SweepSummary", "summarize_batch"]
+           "policy_grid", "SweepSummary", "summarize_batch",
+           "stack_streams", "inert_stream_lane", "run_stream_batch",
+           "run_stream_grid", "StreamSweepSummary", "summarize_stream"]
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +242,118 @@ def run_grid_nested(batch: DatacenterState, vm_policies, task_policies, *,
         outs.append(run_batch(cell, max_steps=max_steps,
                               provision_policy=provision_policy, leap=leap))
     return _stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# Streamed (windowed) lanes
+# ---------------------------------------------------------------------------
+def stack_streams(streams: Sequence[ArrivalStream]) -> ArrivalStream:
+    """Stack per-lane arrival queues into one [B, K, M] table.
+
+    Every stream must share the chunk width M; ragged chunk counts are
+    padded with all-padding chunks (``vm = -1``, ``submit = INF``),
+    whose records repeat the last chunk's final counts with no events,
+    as the JAX engine's one inactive step a chunk gives them.
+    """
+    if not streams:
+        raise ValueError("empty stream list")
+    ms = {s.vm.shape[1] for s in streams}
+    if len(ms) != 1:
+        raise ValueError(f"streams must share a chunk width; got {ms}")
+    kmax = max(s.vm.shape[0] for s in streams)
+    fills = dict(vm=-1, submit=INF)
+
+    def grow(s: ArrivalStream) -> ArrivalStream:
+        return dataclasses.replace(s, **{
+            f.name: _pad_axis0(getattr(s, f.name), kmax,
+                               fills.get(f.name, 0))
+            for f in dataclasses.fields(s)})
+
+    return _stack([grow(s) for s in streams])
+
+
+def inert_stream_lane(streams: ArrivalStream) -> ArrivalStream:
+    """One unbatched arrival queue of the width of ``streams``' with no
+    arrival: beside ``inert_lane``, a padded lane that commits nothing."""
+    lane = map_tensors(lambda t: torch.zeros_like(t[0]), streams)
+    return dataclasses.replace(lane, vm=torch.full_like(lane.vm, -1),
+                               submit=torch.full_like(lane.submit, INF))
+
+
+def run_stream_batch(batch: DatacenterState,
+                     streams: ArrivalStream | Sequence[ArrivalStream], *,
+                     reservoir: int = 64, provision_policy: int = FIRST_FIT,
+                     leap: bool | None = None,
+                     max_steps_per_chunk: int = 4096
+                     ) -> tuple[DatacenterState, StreamState,
+                                StreamChunkRecord]:
+    """``engine.run_stream`` over stacked windowed lanes.
+
+    ``batch`` is a stacked scenario batch whose cloudlet blocks are
+    windows (``state.make_window``); ``streams`` a stacked [B, K, M]
+    table, or a sequence that ``stack_streams`` stacks.  Each lane admits
+    and retires on its own; lane i equals ``engine.run_stream`` of its
+    scenario bit for bit.
+    """
+    if not isinstance(streams, ArrivalStream):
+        streams = stack_streams(list(streams))
+    return engine.batched_run_stream(
+        batch, streams, reservoir=reservoir,
+        provision_policy=provision_policy, leap=leap,
+        max_steps_per_chunk=max_steps_per_chunk)[:3]
+
+
+def run_stream_grid(batch: DatacenterState,
+                    streams: ArrivalStream | Sequence[ArrivalStream],
+                    vm_policies, task_policies, *, reservoir: int = 64,
+                    provision_policy: int = FIRST_FIT,
+                    leap: bool | None = None,
+                    max_steps_per_chunk: int = 4096
+                    ) -> tuple[DatacenterState, StreamState,
+                               StreamChunkRecord]:
+    """Streamed scenarios x policy grid as one fused [P*B] batch
+    (``fuse_grid`` for the states, a tile for the queues, which carry no
+    policy), reshaped to [P, B, ...]."""
+    if not isinstance(streams, ArrivalStream):
+        streams = stack_streams(list(streams))
+    vm_p, task_p = _policies(batch, vm_policies, task_policies)
+    n_pol = vm_p.shape[0]
+    tile = lambda x: x[None].expand((n_pol,) + x.shape).reshape(
+        (n_pol * x.shape[0],) + x.shape[1:])
+    out = run_stream_batch(
+        fuse_grid(batch, vm_p, task_p), map_tensors(tile, streams),
+        reservoir=reservoir, provision_policy=provision_policy, leap=leap,
+        max_steps_per_chunk=max_steps_per_chunk)
+    recs = StreamChunkRecord(*(r.reshape((n_pol, -1) + r.shape[1:])
+                               for r in out[2]))
+    return _unfuse(out[0], n_pol), _unfuse(out[1], n_pol), recs
+
+
+class StreamSweepSummary(NamedTuple):
+    """Per-lane scalars of streamed sweeps (from ``StreamStats``)."""
+    n_retired: torch.Tensor       # i32[...]  cloudlets folded out DONE
+    n_failed: torch.Tensor        # i32[...]  dead-VM / failed arrivals
+    makespan: torch.Tensor        # f32[...]  latest completion, s
+    mean_response: torch.Tensor   # f32[...]  mean finish - submit over done
+    sum_len: torch.Tensor         # f32[...]  MI completed
+    peak_occupancy: torch.Tensor  # i32[...]  most cloudlets in flight
+    max_backlog: torch.Tensor     # i32[...]  most due, unadmitted arrivals
+    energy_j: torch.Tensor        # f32[...]  total joules over real hosts
+    transferred_mb: torch.Tensor  # f32[...]  MB moved by transfers
+
+
+def summarize_stream(final: DatacenterState, st: StreamState
+                     ) -> StreamSweepSummary:
+    """Reduce streamed-lane results (any leading batch dims)."""
+    stats = st.stats
+    denom = torch.clamp(stats.n_retired.to(torch.float32), min=1.0)
+    return StreamSweepSummary(
+        n_retired=stats.n_retired, n_failed=stats.n_failed,
+        makespan=stats.makespan,
+        mean_response=stats.sum_response / denom, sum_len=stats.sum_len,
+        peak_occupancy=st.peak_occupancy, max_backlog=st.max_backlog,
+        energy_j=energy_total_j(final),
+        transferred_mb=final.net_transferred_mb)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 Turn the per-event ``StepRecord`` trace of ``engine.run_trace`` and a
 final state into analyses: the Fig. 8/9 completion curve, utilization
 and power timelines, trace energy, the migration, outage and transfer
-timelines, a Gantt chart and a trace summary.
+timelines, a Gantt chart and a trace summary; and ``run_stream``'s
+per-chunk records into streaming timelines.
 Everything here is NumPy post-processing of tensors brought to the host.
 The metrics-plane reducers come with the slice that ports the plane.
 """
@@ -18,7 +19,7 @@ from repro_torch.core import state as S
 __all__ = ["completion_curve", "utilization_timeline", "watts_timeline",
            "trace_energy_j", "migration_timeline", "failure_timeline",
            "transfer_timeline", "link_utilization_timeline", "gantt",
-           "summarize_trace"]
+           "summarize_trace", "stream_timeline", "summarize_stream_trace"]
 
 
 def _np(x) -> np.ndarray:
@@ -90,6 +91,33 @@ def link_utilization_timeline(trace, wan_bw_mbps: float
     dmb = np.diff(np.concatenate([[0.0], mb]))
     util = np.where(dt > 0, dmb / np.maximum(dt, 1e-12), 0.0)
     return t, np.clip(util / max(float(wan_bw_mbps), 1e-12), 0.0, 1.0)
+
+
+def stream_timeline(recs) -> Dict[str, np.ndarray]:
+    """Per-chunk timelines from ``engine.run_stream``'s records: the
+    clock when the chunk ended, the window's occupancy then (never more
+    than W), the running peak occupancy and backlog, the cumulative
+    retired and failed counts, and the events spent in the chunk."""
+    return {name: _np(getattr(recs, name)) for name in (
+        "time", "occupancy", "peak_occupancy", "max_backlog", "n_retired",
+        "n_failed", "n_events")}
+
+
+def summarize_stream_trace(recs) -> Dict[str, float]:
+    """Scalar roll-up of a streamed lane's per-chunk records."""
+    tl = stream_timeline(recs)
+    if tl["time"].size == 0:
+        return {"chunks": 0, "makespan": 0.0, "peak_occupancy": 0,
+                "max_backlog": 0, "retired": 0, "failed": 0, "events": 0}
+    return {
+        "chunks": int(tl["time"].size),
+        "makespan": float(tl["time"][-1]),
+        "peak_occupancy": int(tl["peak_occupancy"][-1]),
+        "max_backlog": int(tl["max_backlog"][-1]),
+        "retired": int(tl["n_retired"][-1]),
+        "failed": int(tl["n_failed"][-1]),
+        "events": int(tl["n_events"].sum()),
+    }
 
 
 def gantt(dc: S.DatacenterState) -> Dict[int, list]:

@@ -1,3 +1,3 @@
 from repro_torch.kernels.simstep.ops import (  # noqa: F401
-    CHUNK, WINDOW, RowIndex, row_index, simstep, simstep_ragged,
-    simstep_ragged_ref, simstep_ref)
+    CHUNK, WINDOW, RowIndex, padded_row_index, row_index, simstep,
+    simstep_ragged, simstep_ragged_ref, simstep_ref)

@@ -51,6 +51,10 @@
 //   there are long rows.
 // - Rows with no slot: the first threads of the short-row kernel write
 //   their 1e30 from the index's list of empty rows.
+// - A padded index (a streamed window's, rebuilt on the device with no
+//   host read, so its lists have sizes fixed by the slot count) ends its
+//   windows with empty spans [C, C], which write nothing, and pads the
+//   empty-row and chunk lists with -1 entries, which are skipped.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,7 +101,10 @@ window_kernel(const float* __restrict__ remaining,
 {
     const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x
                         + threadIdx.x;
-    if (tid < n_empty) dt_min[empty_rows[tid]] = kInf;
+    if (tid < n_empty) {
+        const int e = empty_rows[tid];
+        if (e >= 0) dt_min[e] = kInf;           // -1 pads the list
+    }
 
     const int lane = threadIdx.x & 31;
     const int64_t w = tid >> 5;
@@ -163,6 +170,7 @@ long_count_kernel(const float* __restrict__ remaining,
 {
     const int c = blockIdx.x;
     const int row = chunk_row[c];
+    if (row < 0) return;                        // a padded chunk
     const int k = c - chunk_first[c];
     const int64_t end = static_cast<int64_t>(row_start[row]) + row_len[row];
     const int64_t begin = static_cast<int64_t>(row_start[row])
@@ -200,6 +208,7 @@ long_rate_kernel(const float* __restrict__ remaining,
     const int warp = threadIdx.x >> 5;
     const int c = blockIdx.x;
     const int row = chunk_row[c];
+    if (row < 0) return;                        // a padded chunk
     const int first = chunk_first[c];
     const int len = row_len[row];
     const int64_t end = static_cast<int64_t>(row_start[row]) + len;

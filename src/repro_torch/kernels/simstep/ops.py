@@ -5,6 +5,9 @@ for CUDA tensors, the plain PyTorch version for CPU tensors.
 assignment).  ``row_index`` describes the flat, ragged, grouped-by-VM
 cloudlet axis as one contiguous run of slots per VM row, which
 ``simstep_ragged`` reads directly: nothing here holds a [V, Kmax] tile.
+``padded_row_index`` builds the same index with every size fixed by the
+slot count, so it needs no host read: a streamed window regroups its
+recycled slots at every admission and rebuilds it on the device.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from repro_torch.kernels.simstep.ref import (INF, simstep_ragged_ref,
                                              simstep_ref)
 
 __all__ = ["simstep", "simstep_ref", "simstep_ragged", "simstep_ragged_ref",
-           "RowIndex", "row_index", "WINDOW", "CHUNK"]
+           "RowIndex", "row_index", "padded_row_index", "WINDOW", "CHUNK"]
 
 WINDOW = 32     # slots a warp of the short-row kernel takes
 CHUNK = 1024    # slots of a long row per block (simstep.cu's kChunk)
@@ -37,6 +40,10 @@ class RowIndex:
     spans of at most ``WINDOW`` slots, and each long row (more than
     ``WINDOW`` slots) alone in a span of its own.  Long rows are also cut
     into chunks of ``CHUNK`` slots.  Everything is O(C + V).
+
+    A padded index (``padded_row_index``) ends ``window`` with empty
+    spans [C, C] and fills ``empty`` and ``chunk_row`` with -1: entries
+    the kernel skips.
     """
     slot_row: torch.Tensor      # i32[C] row of each slot, -1 without one
     start: torch.Tensor         # i32[V] first slot of each row (0 if empty)
@@ -55,6 +62,14 @@ class RowIndex:
         return self.start.shape[0]
 
 
+def max_spans(c: int) -> int:
+    """Most spans ``RowIndex.window`` can cut C slots into.  Two
+    consecutive spans hold more than ``WINDOW`` slots together (the
+    second starts past the first's reach), so there are at most
+    2 * floor(C / (WINDOW + 1)) + 1 of them, and never more than C."""
+    return min(c, 2 * (c // (WINDOW + 1)) + 1)
+
+
 def _window_marks(slot_row: torch.Tensor) -> torch.Tensor:
     """bool[C + 1]: the span starts of ``RowIndex.window``, and C.
 
@@ -62,9 +77,10 @@ def _window_marks(slot_row: torch.Tensor) -> torch.Tensor:
     span starts at the last boundary <= b + WINDOW, or, when that is b
     itself (a long row), at the boundary after b.  The chain of starts
     from 0 is marked by pointer doubling: after round k the first 2^(k+1)
-    starts are marked, so ceil(log2(C + 1)) + 1 rounds of a scatter and a
-    gather over C + 1 positions mark them all, with no host loop.  Other
-    positions point at themselves, so few of them meet in one target.
+    starts are marked, so ceil(log2(max_spans(C) + 1)) + 1 rounds of a
+    scatter and a gather over C + 1 positions mark them all, with no host
+    loop.  Other positions point at themselves, so few of them meet in one
+    target.
     """
     c = slot_row.shape[0]
     dev = slot_row.device
@@ -82,18 +98,17 @@ def _window_marks(slot_row: torch.Tensor) -> torch.Tensor:
     jump = torch.where(~is_b, pos, torch.where(
         reach > pos, reach, bounds[n_b[after] - is_b[after].long()]))
     marks = (pos == 0).to(torch.int32)
-    for _ in range(max(1, math.ceil(math.log2(c + 1))) + 1):
+    for _ in range(max(1, math.ceil(math.log2(max_spans(c) + 1))) + 1):
         marks = marks.scatter_reduce(0, jump, marks, "amax")
         jump = jump[jump]
-    marks[c] = 1
-    return marks.bool()
+    return marks.bool() | (pos == c)           # no host-to-device copy
 
 
 def row_index(cl_vm: torch.Tensor, n_vms: int) -> RowIndex:
     """Build the rows of ``cl_vm`` (i32[C] VM id per slot) with one host
     sync.  Raises ``ValueError`` when the slots of a VM are not one
-    contiguous run.  ``cl.vm`` never changes during a run, so a run
-    builds it once."""
+    contiguous run.  A resident run never changes ``cl.vm``, so it builds
+    the index once; a streamed window uses ``padded_row_index``."""
     dev = cl_vm.device
     vm = cl_vm.long()
     c = vm.shape[0]
@@ -131,6 +146,49 @@ def row_index(cl_vm: torch.Tensor, n_vms: int) -> RowIndex:
                     length=i32(length), window=i32(window), empty=i32(empty),
                     chunk_row=i32(chunk_row),
                     chunk_first=i32(ends[chunk_row] - row_chunks[chunk_row]))
+
+
+def padded_row_index(slot_row: torch.Tensor, n_rows: int) -> RowIndex:
+    """The ``RowIndex`` of a grouped axis, with no host read.
+
+    ``slot_row`` (i32[C]) holds each slot's row, ascending, with the
+    slots of no row (-1) last, as a sort by row leaves them.  Every size
+    is fixed by C and ``n_rows``: ``window`` holds ``max_spans(C) + 1``
+    entries, the real starts then C repeated (empty spans); ``empty``
+    holds each row's id when it has no slot, else -1; the chunk lists
+    hold ``C // (WINDOW + 1)`` entries (a long row has more than WINDOW
+    slots and at most one chunk per WINDOW + 1 of them), -1 past the
+    last chunk.  The grouping holds by construction, so nothing checks
+    it."""
+    dev = slot_row.device
+    c = slot_row.shape[0]
+    row = slot_row.long()
+    owner = torch.where(row >= 0, row, n_rows)
+    # index_add_, not bincount, which reads its input's max on the host
+    length = torch.zeros(n_rows + 1, dtype=torch.long, device=dev).index_add_(
+        0, owner, torch.ones_like(owner))[:n_rows]
+    has = length > 0
+    first = torch.cumsum(length, 0) - length        # rows are ascending
+    marks = _window_marks(slot_row)
+    n_span = max_spans(c)
+    at = torch.where(marks, torch.cumsum(marks.long(), 0) - 1, n_span + 1)
+    window = torch.full((n_span + 2,), c, dtype=torch.long,
+                        device=dev).scatter_(
+        0, at, torch.arange(c + 1, device=dev))[:n_span + 1]
+    rows = torch.arange(n_rows, device=dev)
+    row_chunks = torch.where(length > WINDOW, (length + CHUNK - 1) // CHUNK,
+                             0)
+    ends = torch.cumsum(row_chunks, 0)
+    chunk_row = torch.searchsorted(
+        ends, torch.arange(c // (WINDOW + 1), device=dev), right=True)
+    real = chunk_row < n_rows
+    cr = torch.clamp(chunk_row, max=max(n_rows - 1, 0))
+    i32 = lambda t: t.to(torch.int32)
+    return RowIndex(slot_row=i32(slot_row), start=i32(first * has),
+                    length=i32(length), window=i32(window),
+                    empty=i32(rows.masked_fill(has, -1)),
+                    chunk_row=i32(chunk_row.masked_fill(~real, -1)),
+                    chunk_first=i32((ends[cr] - row_chunks[cr]) * real))
 
 
 def simstep_ragged(remaining, runnable, index: RowIndex, vm_capacity,

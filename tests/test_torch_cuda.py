@@ -495,3 +495,79 @@ def test_dynamic_and_networked_lanes_on_card(cuda):
                               max_steps=4096)
         for name, a in _leaves(single):
             assert torch.equal(_leaf(grid, name)[i], a), (i, name)
+
+
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_padded_index_kernel_matches_plain_version(cuda, case):
+    """A padded index (a streamed window's: empty spans [C, C], -1 empty
+    rows, -1 chunks) on grouped rows with slots of no row after them:
+    the kernel equals its plain version and the kernel on the unpadded
+    index, bitwise, one launch a call."""
+    from repro_torch.kernels.simstep import padded_row_index
+    lengths = RAGGED[case]
+    v = len(lengths)
+    for tail in (0, 37):
+        vm = torch.cat([torch.arange(v, dtype=torch.int32).repeat_interleave(
+            torch.as_tensor(lengths)), torch.full((tail,), -1,
+                                                  dtype=torch.int32)])
+        vm = vm.to(cuda)
+        _, (rem, run, cap, pes) = _ragged_tile(0, lengths, cuda)
+        rem = torch.cat([rem[:vm.numel() - tail],
+                         torch.full((tail,), 5.0, device=cuda)])
+        run = torch.cat([run[:vm.numel() - tail],
+                         torch.ones((tail,), dtype=torch.bool, device=cuda)])
+        exact, padded = row_index(vm, v), padded_row_index(vm, v)
+        for policy in (0, 1):
+            pol = torch.tensor(policy, dtype=torch.int32, device=cuda)
+            before = simstep.launches
+            r, d = simstep_ragged(rem, run, padded, cap, pes, pol)
+            assert simstep.launches == before + 1
+            r_ref, d_ref = simstep_ragged_ref(rem, run, padded, cap, pes,
+                                              pol)
+            r_ex, d_ex = simstep_ragged(rem, run, exact, cap, pes, pol)
+            torch.cuda.synchronize()
+            assert torch.equal(r, r_ref) and torch.equal(d, d_ref)
+            assert torch.equal(r, r_ex) and torch.equal(d, d_ex)
+
+
+def test_streamed_lanes_on_card(cuda):
+    """Small streamed scenarios (chip_smoke.py's copy of the conformance
+    recipe) x the 2x2 grid in one ``run_stream_grid`` on the card: the
+    counts, reservoir ids and the window's states equal the CPU's, with
+    sums and times within 1e-3, and lane 0 equals its single run."""
+    import importlib.util
+    import pathlib
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import run_stream
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    outs = []
+    for dev in (cuda, "cpu"):
+        pairs = [cs.streamed_scenario(s, dev) for s in range(4)]
+        batch = sweep.stack_scenarios([p[0] for p in pairs])
+        grid = sweep.policy_grid(device=dev)
+        outs.append((batch, [p[1] for p in pairs],
+                     sweep.run_stream_grid(batch, [p[1] for p in pairs],
+                                           *grid, reservoir=16)))
+    (batch, streams, (g, gs, gr)), (_, _, (c, ccs, cr)) = outs
+    for name in ("n_retired", "n_failed", "per_vm_done", "res_sid"):
+        assert torch.equal(getattr(gs.stats, name).cpu(),
+                           getattr(ccs.stats, name)), name
+    assert torch.equal(g.cloudlets.state.cpu(), c.cloudlets.state)
+    for x, y in zip(gr[1:], cr[1:]):
+        assert torch.equal(x.cpu(), y)
+    np.testing.assert_allclose(gs.stats.sum_exec.cpu().numpy(),
+                               ccs.stats.sum_exec.numpy(), rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(g.hosts.energy_j.cpu().numpy(),
+                               c.hosts.energy_j.numpy(), rtol=1e-3,
+                               atol=1e-3)
+    out, st, _ = run_stream(S.map_tensors(lambda t: t[0], batch), streams[0],
+                            reservoir=16)
+    for name, a in _leaves(out):
+        assert torch.equal(_leaf(g, name)[0, 0], a), name
+    for x, y in zip(S.tensor_leaves(st.stats),
+                    S.tensor_leaves(gs.stats)):
+        assert torch.equal(y[0, 0], x)

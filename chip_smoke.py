@@ -62,7 +62,7 @@ script exits non-zero:
      policies: every cloudlet done, byte conservation within the f32
      accumulation's bound; the same recipe at 10,000 hosts against the
      CPU;
- 13. ``dyn-lanes``: 16 small dynamic and networked scenarios (numpy
+ 13. ``dyn-lanes``: 8 small dynamic and networked scenarios (numpy
      copies of the conformance recipes) x the 2x2 grid in one batch:
      every lane equals its single run bitwise, and the batch agrees with
      the CPU;
@@ -75,21 +75,42 @@ script exits non-zero:
      resident run bitwise); ``stream-tight``, 10,000 hosts and 50,000
      arrivals through 5,000 slots, card == CPU and chunk 1,024 == chunk
      8,192 bitwise; ``stream-poisson``, ``bench_streaming``'s lane at
-     4,000 arrivals, leap on == off bitwise and card == CPU, with
-     cloudlets/s; ``stream-lanes``, 8 small streamed scenarios x the 2x2
+     2,000 arrivals, leap on == off bitwise and card == CPU, with
+     cloudlets/s; ``stream-lanes``, 4 small streamed scenarios x the 2x2
      grid in one ``run_stream_grid``, every lane == its single run (the
      resident comparisons read every arrival's times from a reservoir of
      stride 1);
- 15. what the migration, network and streaming passes cost a full step at
-     100,000 hosts (the same run, bit for bit, with each set switched
-     on), and the wall of a host-plan rebuild.
+ 15. ``s5-100k-elastic``: the paper's largest datacenter with a latent
+     half (25,000 of 50,000 slots start VM_EMPTY, their cloudlets half as
+     long), a watermark autoscaler and a four-segment spot track, both
+     task policies: at least two scale-ups and two scale-downs, the fleet
+     in its bounds on every ``run_trace`` record, actions a cooldown
+     apart, the spot spend equal to the f64 integral of price x fleet,
+     every cloudlet done, the card equal to the CPU;
+ 16. ``s5-100k-probed``: §5 time-shared with a metrics plane (32 buckets,
+     24 bins, SLA factor 2): probes on == off on every other leaf, leap
+     on == off with the plane, 500,000 retirements, the buckets spanning
+     the makespan, busy seconds and SLA counters against closed forms;
+ 17. ``policy-search``: ``bench_elasticity``'s headroom lanes, 8 seeds x
+     12 autoscaler points in one ``run_policy_search``: every cell ==
+     its single run bitwise, card == CPU; then ``run_elasticity_study``
+     with probes on, card == CPU on counts and the Pareto mask;
+ 18. ``elastic-stream-lanes``: 4 elastic streamed scenarios (numpy copies
+     of the conformance recipe) x the 2x2 grid in one
+     ``run_stream_grid``, every lane == its single run, card == CPU; a
+     probed streamed lane (``bench_metrics``' lane at 2,000 arrivals),
+     chunk 256 == chunk 4,096 bitwise and card == CPU;
+ 19. what the migration, network, elastic, probe and streaming passes cost
+     a full step at 100,000 hosts (the same run, bit for bit, with each
+     set switched on), with host ops a step counted on the CPU, and the
+     wall of a host-plan rebuild.
 
 Phase 2 also holds simstep with a task policy per row (a batch's lanes)
 against its plain version, and times it at 4 lanes of [50000, 10]; and
 on padded indexes (a streamed window's), against its plain version and
 against the unpadded index.
 
-Phases 3, 4 and 4b are the simulator's main path, and 6 to 14 each a
+Phases 3, 4 and 4b are the simulator's main path, and 6 to 18 each a
 path of its own: simstep's launch count is set to 0 just before phase 3
 and read just after phase 4b, and set to 0 just before and read just
 after each run of the later ones (``launches_by_path`` in the kernels'
@@ -1396,7 +1417,7 @@ def dyn_lane_scenarios(n_seeds, device):
             else networked_scenario(s, 0, 0, device) for s in range(n_seeds)]
 
 
-def phase_dyn_lanes(device, card, launched, n_seeds=16):
+def phase_dyn_lanes(device, card, launched, n_seeds=8):
     """Phase 13: ``n_seeds`` x the 2x2 grid of small dynamic and
     networked scenarios in one fused batch on the card: every lane
     equals its single run on the card bitwise, and the card agrees with
@@ -1679,7 +1700,7 @@ def poisson_stream(n, device, n_vms=32, n_hosts=8, window=64, chunk=4096):
     return dc, S.make_stream(vm, length, sub, chunk=chunk, device=device)
 
 
-def phase_stream_poisson(device, card, launched, n=4000):
+def phase_stream_poisson(device, card, launched, n=2000):
     """Phase 14c: ``bench_streaming``'s lane at n arrivals: leap on ==
     leap off bitwise on the card, the card against the CPU, and
     cloudlets per second for each."""
@@ -1762,7 +1783,7 @@ def streamed_scenario(seed, device, n_hosts=3, n_vms=5):
     return dc, stream
 
 
-def phase_stream_lanes(device, card, launched, n_seeds=8):
+def phase_stream_lanes(device, card, launched, n_seeds=4):
     """Phase 14d: ``n_seeds`` small streamed scenarios x the 2x2 grid in
     one ``run_stream_grid`` on the card: every lane equals its single
     run bit for bit."""
@@ -1812,6 +1833,512 @@ def phase_stream_lanes(device, card, launched, n_seeds=8):
           f"{4 * n_seeds} single runs {singles!r} s ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-18: closed-loop elasticity and the in-run metrics plane
+# ---------------------------------------------------------------------------
+# s5-100k-elastic's spot track ($ per alive VM-second from each start)
+ELASTIC_SPOT = ([0.0, 3000.0, 6000.0, 9000.0], [0.02, 0.06, 0.03, 0.01])
+
+
+def elastic_knobs(n_vms):
+    """The autoscaler of ``s5-100k-elastic`` for ``n_vms`` slots (50,000
+    at full width): the fleet between half and all of the slots, a
+    quarter of them an action.  Busy over alive steps through 1, 3/4,
+    2/3 and 1/2, so the watermarks sit off those quotients."""
+    return dict(util_high=0.9, util_low=0.7, cooldown=300.0,
+                min_fleet=n_vms // 2, max_fleet=n_vms,
+                scale_step=n_vms // 4)
+
+
+def s5_elastic(n_hosts, n_vms, policy, device):
+    """The §5 datacenter with a latent half: slots 0..V/2-1 start
+    VM_PENDING with §5's ten waves of 1.2M MI, slots V/2..V-1 start
+    VM_EMPTY with ten waves of 0.6M MI (they drain first); the
+    autoscaler of ``elastic_knobs`` and the spot track ``ELASTIC_SPOT``."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import broker as B
+    from repro_torch.core import state as S
+    half = n_vms // 2
+    hosts = S.make_uniform_hosts(n_hosts, idle_w=100.0, peak_w=200.0,
+                                 device=device)
+    vms = B.build_fleet([B.VmSpec(count=n_vms, pes=1, mips=1000.0,
+                                  ram=512.0, bw=10.0, size=1000.0)],
+                        device=device)
+    st = np.full(n_vms, S.VM_EMPTY, np.int32)
+    st[:half] = S.VM_PENDING
+    vms = dataclasses.replace(vms, state=torch_tensor(st, device))
+    vm = np.repeat(np.arange(n_vms, dtype=np.int32), 10)
+    submit = np.tile(np.arange(10, dtype=np.float32) * 600.0, n_vms)
+    length = np.where(vm < half, 1_200_000.0, 600_000.0).astype(np.float32)
+    scaler = S.make_autoscaler(**elastic_knobs(n_vms),
+                               spot_t=ELASTIC_SPOT[0],
+                               spot_price=ELASTIC_SPOT[1], device=device)
+    return S.make_datacenter(hosts, vms,
+                             S.make_cloudlets(vm, length, submit,
+                                              device=device),
+                             vm_policy=S.SPACE_SHARED, task_policy=policy,
+                             reserve_pes=True, scaler=scaler, device=device)
+
+
+def torch_tensor(a, device):
+    import torch
+    return torch.from_numpy(a).to(device)
+
+
+def check_elastic_trace(dc, final, trace, tag):
+    """The control contracts on a ``run_trace`` of an elastic lane: the
+    fleet inside [min, max] on every record, actions (fleet changes)
+    at least ``cooldown`` apart, both directions at least twice, and the
+    spot spend equal to the f64 integral of price x fleet over the
+    trace's intervals within 1e-4 relative.  Returns (ups, downs, spot
+    spend, action times)."""
+    import numpy as np
+    from repro_torch.core import telemetry as T
+    sc = dc.scaler
+    t, fleet = T.fleet_timeline(trace)
+    lo, hi = int(sc.min_fleet), int(sc.max_fleet)
+    check(fleet.size > 0 and fleet.min() >= lo and fleet.max() <= hi,
+          f"{tag}: fleet {fleet.min()}-{fleet.max()} outside [{lo}, {hi}]")
+    fleet0 = int(((dc.vms.state == 1) | (dc.vms.state == 2)).sum())
+    prev = np.concatenate([[fleet0], fleet[:-1]])
+    acts = t[fleet != prev].astype(np.float64)
+    gaps = np.diff(acts)
+    check(gaps.size == 0 or gaps.min() >= float(sc.cooldown) - 1e-3,
+          f"{tag}: actions at {acts.tolist()} closer than the cooldown")
+    ups, downs = int(final.scaler.up_count), int(final.scaler.down_count)
+    check(ups >= 2 * int(sc.scale_step) and downs >= 2 * int(sc.scale_step),
+          f"{tag}: {ups} VMs up, {downs} down (want two actions each)")
+    starts = np.concatenate([[0.0], t[:-1].astype(np.float64)])
+    spot_t = sc.spot_t.double().cpu().numpy()
+    spot_p = sc.spot_price.double().cpu().numpy()
+    seg = np.clip(np.searchsorted(spot_t, starts, side="right") - 1, 0,
+                  spot_t.size - 1)
+    want = float(np.sum(spot_p[seg] * fleet.astype(np.float64)
+                        * (t.astype(np.float64) - starts)))
+    got = float(final.scaler.spot_cost)
+    check(abs(got - want) <= 1e-4 * abs(want) and want > 0.0,
+          f"{tag}: spot spend {got!r} against the integral {want!r}")
+    done = int((final.cloudlets.state == CL_DONE).sum())
+    check(done == final.cloudlets.state.shape[0],
+          f"{tag}: {done}/{final.cloudlets.state.shape[0]} done")
+    return ups, downs, got, acts
+
+
+def elastic_agree(gpu, cpu, g_stats, c_stats, tag):
+    """An elastic run on the card against the CPU: states, placements,
+    event and scale counts exact; times, joules and spot spend within
+    1e-5 relative.  Returns the largest relative error."""
+    import torch
+    check(g_stats.n_events == c_stats.n_events,
+          f"{tag}: events {g_stats.n_events} (card) vs {c_stats.n_events}")
+    for name, a, b in (("cloudlet states", gpu.cloudlets.state,
+                        cpu.cloudlets.state),
+                       ("VM states", gpu.vms.state, cpu.vms.state),
+                       ("placements", gpu.vms.host, cpu.vms.host),
+                       ("ups", gpu.scaler.up_count, cpu.scaler.up_count),
+                       ("downs", gpu.scaler.down_count,
+                        cpu.scaler.down_count)):
+        check(torch.equal(a.cpu(), b), f"{tag}: {name} differ")
+    err = 0.0
+    for a, b in ((gpu.cloudlets.finish_time, cpu.cloudlets.finish_time),
+                 (gpu.cloudlets.start_time, cpu.cloudlets.start_time),
+                 (gpu.hosts.energy_j, cpu.hosts.energy_j),
+                 (gpu.scaler.spot_cost, cpu.scaler.spot_cost)):
+        d = (a.cpu().double() - b.double()).abs() / torch.clamp(
+            b.double().abs(), min=1.0)
+        err = max(err, float(d.max()))
+    check(err <= 1e-5, f"{tag}: card and CPU differ by {err!r} (relative)")
+    return err
+
+
+def phase_s5_elastic(device, card, launched, n_hosts=100_000,
+                     n_vms=50_000, n_trace=64):
+    """Phase 15: ``s5-100k-elastic``, both task policies: the run to
+    quiescence on the card (simstep's count read around it) and on the
+    CPU, equal; then a ``run_trace`` on the card, held to the control
+    contracts and the spot integral."""
+    import torch
+    from repro_torch.core import state as S
+    from repro_torch.core.engine import run_stats, run_trace
+    from repro_torch.kernels.simstep import simstep
+
+    n_launch = 0
+    for policy in (S.SPACE_SHARED, S.TIME_SHARED):
+        tag = f"s5-100k-elastic-{policy}"
+        dc = s5_elastic(n_hosts, n_vms, policy, device)
+        torch.cuda.synchronize()
+        before = simstep.launches
+        t0 = time.perf_counter()
+        final, stats = run_stats(dc, max_steps=8192)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch += simstep.launches - before
+        t0 = time.perf_counter()
+        cpu, c_stats = run_stats(s5_elastic(n_hosts, n_vms, policy, "cpu"),
+                                 max_steps=8192)
+        cpu_wall = time.perf_counter() - t0
+        err = elastic_agree(final, cpu, stats, c_stats, tag)
+        t0 = time.perf_counter()
+        out, trace = run_trace(dc, num_steps=n_trace)
+        torch.cuda.synchronize()
+        trace_wall = time.perf_counter() - t0
+        check(not bool(trace.active[-1]), f"{tag}: the trace did not end")
+        check(same_state(out.cloudlets, final.cloudlets)
+              and torch.equal(out.scaler.spot_cost, final.scaler.spot_cost),
+              f"{tag}: run_trace != run")
+        ups, downs, spot, acts = check_elastic_trace(dc, out, trace, tag)
+        print(f"[{tag}] {n_hosts} hosts, {n_vms} slots (half latent), "
+              f"{dc.cloudlets.vm.shape[0]} cloudlets: all done, "
+              f"{ups} VMs up and {downs} down at t = {acts.tolist()}, "
+              f"fleet in bounds, actions >= cooldown apart, spot "
+              f"${spot:.2f} == the trace's integral; card == CPU (max rel "
+              f"err {err:.3g}); card {wall!r} s ({run_line(stats)}, "
+              f"{stats.n_scale} autoscaler boundaries), CPU {cpu_wall!r} "
+              f"s, run_trace {trace_wall!r} s ({card})")
+    launched["s5-100k-elastic"] = n_launch
+
+
+def phase_s5_probed(device, card, launched, n_hosts=100_000,
+                    n_vms=50_000):
+    """Phase 16: ``s5-100k-probed``: §5 time-shared with a plane of 32
+    buckets and 24 bins over the 12,000 s makespan, SLA factor 2.  Probes
+    on against off (every other leaf bitwise), leap on against off (the
+    plane too), the histogram's count, the buckets' span, per-host busy
+    seconds against the closed form, and the SLA counters against the
+    final responses in f64; then the wall a step, probes on and off."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import metrics as M
+    from repro_torch.core import state as S
+    from repro_torch.core.engine import run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    base = section5(n_hosts, n_vms, S.TIME_SHARED, device)
+    dc = dataclasses.replace(base, metrics=M.make_metrics(
+        n_hosts, horizon=12000.0, buckets=32, bins=24, sla_factor=2.0,
+        device=device))
+    runs = {}
+    simstep.launches = 0
+    for name, d, leap in (("probed", dc, True), ("probed-leap-off", dc,
+                                                  False),
+                          ("off", base, True)):
+        if name == "off":
+            launched["s5-100k-probed"] = simstep.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = run_stats(d, max_steps=8192, leap=leap)
+        torch.cuda.synchronize()
+        runs[name] = (out, stats, time.perf_counter() - t0)
+    on, off = runs["probed"][0], runs["off"][0]
+    check(same_state(dataclasses.replace(on, metrics=base.metrics), off),
+          "s5-100k-probed: the probes changed the run")
+    check(same_state(on, runs["probed-leap-off"][0]),
+          "s5-100k-probed: leap on != leap off with probes")
+    m = on.metrics
+    n_cl = on.cloudlets.state.shape[0]
+    check(int(m.hist_response.sum()) == n_cl == int(m.hist_exec.sum()),
+          f"s5-100k-probed: {int(m.hist_response.sum())} retirements")
+    span = float(m.bucket_dt.double().sum())
+    check(abs(span - 12000.0) <= 1e-3, f"s5-100k-probed: buckets span "
+          f"{span!r} s")
+    busy = np.zeros(n_hosts, bool)
+    busy[on.vms.host.cpu().numpy()] = True
+    want = np.where(busy, 12000.0, 0.0)
+    b_err = float(np.abs(m.host_busy_s.double().cpu().numpy() - want).max())
+    check(b_err <= 1e-3, f"s5-100k-probed: busy seconds off by {b_err!r}")
+    cl = on.cloudlets
+    f64 = lambda t: t.double().cpu().numpy()
+    resp = f64(cl.finish_time) - f64(cl.submit_time)
+    bound = 2.0 * f64(cl.length) / 1000.0
+    breach = resp > bound
+    first = f64(cl.finish_time)[breach].min()
+    check(int(m.sla_breaches) == int(breach.sum())
+          and float(m.first_breach_t) == first,
+          f"s5-100k-probed: {int(m.sla_breaches)} breaches from "
+          f"{float(m.first_breach_t)!r}, the responses give "
+          f"{int(breach.sum())} from {first!r}")
+    per = {k: v[2] / v[1].n_steps * 1e3 for k, v in runs.items()}
+    print(f"[s5-100k-probed] §5 {n_hosts} hosts time-shared, 32 buckets, "
+          f"24 bins: probes on == off on every other leaf, leap on == off "
+          f"with the plane, {n_cl} retirements, buckets span {span!r} s, "
+          f"busy seconds within {b_err:.3g} s of the closed form, "
+          f"{int(m.sla_breaches)} SLA breaches from t = "
+          f"{float(m.first_breach_t)!r} (as the responses give); probed "
+          f"{runs['probed'][2]!r} s ({per['probed']:.3f} ms a step, "
+          f"{run_line(runs['probed'][1])}), leap off "
+          f"{runs['probed-leap-off'][2]!r} s, unprobed {runs['off'][2]!r} "
+          f"s ({per['off']:.3f} ms a step) ({card})")
+
+
+def headroom_scenario(seed, device, n_vms=24, per_slot=6, alive=4):
+    """``benchmarks/bench_policies.py::bench_elasticity``'s headroom lane
+    (its recipe and numpy draws, copied): 16 hosts of 4 PEs, 24 one-PE
+    slots of which 4 start alive, 6 cloudlets a slot, a watermark
+    autoscaler and a three-segment spot track."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import state as S
+    rng = np.random.default_rng(seed)
+    hosts = S.make_uniform_hosts(16, pes=4, mips=1000.0, ram=8192.0,
+                                 bw=1000.0, storage=1e6, device=device)
+    vms = S.make_vms([1] * n_vms, [1000.0] * n_vms, [512.0] * n_vms,
+                     [100.0] * n_vms, [1000.0] * n_vms, device=device)
+    st = np.full(n_vms, S.VM_EMPTY, np.int32)
+    st[:alive] = S.VM_PENDING
+    vms = dataclasses.replace(vms, state=torch_tensor(st, device))
+    vm = np.repeat(np.arange(n_vms, dtype=np.int32), per_slot)
+    sub = np.tile(np.sort(rng.uniform(0.0, 10.0, per_slot))
+                  .astype(np.float32), n_vms)
+    lens = rng.uniform(400.0, 1600.0, n_vms * per_slot).astype(np.float32)
+    scaler = S.make_autoscaler(util_high=0.7, util_low=0.25, cooldown=2.0,
+                               min_fleet=alive, max_fleet=n_vms,
+                               scale_step=2, spot_t=[0.0, 60.0, 180.0],
+                               spot_price=[0.05, 0.4, 0.08], device=device)
+    return S.make_datacenter(hosts, vms, S.make_cloudlets(vm, lens, sub,
+                                                          device=device),
+                             vm_policy=S.SPACE_SHARED,
+                             task_policy=S.SPACE_SHARED, scaler=scaler,
+                             device=device)
+
+
+def phase_policy_search(device, card, launched, n_seeds=8):
+    """Phase 17: ``policy-search``: ``n_seeds`` headroom lanes x 12
+    autoscaler points (``bench_elasticity``'s grid) in one
+    ``run_policy_search`` on the card: every cell equals its single run
+    bitwise; the batch on the CPU gives the same states and counts.
+    Then ``run_elasticity_study`` with probes on, card against CPU on
+    the counts and the Pareto mask."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import experiments as X
+    from repro_torch.core import metrics as M
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    grids = {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        batch = sweep.stack_scenarios([headroom_scenario(100 + s, dev)
+                                       for s in range(n_seeds)])
+        grid = sweep.policy_points(util_highs=(0.6, 0.75, 0.9),
+                                   util_lows=(0.2, 0.35),
+                                   cooldowns=(1.0, 4.0), device=dev)
+        if where == "card":
+            torch.cuda.synchronize()
+            simstep.launches = 0
+        t0 = time.perf_counter()
+        final = sweep.run_policy_search(batch, grid, max_steps=4096)
+        if where == "card":
+            torch.cuda.synchronize()
+            launched["policy-search"] = simstep.launches
+        grids[where] = (batch, grid, final, time.perf_counter() - t0)
+    batch, grid, final, wall = grids["card"]
+    n_pol = grid.util_high.shape[0]
+    check(n_pol == 12, f"policy-search: {n_pol} points")
+    cpu = grids["cpu"][2]
+    for name, a, b in (("states", final.cloudlets.state,
+                        cpu.cloudlets.state),
+                       ("VM states", final.vms.state, cpu.vms.state),
+                       ("ups", final.scaler.up_count, cpu.scaler.up_count),
+                       ("downs", final.scaler.down_count,
+                        cpu.scaler.down_count)):
+        check(torch.equal(a.cpu(), b), f"policy-search: card and CPU "
+              f"{name} differ")
+    singles, events = 0.0, 0
+    for p in range(n_pol):
+        for b in range(n_seeds):
+            one = lane(batch, b)
+            cell = dataclasses.replace(one, scaler=dataclasses.replace(
+                one.scaler, util_high=grid.util_high[p].clone(),
+                util_low=grid.util_low[p].clone(),
+                cooldown=grid.cooldown[p].clone(),
+                scale_step=grid.scale_step[p].clone(),
+                price_sensitivity=grid.price_sensitivity[p].clone()))
+            t0 = time.perf_counter()
+            out, stats = run_stats(cell, max_steps=4096)
+            torch.cuda.synchronize()
+            singles += time.perf_counter() - t0
+            events += stats.n_events
+            check(same_state(lane(final, p, b), out),
+                  f"policy-search: cell {p},{b} != its single run")
+    ups = int(final.scaler.up_count.sum())
+    downs = int(final.scaler.down_count.sum())
+    check(ups > 0 and downs > 0, f"policy-search: {ups} up, {downs} down")
+    studies = {}
+    for where, (b_, g_, _, _) in grids.items():
+        n_hosts = b_.hosts.num_pes.shape[1]
+        plane = M.make_metrics(n_hosts, horizon=120.0, buckets=16, bins=24,
+                               sla_factor=2.0, device=b_.time.device)
+        probed = sweep.stack_scenarios([
+            dataclasses.replace(lane(b_, i), metrics=plane)
+            for i in range(n_seeds)])
+        t0 = time.perf_counter()
+        studies[where] = (X.run_elasticity_study(probed, g_,
+                                                 max_steps=4096),
+                          time.perf_counter() - t0)
+    gs, cs = studies["card"][0], studies["cpu"][0]
+    check(np.array_equal(gs.pareto, cs.pareto)
+          and torch.equal(gs.sla.cpu(), cs.sla)
+          and torch.equal(gs.static_sla.cpu(), cs.static_sla)
+          and np.array_equal(gs.latency_p50, cs.latency_p50)
+          and np.array_equal(gs.latency_p95, cs.latency_p95),
+          "policy-search: the card's study != the CPU's")
+    check(torch.equal(gs.final.cloudlets.state, final.cloudlets.state),
+          "policy-search: probes changed the search")
+    print(f"[policy-search] {n_seeds} headroom lanes x {n_pol} autoscaler "
+          f"points = {n_pol * n_seeds} lanes in one run_policy_search: "
+          f"every cell == its single run bitwise, card == CPU; {ups} VMs "
+          f"up, {downs} down, {events} events; batched {wall!r} s "
+          f"({launched['policy-search']} simstep launches), the "
+          f"{n_pol * n_seeds} single runs {singles!r} s, CPU batch "
+          f"{grids['cpu'][3]!r} s; elasticity study with probes: "
+          f"{int(gs.pareto.sum())} Pareto points, SLA "
+          f"{gs.sla.tolist()} (static {int(gs.static_sla)}), p95 "
+          f"{gs.latency_p95.tolist()}, card {studies['card'][1]!r} s, "
+          f"CPU {studies['cpu'][1]!r} s ({card})")
+
+
+def elastic_streamed_scenario(seed, device):
+    """``tests/test_conformance.py::make_elastic_streamed_scenario`` (its
+    recipe and numpy draws, copied), policies (0, 0): the streamed
+    recipe with two latent slots, arrivals over all seven, a watermark
+    autoscaler and (even seeds) a spot track."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import state as S
+    dc, stream = streamed_scenario(seed, device, n_vms=5)
+    rng = np.random.default_rng(41_000 + seed)
+    nv = 5 + 2
+    vms = S.make_vms(
+        rng.integers(1, 3, nv), rng.choice([250.0, 500.0, 1000.0], nv),
+        64.0, 1.0, 10.0,
+        submit_time=np.round(rng.uniform(0, 3, nv), 2).astype(np.float32),
+        device=device)
+    st = vms.state.cpu().numpy().copy()
+    st[5:] = S.VM_EMPTY
+    vms = dataclasses.replace(vms, state=torch_tensor(st, device))
+    vm_ids = stream.vm.cpu().numpy().copy()
+    live = vm_ids >= 0
+    vm_ids[live] = np.asarray(rng.integers(0, nv, int(live.sum())),
+                              np.int32)
+    stream = dataclasses.replace(stream, vm=torch_tensor(vm_ids, device))
+    sc_kw = {}
+    if seed % 2 == 0:
+        t1 = round(float(rng.uniform(4, 12)), 2)
+        sc_kw["spot_t"] = [0.0, t1]
+        sc_kw["spot_price"] = [round(float(p), 2)
+                               for p in rng.uniform(0.01, 0.1, 2)]
+    scaler = S.make_autoscaler(
+        util_high=float(rng.choice([0.55, 0.72])),
+        util_low=float(rng.choice([0.18, 0.28])),
+        cooldown=round(float(rng.uniform(1, 3)), 2),
+        min_fleet=1, max_fleet=nv,
+        scale_step=int(rng.integers(1, 3)), device=device, **sc_kw)
+    return dataclasses.replace(dc, vms=vms, scaler=scaler), stream
+
+
+def phase_elastic_stream_lanes(device, card, launched, n_seeds=4,
+                               n_probed=2000):
+    """Phase 18: ``elastic-stream-lanes``: ``n_seeds`` elastic streamed
+    scenarios x the 2x2 grid in one ``run_stream_grid``, and one probed
+    streamed lane (``bench_metrics``' lane at ``n_probed`` arrivals,
+    window 64): every lane == its single run bitwise, the card == the
+    CPU, and the probed lane's chunk 256 == chunk 4,096 bitwise."""
+    import dataclasses
+    import torch
+    from repro_torch.core import metrics as M
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import run_stream_stats
+    from repro_torch.kernels.simstep import simstep
+
+    out = {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        pairs = [elastic_streamed_scenario(s, dev) for s in range(n_seeds)]
+        batch = sweep.stack_scenarios([p[0] for p in pairs])
+        streams = [p[1] for p in pairs]
+        vm_p, task_p = sweep.policy_grid(device=dev)
+        if where == "card":
+            torch.cuda.synchronize()
+            simstep.launches = 0
+        t0 = time.perf_counter()
+        res = sweep.run_stream_grid(batch, streams, vm_p, task_p,
+                                    reservoir=32)
+        if where == "card":
+            torch.cuda.synchronize()
+            launched["elastic-stream-lanes"] = simstep.launches
+        out[where] = (batch, streams, vm_p, task_p, res,
+                      time.perf_counter() - t0)
+    batch, streams, vm_p, task_p, (gdc, gst, grec), wall = out["card"]
+    cdc, cst, _ = out["cpu"][4]
+    for name, a, b in (("states", gdc.cloudlets.state, cdc.cloudlets.state),
+                       ("VM states", gdc.vms.state, cdc.vms.state),
+                       ("placements", gdc.vms.host, cdc.vms.host),
+                       ("ups", gdc.scaler.up_count, cdc.scaler.up_count),
+                       ("downs", gdc.scaler.down_count,
+                        cdc.scaler.down_count),
+                       ("retired", gst.stats.n_retired,
+                        cst.stats.n_retired)):
+        check(torch.equal(a.cpu(), b), f"elastic-stream-lanes: card and "
+              f"CPU {name} differ")
+    err = float((gdc.scaler.spot_cost.cpu().double()
+                 - cdc.scaler.spot_cost.double()).abs().max())
+    check(err <= 1e-4, f"elastic-stream-lanes: spot spend off by {err!r}")
+    singles = 0.0
+    for p in range(4):
+        for b in range(n_seeds):
+            cell = dataclasses.replace(lane(batch, b),
+                                       vm_policy=vm_p[p].clone(),
+                                       task_policy=task_p[p].clone())
+            t0 = time.perf_counter()
+            one, st, rec, _ = run_stream_stats(cell, streams[b],
+                                               reservoir=32)
+            torch.cuda.synchronize()
+            singles += time.perf_counter() - t0
+            k = rec.time.shape[0]
+            check(same_state(lane(gdc, p, b), one)
+                  and same_state(lane(gst.stats, p, b), st.stats)
+                  and all(bool(torch.equal(x[p, b, :k], y))
+                          for x, y in zip(grec, rec)),
+                  f"elastic-stream-lanes: lane {p},{b} != its single run")
+    actions = int(gdc.scaler.up_count.sum() + gdc.scaler.down_count.sum())
+    check(actions > 0, "elastic-stream-lanes: the autoscaler never acted")
+    # the probed streamed lane
+    runs = {}
+    before = simstep.launches
+    for name, dev, chunk in (("card", device, 4096),
+                             ("card-256", device, 256),
+                             ("cpu", "cpu", 4096)):
+        dc, stream = poisson_stream(n_probed, dev, chunk=chunk)
+        dc = dataclasses.replace(dc, metrics=M.make_metrics(
+            dc.hosts.num_pes.shape[0], horizon=n_probed / 40.0, buckets=32,
+            bins=24, sla_factor=2.0, device=dev))
+        runs[name] = timed_stream(dc, stream, max_steps_per_chunk=4 * 4096)
+    launched["elastic-stream-lanes"] += simstep.launches - before
+    check(same_chunking(runs["card"], runs["card-256"]),
+          "elastic-stream-lanes: the probed lane depends on the chunk")
+    perr = stream_agree(runs["card"], runs["cpu"], "probed stream")
+    gm, cm = runs["card"][0].metrics, runs["cpu"][0].metrics
+    for name in ("hist_response", "hist_exec", "hist_wait", "sla_breaches",
+                 "peak_backlog"):
+        check(torch.equal(getattr(gm, name).cpu(), getattr(cm, name)),
+              f"probed stream: {name} differs between card and CPU")
+    check(int(gm.hist_response.sum()) == n_probed,
+          f"probed stream: {int(gm.hist_response.sum())} retirements")
+    print(f"[elastic-stream-lanes] {4 * n_seeds} elastic streamed lanes "
+          f"({n_seeds} scenarios x the 2x2 grid) in one run_stream_grid: "
+          f"every lane == its single run bitwise, card == CPU, {actions} "
+          f"scale actions; batched {wall!r} s, the {4 * n_seeds} single "
+          f"runs {singles!r} s, CPU batch {out['cpu'][5]!r} s; probed "
+          f"stream of {n_probed} arrivals through 64 slots: chunk 256 == "
+          f"chunk 4096 bitwise, card == CPU (histograms exact, max float "
+          f"err {perr:.3g}), {int(gm.sla_breaches)} SLA breaches; card "
+          f"{runs['card'][4]!r} s ({stream_line(runs['card'][3])}), CPU "
+          f"{runs['cpu'][4]!r} s ({card})")
+
+
 def plan_ms(dc, reps=20):
     """Wall milliseconds of one host-plan rebuild of ``dc`` (its two host
     syncs included)."""
@@ -1828,21 +2355,20 @@ def plan_ms(dc, reps=20):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def phase_pass_cost(device, card, n_hosts=100_000, n_vms=50_000):
-    """Phase 15: what the migration, network and streaming passes cost a
-    full step at the §5 datacenter's size (time-shared, placed, empty
-    transfers): the same scenario stepped to quiescence as it is, under
-    THRESHOLD migration at a threshold no host exceeds (the dynamic and
-    migration passes run every step, nothing migrates), on an enabled
+def pass_variants(n_hosts, n_vms, device):
+    """The §5 scenario (time-shared, placed, empty transfers) as it is,
+    under THRESHOLD migration at a threshold no host exceeds (the dynamic
+    and migration passes run every step, nothing migrates), on an enabled
     topology with zero-size, zero-latency transfers (the network passes
-    run, no transfer costs an event), and streamed through a window of
-    every slot.  Each must give the static run's events and finish times
-    bit for bit; the line gives wall per evaluated step, and the wall of
-    a host-plan rebuild."""
+    run, no transfer costs an event), with an enabled autoscaler that is
+    never due and a one-segment spot track (the scaler check and the
+    spot accrual run every step, no boundary is an event), and with a
+    metrics plane of 32 buckets and 24 bins (the probes run every
+    commit)."""
     import dataclasses
     import torch
+    from repro_torch.core import metrics as M
     from repro_torch.core import state as S
-    from repro_torch.core.engine import run_stats
     from repro_torch.core.provisioning import provision_pending
 
     dc = provision_pending(section5(n_hosts, n_vms, S.TIME_SHARED, device))
@@ -1850,7 +2376,7 @@ def phase_pass_cost(device, card, n_hosts=100_000, n_vms=50_000):
     dc = dataclasses.replace(dc, cloudlets=dataclasses.replace(
         cl, file_size=torch.zeros_like(cl.file_size),
         output_size=torch.zeros_like(cl.output_size)))
-    variants = {
+    return {
         "static": dc,
         "migration": dataclasses.replace(
             dc, mig_policy=torch.tensor(S.MIG_THRESHOLD, dtype=torch.int32,
@@ -1858,7 +2384,50 @@ def phase_pass_cost(device, card, n_hosts=100_000, n_vms=50_000):
             mig_threshold=torch.tensor(1.0, device=device)),
         "network": dataclasses.replace(dc, net=S.make_topology(
             torch.zeros(n_hosts, dtype=torch.int32), device=device)),
+        "elastic": dataclasses.replace(dc, scaler=S.make_autoscaler(
+            util_high=2.0, util_low=-1.0, max_fleet=n_vms, spot_t=[0.0],
+            spot_price=[0.02], device=device)),
+        "probed": dataclasses.replace(dc, metrics=M.make_metrics(
+            n_hosts, horizon=12000.0, buckets=32, bins=24, sla_factor=2.0,
+            device=device)),
     }
+
+
+def host_ops(dc):
+    """Host-dispatched aten ops a full step of ``run_stats(dc)``: every
+    op that reaches the dispatcher, counted by a dispatch mode, over the
+    steps evaluated."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core.engine import run_stats
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        _, stats = run_stats(dc, max_steps=8192)
+    return Count.n / stats.n_steps
+
+
+def phase_pass_cost(device, card, n_hosts=100_000, n_vms=50_000):
+    """Phase 19: what the migration, network, elastic, probe and
+    streaming passes cost a full step at the §5 datacenter's size: each
+    variant of ``pass_variants`` and the scenario streamed through a
+    window of every slot must give the static run's events and finish
+    times bit for bit; the line gives wall per evaluated step, host ops
+    a step (counted on the CPU at 2,000 hosts), and the wall of a
+    host-plan rebuild."""
+    import torch
+    from repro_torch.core.engine import run_stats
+    from repro_torch.core.provisioning import provision_pending
+
+    variants = pass_variants(n_hosts, n_vms, device)
+    dc = variants["static"]
+    ops = {name: host_ops(v)
+           for name, v in pass_variants(2000, 1000, "cpu").items()}
     parts, ref = [], None
     for name, variant in variants.items():
         run_stats(variant, max_steps=8192)              # warm
@@ -1873,7 +2442,8 @@ def phase_pass_cost(device, card, n_hosts=100_000, n_vms=50_000):
             final.cloudlets.finish_time, ref[0].cloudlets.finish_time),
             f"pass-cost: the {name} passes changed the run")
         parts.append(f"{name} {wall!r} s for {stats.n_steps} steps "
-                     f"({wall / stats.n_steps * 1e3:.3f} ms a step)")
+                     f"({wall / stats.n_steps * 1e3:.3f} ms a step, "
+                     f"{ops[name]:.1f} host ops a step)")
     # streamed through a window of every slot: the admission pass, the
     # regrouped view and its padded index join every full step (every
     # arrival's finish read back from a reservoir of stride 1)
@@ -1947,6 +2517,14 @@ def phase_profile(device, card):
     sweep.run_grid(batch, *grid, max_steps=8192)          # warm
     profile_top(lambda: sweep.run_grid(batch, *grid, max_steps=8192),
                 "s5 100000 hosts x policy_grid() in one run_grid", card)
+    # the §5 step with the elastic and with the probe passes on
+    # (pass-cost's variants): where their extra wall a step goes
+    for name, dc in pass_variants(100_000, 50_000, device).items():
+        if name in ("elastic", "probed"):
+            run_stats(dc, max_steps=8192)                 # warm
+            profile_top(lambda: run_stats(dc, max_steps=8192),
+                        f"s5 100000 hosts time-shared, {name} passes",
+                        card)
 
 
 def tree_bytes(tree):
@@ -2382,6 +2960,10 @@ def main():
     phase_stream_tight(device, card, launched)
     phase_stream_poisson(device, card, launched)
     phase_stream_lanes(device, card, launched)
+    phase_s5_elastic(device, card, launched)
+    phase_s5_probed(device, card, launched)
+    phase_policy_search(device, card, launched)
+    phase_elastic_stream_lanes(device, card, launched)
     phase_pass_cost(device, card)
     for path, n in launched.items():
         check(n > 0, f"simstep never launched on the {path} path")

@@ -61,8 +61,19 @@ reads the window through a regrouped view rebuilt after every pass
 absolute arrival of ``_full`` and of the leap, whose window a backlog
 keeps closed.
 
-Elastic and probed scenarios, streamed or not, belong to later slices
-of the port; the entry points refuse them.
+Elastic scenarios (an enabled ``AutoscalerState``): the autoscaler is a
+pass that moves VMs, so it runs at block boundaries too.  A full step
+checks on the device whether the autoscaler would act on the lane
+(``_scale_due``) and holds the lane for the boundary when it would; the
+boundary evaluates it again on the state after the instant's admission
+and event rows, applies it (``_apply_autoscaler``), then provisions, as
+the JAX engine's ``step`` orders them.  Spot-segment boundaries are
+absolute arrivals, and each commit accrues ``price * fleet * dt``;
+enabled lanes never leap.  Probed scenarios (an enabled
+``MetricsState``): each commit, of a full step or a leap iteration,
+books its interval and its retirements into the plane
+(``_probe_commit``) with the same f32 arithmetic, so the plane is the
+same bits with the leap on or off.
 """
 from __future__ import annotations
 
@@ -72,7 +83,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import energy, migration, network, scheduling
+from repro_torch.core import (energy, market, metrics, migration, network,
+                              scheduling)
 from repro_torch.core.streaming import StreamChunkRecord, StreamRun
 from repro_torch.core.migration import Migration
 from repro_torch.core.network import wants_network
@@ -98,7 +110,8 @@ __all__ = ["step", "run", "run_stats", "run_trace", "batched_run",
            "batched_run_stats", "run_stream", "run_stream_stats",
            "batched_run_stream", "RunStats", "StepRecord",
            "StreamChunkRecord",
-           "apply_due_events", "wants_dynamic", "wants_network",
+           "apply_due_events", "apply_autoscaler", "wants_dynamic",
+           "wants_network",
            "wants_elastic", "wants_probes"]
 
 # completion snap band dt * (1 + 1e-5) + 1e-9, mirrored by the oracle's
@@ -142,6 +155,7 @@ class RunStats(NamedTuple):
     n_blocks: int       # host checks
     n_plans: int        # host plans built (after placements moved)
     n_passes: int = 0   # admission passes evaluated (streamed runs)
+    n_scale: int = 0    # block boundaries where the autoscaler acted
 
 
 class _Passes(NamedTuple):
@@ -149,6 +163,9 @@ class _Passes(NamedTuple):
     dynamic: bool       # event table and migration-copy countdowns
     migration: bool     # some lane has a migration policy
     network: bool       # some lane has an enabled topology
+    elastic: bool = False   # some lane has an enabled autoscaler or spot
+    #                         track: the scaler check and the spot terms
+    probed: bool = False    # some lane has an enabled metrics plane
 
 
 _STATIC = _Passes(False, False, False)
@@ -180,6 +197,28 @@ def _hit(n: int, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         1, idx, mask.to(torch.int32)) > 0
 
 
+def _return_pools(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
+                  destroy: torch.Tensor):
+    """(free_ram, free_bw, free_storage, free_pes) [B, H] with the
+    resources of the destroyed VMs (``destroy``, bool[B, V]) that hold a
+    host given back to it.  The returns of several VMs of one host add
+    in the plan's fixed order (creation time, slot); ``plan`` is the
+    host plan of ``dc``."""
+    hosts, vms = dc.hosts, dc.vms
+    b, h = lanes.n_lanes, lanes.n_hosts
+    returning = destroy & (vms.state == VM_ACTIVE) & (vms.host >= 0)
+
+    def give(pool, x):
+        back = torch.where(returning, x, 0.0).reshape(-1)
+        return pool + host_sums(back, plan, b * h).view(b, h)
+
+    reserve = torch.where(dc.reserve_pes[:, None] == 1,
+                          vms.req_pes.to(torch.float32), 0.0)
+    return (give(hosts.free_ram, vms.ram), give(hosts.free_bw, vms.bw),
+            give(hosts.free_storage, vms.size),
+            give(hosts.free_pes, reserve))
+
+
 def _apply_events(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
                   mask: torch.Tensor) -> DatacenterState:
     """``apply_due_events`` on the lanes ``mask`` (bool[B]); ``plan`` is
@@ -207,18 +246,8 @@ def _apply_events(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
     # ---- 1. VM destroys ---------------------------------------------------
     destroy = (_hit(v, tv, due_v & (ev_k == EV_VM_DESTROY))
                & alive_mask(vms))
-    returning = destroy & (vms.state == VM_ACTIVE) & (vms.host >= 0)
-
-    def give(pool, x):
-        back = torch.where(returning, x, 0.0).reshape(-1)
-        return pool + host_sums(back, plan, b * h).view(b, h)
-
-    reserve = torch.where(dc.reserve_pes[:, None] == 1,
-                          vms.req_pes.to(torch.float32), 0.0)
-    free_ram = give(hosts.free_ram, vms.ram)
-    free_bw = give(hosts.free_bw, vms.bw)
-    free_storage = give(hosts.free_storage, vms.size)
-    free_pes = give(hosts.free_pes, reserve)
+    free_ram, free_bw, free_storage, free_pes = _return_pools(
+        dc, lanes, plan, destroy)
     vm_state = torch.where(destroy, VM_DESTROYED, vms.state)
     vm_host = torch.where(destroy, -1, vms.host)
     mig_rem = torch.where(destroy, 0.0, vms.mig_remaining)
@@ -284,6 +313,141 @@ def apply_due_events(dc: DatacenterState) -> DatacenterState:
     return map_tensors(lambda t: t[0], out)
 
 
+# ---------------------------------------------------------------------------
+# The autoscaler, on every lane of a batch
+# ---------------------------------------------------------------------------
+class _Scale(NamedTuple):
+    """The autoscaler's reading of each lane (``_scale_terms``)."""
+    want_up: torch.Tensor       # bool[B]
+    want_down: torch.Tensor     # bool[B]
+    empty: torch.Tensor         # bool[B, V] VM_EMPTY slots
+    drained: torch.Tensor       # bool[B, V] alive, no unfinished cloudlet,
+    #                             not mid-migration
+    up_quota: torch.Tensor      # i32[B]
+    down_quota: torch.Tensor    # i32[B]
+
+
+def _scale_terms(dc: DatacenterState) -> _Scale:
+    """What ``apply_autoscaler`` reads, per lane.  Utilization is the
+    integer ratio of busy ACTIVE VMs (>= 1 cloudlet runnable now) over
+    alive ones; actions need work (a ``CL_CREATED`` cloudlet), the
+    cooldown passed, and for a scale-up a price within the spot
+    sensitivity.  The per-VM counts are integer scatters, exact in any
+    order."""
+    vms, cl, sc = dc.vms, dc.cloudlets, dc.scaler
+    b, v = vms.state.shape
+    dev = vms.state.device
+    alive = alive_mask(vms)
+    fleet = alive.sum(dim=-1, dtype=torch.int32)
+    owner = (torch.clamp(cl.vm, 0, max(v - 1, 0)).long()
+             + torch.arange(b, device=dev)[:, None] * v).reshape(-1)
+    assigned = (cl.state == CL_CREATED) & (cl.vm >= 0)
+    current = (assigned & (cl.submit_time <= dc.time[:, None])
+               & (cl.remaining > 0.0))
+    counts = torch.zeros((b * v, 2), dtype=torch.int32,
+                         device=dev).index_add_(
+        0, owner, torch.stack([assigned, current], dim=-1).reshape(
+            -1, 2).to(torch.int32)).view(b, v, 2)
+    busy = (vms.state == VM_ACTIVE) & (counts[..., 1] > 0)
+    util = (busy.sum(dim=-1, dtype=torch.int32).to(torch.float32)
+            / torch.clamp(fleet, min=1).to(torch.float32))
+    work = (cl.state == CL_CREATED).any(dim=-1)
+    ready = (dc.time - sc.last_action) >= sc.cooldown
+    price = market.spot_price_at(sc, dc.time)
+    price_ok = ((sc.spot_enabled == 0) | (sc.price_sensitivity <= 0.0)
+                | (price <= sc.price_sensitivity))
+    want_up = (work & ready & (util > sc.util_high)
+               & (fleet < sc.max_fleet) & price_ok)
+    want_down = (~want_up & work & ready & (util < sc.util_low)
+                 & (fleet > sc.min_fleet))
+    return _Scale(
+        want_up=want_up, want_down=want_down,
+        empty=vms.state == VM_EMPTY,
+        drained=alive & (counts[..., 0] == 0) & (vms.mig_remaining <= 0.0),
+        up_quota=torch.minimum(sc.scale_step, sc.max_fleet - fleet),
+        down_quota=torch.minimum(sc.scale_step, fleet - sc.min_fleet))
+
+
+def _scale_due(dc: DatacenterState) -> torch.Tensor:
+    """bool[B] — lanes whose enabled autoscaler would act now: a wanted
+    scale-up with some EMPTY slot to create, or a wanted scale-down with
+    some drained VM to destroy (with nothing to do, ``apply_autoscaler``
+    is a bit-exact identity)."""
+    t = _scale_terms(dc)
+    return (dc.scaler.enabled == 1) & (
+        (t.want_up & t.empty.any(dim=-1) & (t.up_quota >= 1))
+        | (t.want_down & t.drained.any(dim=-1) & (t.down_quota >= 1)))
+
+
+def _apply_autoscaler(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
+                      mask: torch.Tensor) -> DatacenterState:
+    """``apply_autoscaler`` on the lanes ``mask`` (bool[B]); ``plan`` is
+    the host plan of ``dc``.  A scale-up turns the lowest-index EMPTY
+    slots PENDING (their build-time submit times are kept); a scale-down
+    destroys the highest-index drained VMs with ``EV_VM_DESTROY``'s
+    rules, their resources back to their hosts in the plan's order."""
+    t = _scale_terms(dc)
+    vms, cl, sc = dc.vms, dc.cloudlets, dc.scaler
+    v = vms.state.shape[1]
+    create = ((mask & t.want_up)[:, None] & t.empty
+              & (torch.cumsum(t.empty.to(torch.int32), dim=-1)
+                 <= t.up_quota[:, None]))
+    rank_hi = torch.flip(torch.cumsum(torch.flip(
+        t.drained.to(torch.int32), dims=[-1]), dim=-1), dims=[-1])
+    destroy = ((mask & t.want_down)[:, None] & t.drained
+               & (rank_hi <= t.down_quota[:, None]))
+    n_up = create.sum(dim=-1, dtype=torch.int32)
+    n_down = destroy.sum(dim=-1, dtype=torch.int32)
+    free_ram, free_bw, free_storage, free_pes = _return_pools(
+        dc, lanes, plan, destroy)
+    # drained VMs hold no unfinished cloudlet, so this cancel is a no-op
+    # (kept from the event pass's destroy, as the JAX engine keeps it)
+    owner = torch.clamp(cl.vm, 0, max(v - 1, 0)).long()
+    cancel = ((cl.state == CL_CREATED) & (cl.vm >= 0)
+              & destroy.gather(1, owner))
+    i32 = lambda x: x.to(torch.int32)
+    return dataclasses.replace(
+        dc,
+        hosts=dataclasses.replace(
+            dc.hosts, free_ram=free_ram, free_bw=free_bw,
+            free_storage=free_storage, free_pes=free_pes),
+        vms=dataclasses.replace(
+            vms,
+            state=i32(torch.where(destroy, VM_DESTROYED, torch.where(
+                create, VM_PENDING, vms.state))),
+            host=i32(torch.where(destroy, -1, vms.host)),
+            mig_remaining=torch.where(destroy, 0.0, vms.mig_remaining)),
+        cloudlets=dataclasses.replace(
+            cl, state=i32(torch.where(cancel, CL_FAILED, cl.state))),
+        scaler=dataclasses.replace(
+            sc,
+            last_action=torch.where((n_up + n_down) > 0, dc.time,
+                                    sc.last_action),
+            up_count=sc.up_count + n_up,
+            down_count=sc.down_count + n_down))
+
+
+def apply_autoscaler(dc: DatacenterState) -> DatacenterState:
+    """One closed-loop evaluation of the autoscaler on one state (the
+    JAX engine's ``apply_autoscaler``): outside the cooldown, ``util >
+    util_high`` creates up to ``scale_step`` lowest-index EMPTY slots and
+    ``util < util_low`` destroys up to ``scale_step`` highest-index
+    drained VMs, within the fleet bounds; a spot track with
+    ``price_sensitivity > 0`` vetoes scale-ups above it.  With no action
+    due this is a bit-exact identity."""
+    batch = lane_axis(dc)
+    lanes = lanes_of(batch)
+    mask = torch.ones((1,), dtype=torch.bool, device=dc.time.device)
+    out = _apply_autoscaler(batch, lanes, host_plan(batch, lanes), mask)
+    return map_tensors(lambda t: t[0], out)
+
+
+def _lane_elastic(batch: DatacenterState) -> torch.Tensor:
+    """bool[B] — lanes with an enabled autoscaler or spot track
+    (constant over a run)."""
+    return (batch.scaler.enabled == 1) | (batch.scaler.spot_enabled == 1)
+
+
 def _dynamic_deltas(dc: DatacenterState, trig_next):
     """(dt f32[B], arrive f32[B]) — each lane's earliest dynamic wakeup:
     migration-copy completions (deltas) and a zero-dt chain event when a
@@ -345,12 +509,66 @@ def _with_stream(arrive: torch.Tensor, dc: DatacenterState, next_arrival
                                              next_arrival, INF))
 
 
+def _sla_bound(dc: DatacenterState, lanes: Lanes) -> torch.Tensor:
+    """f32[B, C] each cloudlet's SLA response bound: the plane's factor
+    times its length over its VM's requested MIPS."""
+    mips = dc.vms.req_mips.reshape(-1)[lanes.slot_vm].view_as(
+        dc.cloudlets.length)
+    ideal = dc.cloudlets.length / torch.clamp(mips, min=1e-30)
+    return dc.metrics.sla_factor[:, None] * ideal
+
+
+def _retire(m, pre: DatacenterState, new: DatacenterState, lanes: Lanes,
+            was_done: torch.Tensor):
+    """``m`` with the cloudlets DONE in ``new`` and not in ``was_done``
+    booked (``metrics.fill_retirement``)."""
+    ncl = new.cloudlets
+    return metrics.fill_retirement(
+        m, newly=(ncl.state == CL_DONE) & ~was_done,
+        finish=ncl.finish_time, submit=ncl.submit_time,
+        start=ncl.start_time, bound=_sla_bound(pre, lanes))
+
+
+def _probe_commit(pre: DatacenterState, new: DatacenterState, lanes: Lanes,
+                  plan: HostPlan, rates, consumed, host_watts, dt, frates,
+                  was_done):
+    """The metrics plane of ``new`` after one commit from ``pre`` (the
+    state whose ``rates`` it used; every observable is constant on
+    ``[pre.time, new.time)``).  ``consumed`` is each host's MIPS
+    (``scheduling.host_consumed``, f64[B*H]); a lane's sums over hosts
+    run in a fixed order (``pairwise_sum``, in f64), so a lane gives the
+    same bits alone or in a batch; ``was_done`` is the DONE mask the
+    step started from."""
+    b, h = lanes.n_lanes, lanes.n_hosts
+    hosts, cl = pre.hosts, pre.cloudlets
+    valid_mips = torch.where(hosts.valid, hosts.capacity_mips, 0.0)
+    used, watts, host_mips = pairwise_sum(torch.stack([
+        consumed.view(b, h), host_watts.double(),
+        valid_mips.double()])).to(torch.float32)
+    util = used / torch.clamp(host_mips, min=1e-30)
+    backlog = ((cl.state == CL_CREATED)
+               & (cl.submit_time <= pre.time[:, None])
+               & (cl.remaining > 0.0) & (rates <= 0.0)).sum(
+        dim=-1, dtype=torch.int32)
+    busy = torch.zeros((b * h,), dtype=torch.int32,
+                       device=rates.device).index_add_(
+        0, plan.slot_host, (rates > 0.0).to(torch.int32).reshape(-1)) > 0
+    flows = (torch.zeros_like(backlog) if frates is None
+             else (frates > 0.0).sum(dim=-1, dtype=torch.int32))
+    m = metrics.accrue_interval(
+        pre.metrics, t0=pre.time, t1=new.time, util=util, watts=watts,
+        fleet=alive_fleet(pre.vms).to(torch.float32), backlog=backlog,
+        flows=flows, busy_hosts=busy.view(b, h).to(torch.float32), dt=dt)
+    return _retire(m, pre, new, lanes, was_done)
+
+
 def _commit(dc: DatacenterState, lanes: Lanes, plan: HostPlan, rates,
             finish_dt, dt, t_next, *, stamp_start: bool,
-            passes: _Passes = _STATIC, flows=None):
+            passes: _Passes = _STATIC, flows=None, was_done=None):
     """The commit of one event at ``rates`` ([B, C]) over ``dt`` ([B]),
     clock to ``t_next``.  ``flows`` is (flow rates, flow deltas) of the
-    networked step.  Returns (new state, host watts f32[B, H], copies
+    networked step; ``was_done`` the DONE mask the step started from
+    (probed passes).  Returns (new state, host watts f32[B, H], copies
     done bool[B, V] or None)."""
     cl = dc.cloudlets
     executed = rates * dt[:, None]
@@ -399,8 +617,9 @@ def _commit(dc: DatacenterState, lanes: Lanes, plan: HostPlan, rates,
     pe_seconds, moved_mb = pairwise_sum(torch.stack([pe, moved]))
 
     # energy: rates, hence watts, are constant on [time, time + dt)
+    consumed = scheduling.host_consumed(rates.reshape(-1), lanes, plan)
     host_watts = energy.host_power(dc.hosts, energy.utilization_of(
-        dc.hosts, scheduling.host_consumed(rates.reshape(-1), lanes, plan)))
+        dc.hosts, consumed))
     energy_j = dc.hosts.energy_j + host_watts * dt[:, None]
     bw_cost = dc.acct.bw_cost + dc.rates.cost_per_bw * moved_mb
     transferred = dc.net_transferred_mb
@@ -422,6 +641,16 @@ def _commit(dc: DatacenterState, lanes: Lanes, plan: HostPlan, rates,
             mig_done, 0.0, torch.where(
                 mig > 0.0, torch.clamp(mig - dt[:, None], min=0.0), mig)))
 
+    scaler = dc.scaler
+    if passes.elastic:
+        # spot spend: price and fleet are constant on [time, time + dt)
+        # (boundaries are events), so price * fleet * dt is exact; zero
+        # price while the track is disabled
+        spot_rate = (market.spot_price_at(scaler, dc.time)
+                     * alive_fleet(dc.vms).to(torch.float32))
+        scaler = dataclasses.replace(
+            scaler, spot_cost=scaler.spot_cost + spot_rate * dt)
+
     new = dataclasses.replace(
         dc,
         hosts=dataclasses.replace(dc.hosts, energy_j=energy_j),
@@ -438,7 +667,12 @@ def _commit(dc: DatacenterState, lanes: Lanes, plan: HostPlan, rates,
             + dc.rates.cost_per_cpu_sec * pe_seconds,
             bw_cost=bw_cost),
         time=t_next,
-        net_transferred_mb=transferred)
+        net_transferred_mb=transferred,
+        scaler=scaler)
+    if passes.probed:
+        new = dataclasses.replace(new, metrics=_probe_commit(
+            dc, new, lanes, plan, rates, consumed, host_watts, dt,
+            flows[0] if flows is not None else None, was_done))
     return new, host_watts, mig_done
 
 
@@ -483,9 +717,19 @@ def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
     the lane (``_Step.hold``) for the boundary to apply.
     ``next_arrival`` (f32[B]) is each streamed lane's next unadmitted
     arrival; a backlog (one at or before the new clock) keeps the leap's
-    window shut, since any completion would make its admission due."""
+    window shut, since any completion would make its admission due.
+    Probed passes book the staging drains that complete at the top of
+    the step (``advance_phases``) with the phases, so a held lane keeps
+    them booked once."""
+    was_done = None
+    if passes.probed:
+        was_done = dc.cloudlets.state == CL_DONE
     if passes.network:
         dc = network.lane_advance_phases(dc, lanes)
+        if passes.probed:
+            dc = dataclasses.replace(dc, metrics=_retire(
+                dc.metrics, dc, dc, lanes, was_done))
+            was_done = dc.cloudlets.state == CL_DONE
     phased = dc
     rates, dt_finish, counts = scheduling.lane_rates(
         dc, lanes, plan, networked=passes.network)
@@ -494,6 +738,11 @@ def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
     finish_dt = torch.where(rates > 0.0,
                             cl.remaining / torch.clamp(rates, min=1e-30), INF)
     arrive = _with_stream(_arrivals(dc), dc, next_arrival)
+    if passes.elastic:
+        # spot-segment boundaries are absolute arrivals (exact f32 table
+        # values); INF while the track is disabled
+        arrive = torch.minimum(arrive, market.next_spot_boundary(dc.scaler,
+                                                                 dc.time))
     dt_other = dt_finish
     hold = mig = trig_next = None
     if passes.dynamic:
@@ -522,7 +771,8 @@ def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
                          dc.time)
     new, host_watts, mig_done = _commit(dc, lanes, plan, rates, finish_dt,
                                         dt, t_next, stamp_start=True,
-                                        passes=passes, flows=flows)
+                                        passes=passes, flows=flows,
+                                        was_done=was_done)
     # a window can commit only while some cloudlet keeps its rate
     survivors = ((rates > 0.0)
                  & (new.cloudlets.state == CL_CREATED)).any(dim=-1)
@@ -536,6 +786,10 @@ def _full(dc: DatacenterState, lanes: Lanes, plan: HostPlan,
             opens &= ~trig_next & _quiet(new, rates, lanes, plan)
     if passes.network:
         opens &= dc.net.enabled != 1
+    if passes.elastic:
+        # the autoscaler decides at every event and spot boundaries are
+        # events: enabled lanes never leap
+        opens &= (dc.scaler.enabled == 0) & (dc.scaler.spot_enabled == 0)
     return _Step(new, active, rates, host_watts, counts, opens, hold, mig,
                  phased, frates)
 
@@ -579,6 +833,9 @@ def _body(dc: DatacenterState, lanes: Lanes, plan: HostPlan, r0, n_now,
                             cl.remaining / torch.clamp(r, min=1e-30), INF)
     dt_o = lane_min(finish_dt)
     arr = _with_stream(_arrivals(dc), dc, next_arrival)
+    if passes.elastic:
+        arr = torch.minimum(arr, market.next_spot_boundary(dc.scaler,
+                                                           dc.time))
     if passes.dynamic:
         dt_dyn, arr_ev = _dynamic_deltas(dc, None)
         dt_o = torch.minimum(dt_o, dt_dyn)
@@ -588,10 +845,13 @@ def _body(dc: DatacenterState, lanes: Lanes, plan: HostPlan, r0, n_now,
     act = dt < INF
     dt = torch.where(act, dt, 0.0)
     t_next = dc.time + dt
-    # enabled networked lanes never leap: the static commit serves
-    frozen = _Passes(passes.dynamic, False, False)
-    cand, _, mig_done = _commit(dc, lanes, plan, r, finish_dt, dt, t_next,
-                                stamp_start=False, passes=frozen)
+    # enabled networked and elastic lanes never leap: the static commit
+    # serves, with the probes of a full step
+    frozen = _Passes(passes.dynamic, False, False, probed=passes.probed)
+    cand, _, mig_done = _commit(
+        dc, lanes, plan, r, finish_dt, dt, t_next, stamp_start=False,
+        passes=frozen,
+        was_done=(cl.state == CL_DONE) if passes.probed else None)
     safe, n_post = _drain_safe(n_now, cand, lanes, plan,
                                networked=passes.network)
     do = go & act & (d_arr > dt_o) & (arr > t_next) & safe
@@ -615,8 +875,18 @@ def _select(go: torch.Tensor, new: DatacenterState, old: DatacenterState,
     if passes.dynamic:
         vms = dataclasses.replace(vms, mig_remaining=w(
             new.vms.mig_remaining, vms.mig_remaining))
+    scaler, plane = old.scaler, old.metrics
+    if passes.elastic:
+        scaler = dataclasses.replace(scaler, spot_cost=w(
+            new.scaler.spot_cost, old.scaler.spot_cost))
+    if passes.probed:
+        plane = metrics.MetricsState(**{
+            f.name: w(getattr(new.metrics, f.name), getattr(plane, f.name))
+            for f in dataclasses.fields(plane)})
     return dataclasses.replace(
         old,
+        scaler=scaler,
+        metrics=plane,
         hosts=dataclasses.replace(
             old.hosts, energy_j=w(new.hosts.energy_j, old.hosts.energy_j)),
         vms=vms,
@@ -678,24 +948,17 @@ def wants_probes(dc: DatacenterState) -> bool:
     return bool((dc.metrics.enabled != 0).any())
 
 
-def _require_supported(dc: DatacenterState) -> None:
-    for name, wants in (("elastic", wants_elastic),
-                        ("probed", wants_probes)):
-        if wants(dc):
-            raise NotImplementedError(
-                f"repro_torch does not run {name} scenarios yet (its slice "
-                f"of the port is not done)")
-
-
 def _passes_of(dc: DatacenterState) -> _Passes:
     """The passes a run of ``dc`` (one state or a batch) may need: the
-    JAX engine's ``wants_dynamic``/``wants_network``, and whether any
-    lane has a migration policy at all."""
+    JAX engine's ``wants_dynamic``/``wants_network``/``wants_elastic``/
+    ``wants_probes``, and whether any lane has a migration policy at
+    all."""
     dynamic = wants_dynamic(dc)
     return _Passes(dynamic=dynamic,
                    migration=dynamic and bool((dc.mig_policy
                                                != MIG_OFF).any()),
-                   network=wants_network(dc))
+                   network=wants_network(dc), elastic=wants_elastic(dc),
+                   probed=wants_probes(dc))
 
 
 # ---------------------------------------------------------------------------
@@ -716,13 +979,13 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
     arrival, or INF) joins the event queue as an absolute arrival;
     admission itself happens between steps.
 
-    In order, as the JAX engine's ``step``: due event rows, provisioning,
-    staging phases, rates, at most one migration (and the rates again),
-    flow rates, the commit.  At quiescence (no runnable work, no future
-    submissions, no pending events or transfers) the state comes back
-    bit-for-bit unchanged with ``active == False``.
+    In order, as the JAX engine's ``step``: due event rows, the
+    autoscaler, provisioning, staging phases, rates, at most one
+    migration (and the rates again), flow rates, the commit (with the
+    spot accrual and the probes).  At quiescence (no runnable work, no
+    future submissions, no pending events or transfers) the state comes
+    back bit-for-bit unchanged with ``active == False``.
     """
-    _require_supported(dc)
     passes = _passes_of(dc)
     batch = lane_axis(dc)
     lanes = lanes_of(batch, streaming=streaming)
@@ -734,6 +997,10 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
     if passes.dynamic and bool(_event_due(batch)[0]):
         batch = _apply_events(batch, lanes, host_plan(batch, lanes),
                               torch.ones((1,), dtype=torch.bool, device=dev))
+    if passes.elastic and bool(_scale_due(batch)[0]):
+        batch = _apply_autoscaler(
+            batch, lanes, host_plan(batch, lanes),
+            torch.ones((1,), dtype=torch.bool, device=dev))
     if bool(pending_due(batch)[0]):
         batch = lane_axis(provision_pending(
             map_tensors(lambda t: t[0], batch), provision_policy))
@@ -810,6 +1077,8 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
     n, n_full, used = i32(), i32(), i32()
     alive = torch.ones((nb,), dtype=torch.bool, device=dev)
     window, held, after = no(), no(), no()
+    scaled = no()       # the autoscaler was evaluated at the boundary on
+    #                     the state the lane's next full step starts from
     pend = None         # the decisions of the held lanes
     r0 = torch.zeros(batch.cloudlets.remaining.shape, dtype=torch.float32,
                      device=dev)
@@ -817,7 +1086,7 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
     plan = None
     nxt = None          # each streamed lane's next unadmitted arrival
     steps_len, leap_len, kind = block, 1, None
-    n_steps = n_leap = n_blocks = n_plans = 0
+    n_steps = n_leap = n_blocks = n_plans = n_scale = 0
 
     def admit(batch, lanes, plan, mask, ends=False):
         # the admission pass, then the regrouped view it changed
@@ -832,20 +1101,28 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
             live = alive & (n < max_steps) & (batch.time < hor)
         else:
             live = stream.live()
-        rows = [live, live & pending_due(batch), window, used, held]
+        rows = dict(live=live, due=live & pending_due(batch), window=window,
+                    used=used, held=held)
         if passes.dynamic:
-            rows += [live & _event_due(batch), live & _lane_dynamic(batch)]
+            rows.update(ev=live & _event_due(batch),
+                        dyn=live & _lane_dynamic(batch))
         if passes.network:
-            rows.append(live & (batch.net.enabled == 1))
+            rows.update(net=live & (batch.net.enabled == 1))
+        if passes.elastic:
+            rows.update(ela=live & _lane_elastic(batch))
+        if passes.probed:
+            rows.update(prb=live & (batch.metrics.enabled == 1))
         if stream is not None:
-            rows.append(live & stream.ending())
-        read = torch.stack([r.to(torch.int32) for r in rows]).tolist()
-        live_h, due_h, window_h, used_h, held_h = read[:5]
-        ev_h = read[5] if passes.dynamic else [0]
-        dyn_now = passes.dynamic and any(read[6])
-        net_now = passes.network and any(read[5 + 2 * passes.dynamic])
-        ends_h = read[-1] if stream is not None else [0]
-        bp = _Passes(dyn_now, passes.migration and dyn_now, net_now)
+            rows.update(ends=live & stream.ending())
+        read = dict(zip(rows, torch.stack(
+            [r.to(torch.int32) for r in rows.values()]).tolist()))
+        live_h, due_h, window_h, used_h, held_h = (
+            read[k] for k in ("live", "due", "window", "used", "held"))
+        ev_h, ends_h = read.get("ev", [0]), read.get("ends", [0])
+        dyn_now = any(read.get("dyn", [0]))
+        bp = _Passes(dyn_now, passes.migration and dyn_now,
+                     any(read.get("net", [0])), any(read.get("ela", [0])),
+                     any(read.get("prb", [0])))
         n_blocks += 1
         most = max(used_h)
         if any(window_h):
@@ -898,6 +1175,23 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
                 ev_h, dtype=torch.bool, device=dev))
             due_h = (live & pending_due(batch)).tolist()
             moved = True
+        if bp.elastic:
+            # the autoscaler, on the state after the instant's admission
+            # and event rows, of every lane about to take a full step
+            # that starts an instant (a held lane and the re-rated step
+            # after a migration are past it)
+            scaled = live & ~window & ~held & ~after
+            if stream is not None:
+                scaled &= stream.ready()
+            scale = scaled & _scale_due(batch)
+            if bool(scale.any()):
+                if moved or plan is None:
+                    plan = host_plan(batch, lanes)
+                    n_plans += 1
+                batch = _apply_autoscaler(batch, lanes, plan, scale)
+                due_h = (live & pending_due(batch)).tolist()
+                moved = True
+                n_scale += 1
         if any(held_h):
             batch = migration.lane_apply(batch, pend._replace(
                 trigger=pend.trigger & held))
@@ -922,6 +1216,9 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
             go = go & ~pending_due(batch) & ~window
             if bp.dynamic:
                 go &= ~_event_due(batch) & ~held
+            if bp.elastic:
+                # a lane whose autoscaler would act waits for the boundary
+                go &= ~(_scale_due(batch) & ~(scaled | after))
             if i and i % PEEK == 0:
                 # every lane may be waiting for the boundary already
                 n_blocks += 1
@@ -936,6 +1233,8 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
                 pend = st.mig if pend is None else Migration(*(
                     torch.where(hold, a, b) for a, b in zip(st.mig, pend)))
                 after = after & ~commit
+            if bp.elastic:
+                scaled = scaled & ~commit
             done = (commit & st.active).to(torch.int32)
             if leap:
                 safe, n_post = _drain_safe(st.counts, st.new, lanes, plan,
@@ -963,7 +1262,8 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
     n_events, full = torch.stack([n.sum(), n_full.sum()]).tolist()
     return batch, RunStats(n_events=n_events, n_full=full, n_steps=n_steps,
                            n_leap=n_leap, n_blocks=n_blocks, n_plans=n_plans,
-                           n_passes=stream.n_passes if stream else 0)
+                           n_passes=stream.n_passes if stream else 0,
+                           n_scale=n_scale)
 
 
 def run_stats(dc: DatacenterState, *, max_steps: int = 1_000_000,
@@ -971,7 +1271,6 @@ def run_stats(dc: DatacenterState, *, max_steps: int = 1_000_000,
               provision_policy: int = FIRST_FIT, leap: bool | None = None,
               block: int = BLOCK) -> tuple[DatacenterState, RunStats]:
     """``run``, also returning what it did (``RunStats``)."""
-    _require_supported(dc)
     out, stats = _drive(lane_axis(dc), max_steps=max_steps,
                         horizon=horizon, provision_policy=provision_policy,
                         leap=_LEAP_DEFAULT if leap is None else leap,
@@ -989,8 +1288,7 @@ def run(dc: DatacenterState, *, max_steps: int = 1_000_000,
     clock has passed ``horizon`` (simulated seconds), or after
     ``max_steps`` events, as the JAX engine's ``run`` does; ``leap``
     (default on) as there.  At most ``block`` steps run between two host
-    checks; the result does not depend on it.  Raises
-    ``NotImplementedError`` for an elastic or probed scenario.
+    checks; the result does not depend on it.
     """
     return run_stats(dc, max_steps=max_steps, horizon=horizon,
                      provision_policy=provision_policy, leap=leap,
@@ -1004,7 +1302,6 @@ def batched_run_stats(batch: DatacenterState, *, max_steps: int,
                       ) -> tuple[DatacenterState, RunStats]:
     """``batched_run``, also returning what it did (``RunStats``, summed
     over lanes)."""
-    _require_supported(batch)
     return _drive(batch, max_steps=max_steps, horizon=horizon,
                   provision_policy=provision_policy,
                   leap=_LEAP_DEFAULT if leap is None else leap, block=block,
@@ -1021,9 +1318,9 @@ def batched_run(batch: DatacenterState, *, max_steps: int,
     Each lane is masked on ``alive & n < max_steps & time < horizon``,
     finished lanes are frozen by a per-lane select, and the loop ends
     when no lane is live.  Every pass runs once for all lanes (one
-    simstep launch a full step), a block runs the dynamic and networked
-    passes only while a live lane needs them, and lane i equals ``run``
-    of that scenario bit for bit.
+    simstep launch a full step), a block runs the dynamic, networked,
+    elastic and probe passes only while a live lane needs them, and lane
+    i equals ``run`` of that scenario bit for bit.
     """
     return batched_run_stats(batch, max_steps=max_steps, horizon=horizon,
                              provision_policy=provision_policy, leap=leap,
@@ -1063,7 +1360,6 @@ def batched_run_stream(batch: DatacenterState, streams: ArrivalStream, *,
     (``sweep.stack_streams``).  Returns (final state, ``StreamState``,
     per-chunk records [B, K], ``RunStats``); lane i equals the single
     ``run_stream`` of its scenario bit for bit."""
-    _require_supported(batch)
     n_vms = batch.vms.req_pes.shape[-1]
     n_slots = batch.cloudlets.vm.shape[-1]
     run = StreamRun(streams, make_stream_states(streams, n_vms, n_slots,
@@ -1109,7 +1405,6 @@ def run_stream(dc: DatacenterState, stream: ArrivalStream, *,
     events, as in the JAX engine.  Returns (final state,
     ``StreamState``, per-chunk ``StreamChunkRecord`` [K]): the workload's
     answers are in ``StreamState.stats``, energy and costs on the state.
-    Raises ``NotImplementedError`` for an elastic or probed scenario.
     """
     return run_stream_stats(dc, stream, reservoir=reservoir,
                             provision_policy=provision_policy, leap=leap,

@@ -2,20 +2,26 @@
 
 Memory and storage bill at VM creation (provisioning), CPU per PE-second
 consumed and bandwidth per MB transferred (engine).  This module holds
-the quotes, the per-VM bill and the surge pricing of revenue sweeps.
-The spot-price functions come with the elastic slice of the port.
+the quotes, the per-VM bill, the surge pricing of revenue sweeps, and
+the spot market: the piecewise-constant price tracks of the autoscaler
+(``AutoscalerState.spot_t``/``spot_price``) and of federated providers
+(``SpotMarket``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import state as S
+from repro_torch.device import resolve_device
 
 __all__ = ["quote_vm", "quote_cloudlet", "bill_by_vm", "flat_rates",
-           "PricingPolicy", "tiered_cpu_rates"]
+           "PricingPolicy", "tiered_cpu_rates", "SpotMarket",
+           "make_spot_market", "spot_price_at", "next_spot_boundary",
+           "mean_spot_price", "cheapest_spot_provider"]
 
 
 def quote_vm(rates: S.MarketRates, *, ram: float, size: float
@@ -85,3 +91,100 @@ def tiered_cpu_rates(policy: PricingPolicy, utilization) -> S.MarketRates:
     surge = torch.where(as_t(utilization) > as_t(policy.surge_threshold),
                         as_t(policy.surge_factor), 1.0)
     return dataclasses.replace(policy.base, cost_per_cpu_sec=base * surge)
+
+
+# ---------------------------------------------------------------------------
+# Spot market
+# ---------------------------------------------------------------------------
+class SpotMarket(NamedTuple):
+    """Piecewise-constant spot prices across D federated providers.
+
+    Segment ``i`` of provider ``d`` charges ``prices[d, i]`` $ per
+    alive-VM-second over ``[times[d, i], times[d, i+1])``; the last
+    segment extends forever.  Rows start at 0 and strictly increase
+    (``make_spot_market`` pads ragged tracks by extending the final
+    segment)."""
+    times: torch.Tensor     # f32[D, T] segment start times, row[0] = 0
+    prices: torch.Tensor    # f32[D, T] $ per alive-VM-second
+
+
+def make_spot_market(tracks, *, device=None) -> SpotMarket:
+    """``SpotMarket`` from per-provider ``(times, prices)`` pairs (ragged
+    lengths allowed; shorter tracks are padded past their end)."""
+    if not tracks:
+        raise ValueError("need at least one provider track")
+    ts, ps = [], []
+    for times, prices in tracks:
+        t = np.asarray(times, np.float32).reshape(-1)
+        p = np.asarray(prices, np.float32).reshape(-1)
+        if t.shape != p.shape:
+            raise ValueError("times and prices must have equal length")
+        if t.shape[0] == 0 or t[0] != 0.0 or np.any(np.diff(t) <= 0.0):
+            raise ValueError("times must start at 0 and strictly increase")
+        ts.append(t)
+        ps.append(p)
+    width = max(t.shape[0] for t in ts)
+    pad_t = [np.concatenate([t, t[-1] + np.arange(1, width - t.shape[0] + 1,
+                                                  dtype=np.float32)])
+             for t in ts]
+    pad_p = [np.concatenate([p, np.full(width - p.shape[0], p[-1],
+                                        np.float32)]) for p in ps]
+    dev = resolve_device(device)
+    return SpotMarket(times=torch.from_numpy(np.stack(pad_t)).to(dev),
+                      prices=torch.from_numpy(np.stack(pad_p)).to(dev))
+
+
+def _clock(scaler: S.AutoscalerState, time) -> torch.Tensor:
+    return torch.as_tensor(time, dtype=torch.float32,
+                           device=scaler.spot_t.device)
+
+
+def spot_price_at(scaler: S.AutoscalerState, time) -> torch.Tensor:
+    """f32[...] — the current spot price of each lane's track (0 while
+    disabled): the last segment whose start is <= ``time``.  The scaler's
+    leaves may carry leading lane axes ([..., T]); ``time`` has their
+    shape.  The comparison is on exact table values, so the price is
+    the JAX engine's bit for bit."""
+    t = _clock(scaler, time)
+    n = scaler.spot_t.shape[-1]
+    idx = (scaler.spot_t <= t[..., None]).sum(dim=-1) - 1
+    price = scaler.spot_price.gather(
+        -1, torch.clamp(idx, 0, n - 1)[..., None])[..., 0]
+    return torch.where(scaler.spot_enabled == 1, price, 0.0)
+
+
+def next_spot_boundary(scaler: S.AutoscalerState, time) -> torch.Tensor:
+    """f32[...] — each lane's earliest segment boundary strictly after
+    ``time`` (INF if none, or while the track is disabled).  Boundaries
+    are absolute arrivals of the event queue, so the accrual is exact
+    between events."""
+    t = _clock(scaler, time)
+    ahead = torch.where(scaler.spot_t > t[..., None], scaler.spot_t, S.INF)
+    nb = (ahead.amin(dim=-1) if ahead.shape[-1]
+          else torch.full(t.shape, S.INF, device=t.device))
+    return torch.where(scaler.spot_enabled == 1, nb, S.INF)
+
+
+def mean_spot_price(spot: SpotMarket, *, horizon: float) -> torch.Tensor:
+    """f32[D] — each provider's time-averaged price over ``[0, horizon]``
+    (the exact integral of the track over the horizon)."""
+    hor = torch.tensor(horizon, dtype=torch.float32,
+                       device=spot.times.device)
+    t = torch.minimum(spot.times, hor)
+    nxt = torch.cat([t[:, 1:], hor.expand(t.shape[0], 1)], dim=1)
+    seg = torch.clamp(nxt - t, min=0.0)
+    return (spot.prices * seg).sum(dim=1) / torch.clamp(hor, min=1e-30)
+
+
+def cheapest_spot_provider(spot: SpotMarket, *, horizon: float,
+                           latency_row=None, latency_weight: float = 0.0
+                           ) -> torch.Tensor:
+    """i32[] — the provider with the lowest forecast spot price, with an
+    optional WAN-distance penalty (``latency_weight`` $ per second of
+    ``latency_row``)."""
+    score = mean_spot_price(spot, horizon=horizon)
+    if latency_row is not None:
+        score = score + torch.tensor(latency_weight, dtype=torch.float32,
+                                     device=score.device) * torch.as_tensor(
+            latency_row, dtype=torch.float32, device=score.device)
+    return torch.argmin(score).to(torch.int32)

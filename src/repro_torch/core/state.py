@@ -9,7 +9,9 @@ converts leaf by leaf in either direction (``core/convert.py``).
 Streamed scenarios (``engine.run_stream``) carry an arrival queue
 (``ArrivalStream``) beside a window of recycled cloudlet slots
 (``make_window``); their running aggregates live in ``StreamState``.
-The autoscaler builders come with the slice that uses them.
+Elastic scenarios carry an enabled ``AutoscalerState``
+(``make_autoscaler``), probed ones an enabled ``MetricsState``
+(``metrics.make_metrics``).
 """
 from __future__ import annotations
 
@@ -469,6 +471,40 @@ def no_network(n_hosts: int, *, device=None) -> NetTopology:
         cluster=torch.zeros((n_hosts,), dtype=torch.int32, device=dev),
         bw_intra=z(), lat_intra=z(), bw_inter=z(), lat_inter=z(),
         bw_wan=z(), lat_wan=z(), energy_per_mb=z())
+
+
+def make_autoscaler(*, util_high=0.8, util_low=0.2, cooldown=0.0,
+                    min_fleet=0, max_fleet=1_000_000, scale_step=1,
+                    price_sensitivity=0.0, spot_t=None, spot_price=None,
+                    device=None) -> AutoscalerState:
+    """An *enabled* autoscaler; attach a spot track by passing both tables.
+
+    ``spot_t`` must start at 0.0 and strictly increase; segment ``i``
+    prices ``[spot_t[i], spot_t[i+1])`` at ``spot_price[i]`` $ per
+    alive-VM-second (the last segment extends to the end of the run).
+    """
+    dev = resolve_device(device)
+    spot_on = spot_t is not None and spot_price is not None
+    if spot_on:
+        st = np.asarray(spot_t, np.float32).reshape(-1)
+        sp = np.asarray(spot_price, np.float32).reshape(-1)
+        if st.shape != sp.shape:
+            raise ValueError("spot_t and spot_price must have equal length")
+        if st.shape[0] == 0 or st[0] != 0.0 or np.any(np.diff(st) <= 0.0):
+            raise ValueError("spot_t must start at 0 and strictly increase")
+    else:
+        st = np.zeros((1,), np.float32)
+        sp = np.zeros((1,), np.float32)
+    f = lambda x: _scalar(x, torch.float32, dev)
+    i = lambda x: _scalar(x, torch.int32, dev)
+    return AutoscalerState(
+        enabled=i(1), util_high=f(util_high), util_low=f(util_low),
+        cooldown=f(cooldown), min_fleet=i(min_fleet),
+        max_fleet=i(max_fleet), scale_step=i(scale_step),
+        price_sensitivity=f(price_sensitivity), last_action=f(-1e30),
+        up_count=i(0), down_count=i(0), spot_enabled=i(1 if spot_on else 0),
+        spot_t=torch.from_numpy(st).to(dev),
+        spot_price=torch.from_numpy(sp).to(dev), spot_cost=f(0.0))
 
 
 def no_autoscaler(n_segments: int = 1, *, device=None) -> AutoscalerState:

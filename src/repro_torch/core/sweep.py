@@ -25,6 +25,10 @@ ragged chunk counts with all-padding chunks) and run through
 ``engine.batched_run_stream``: one admission pass and one simstep
 launch a full step for every lane.
 
+The autoscaler policy search (``run_policy_search``) fuses P
+autoscaler points (``policy_points``) into the lane axis the same way
+(``fuse_policies``), for ``experiments.run_elasticity_study``.
+
 The sharded runners (``run_sharded`` and the mesh arguments) belong to
 the multi-device slice of the port and are not here.
 """
@@ -33,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import engine
@@ -48,7 +53,9 @@ __all__ = ["pad_scenario", "stack_scenarios", "run_batch", "run_grid",
            "run_grid_nested", "fuse_grid", "inert_lane", "pad_batch",
            "policy_grid", "SweepSummary", "summarize_batch",
            "stack_streams", "inert_stream_lane", "run_stream_batch",
-           "run_stream_grid", "StreamSweepSummary", "summarize_stream"]
+           "run_stream_grid", "StreamSweepSummary", "summarize_stream",
+           "PolicyGrid", "policy_points", "fuse_policies",
+           "run_policy_search"]
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +249,79 @@ def run_grid_nested(batch: DatacenterState, vm_policies, task_policies, *,
         outs.append(run_batch(cell, max_steps=max_steps,
                               provision_policy=provision_policy, leap=leap))
     return _stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# Autoscaler policy search: P (watermark, cooldown, step, price) points
+# x B scenarios as one flat elastic lane axis
+# ---------------------------------------------------------------------------
+class PolicyGrid(NamedTuple):
+    """P autoscaler policy points, paired element-wise.  Only the
+    searchable knobs live here; fleet bounds and spot tables stay per
+    scenario on the batch."""
+    util_high: torch.Tensor          # f32[P] scale-up watermark
+    util_low: torch.Tensor           # f32[P] scale-down watermark
+    cooldown: torch.Tensor           # f32[P] min seconds between actions
+    scale_step: torch.Tensor         # i32[P] VMs per action
+    price_sensitivity: torch.Tensor  # f32[P] spot price ceiling (0 = off)
+
+
+def policy_points(util_highs: Sequence[float], util_lows: Sequence[float],
+                  cooldowns: Sequence[float],
+                  price_sensitivities: Sequence[float] = (0.0,),
+                  scale_steps: Sequence[int] = (1,), *,
+                  device=None) -> PolicyGrid:
+    """Cartesian product of the knob axes, dropping inverted watermark
+    pairs (``util_low >= util_high``)."""
+    pts = [(uh, ul, cd, ps, ss)
+           for uh in util_highs
+           for ul in util_lows if ul < uh
+           for cd in cooldowns
+           for ps in price_sensitivities
+           for ss in scale_steps]
+    if not pts:
+        raise ValueError("empty policy grid (check watermark ordering)")
+    uh, ul, cd, ps, ss = zip(*pts)
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
+    return PolicyGrid(util_high=f32(uh), util_low=f32(ul), cooldown=f32(cd),
+                      scale_step=torch.tensor(np.asarray(ss, np.int32),
+                                              device=device),
+                      price_sensitivity=f32(ps))
+
+
+def fuse_policies(batch: DatacenterState, grid: PolicyGrid
+                  ) -> DatacenterState:
+    """Flatten a [B] batch x P autoscaler points into [P*B] elastic lanes:
+    lane ``p*B + b`` is scenario ``b`` with its scaler's searchable knobs
+    set to point ``p`` and the loop enabled."""
+    n_pol = grid.util_high.shape[0]
+    n_scen = batch.time.shape[0]
+    dev = batch.time.device
+    fused = map_tensors(lambda x: x[None].expand(
+        (n_pol,) + x.shape).reshape((n_pol * n_scen,) + x.shape[1:]), batch)
+    rep = lambda x: x.to(dev).repeat_interleave(n_scen)
+    return dataclasses.replace(
+        fused,
+        scaler=dataclasses.replace(
+            fused.scaler,
+            enabled=torch.ones((n_pol * n_scen,), dtype=torch.int32,
+                               device=dev),
+            util_high=rep(grid.util_high), util_low=rep(grid.util_low),
+            cooldown=rep(grid.cooldown), scale_step=rep(grid.scale_step),
+            price_sensitivity=rep(grid.price_sensitivity)))
+
+
+def run_policy_search(batch: DatacenterState, grid: PolicyGrid, *,
+                      max_steps: int = 1_000_000,
+                      provision_policy: int = FIRST_FIT,
+                      leap: bool | None = None) -> DatacenterState:
+    """Every (scenario, autoscaler point) cell in one elastic batch
+    (``fuse_policies``, then ``engine.batched_run``), reshaped to
+    ``[P, B, ...]``; each cell equals the single ``engine.run`` of its
+    scenario with those knobs, bit for bit."""
+    out = engine.batched_run(fuse_policies(batch, grid), max_steps=max_steps,
+                             provision_policy=provision_policy, leap=leap)
+    return _unfuse(out, grid.util_high.shape[0])
 
 
 # ---------------------------------------------------------------------------

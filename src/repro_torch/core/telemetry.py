@@ -3,10 +3,12 @@
 Turn the per-event ``StepRecord`` trace of ``engine.run_trace`` and a
 final state into analyses: the Fig. 8/9 completion curve, utilization
 and power timelines, trace energy, the migration, outage and transfer
-timelines, a Gantt chart and a trace summary; and ``run_stream``'s
-per-chunk records into streaming timelines.
+timelines, the fleet and spot-spend profiles of an elastic run, a
+Gantt chart and a trace summary; ``run_stream``'s per-chunk records into
+streaming timelines; and one lane's in-run metrics plane
+(``core/metrics.py``) into bucketed timelines, percentiles and a JSON
+report (``metrics_report``, schema ``repro.metrics/v1``).
 Everything here is NumPy post-processing of tensors brought to the host.
-The metrics-plane reducers come with the slice that ports the plane.
 """
 from __future__ import annotations
 
@@ -18,8 +20,11 @@ from repro_torch.core import state as S
 
 __all__ = ["completion_curve", "utilization_timeline", "watts_timeline",
            "trace_energy_j", "migration_timeline", "failure_timeline",
-           "transfer_timeline", "link_utilization_timeline", "gantt",
-           "summarize_trace", "stream_timeline", "summarize_stream_trace"]
+           "transfer_timeline", "link_utilization_timeline",
+           "fleet_timeline", "spot_cost_timeline", "gantt",
+           "summarize_trace", "stream_timeline", "summarize_stream_trace",
+           "from_metrics", "hist_percentile", "metrics_report",
+           "validate_metrics_report", "METRICS_REPORT_SCHEMA"]
 
 
 def _np(x) -> np.ndarray:
@@ -93,6 +98,20 @@ def link_utilization_timeline(trace, wan_bw_mbps: float
     return t, np.clip(util / max(float(wan_bw_mbps), 1e-12), 0.0, 1.0)
 
 
+def fleet_timeline(trace) -> tuple[np.ndarray, np.ndarray]:
+    """(times, alive VMs after the step) per event step: the
+    autoscaler's scale profile (flat for a non-elastic run)."""
+    act = _np(trace.active)
+    return _np(trace.time)[act], _np(trace.fleet)[act]
+
+
+def spot_cost_timeline(trace) -> tuple[np.ndarray, np.ndarray]:
+    """(times, cumulative spot $ spent) per event step; the last sample
+    is the state's ``scaler.spot_cost``."""
+    act = _np(trace.active)
+    return _np(trace.time)[act], _np(trace.spot_cost)[act]
+
+
 def stream_timeline(recs) -> Dict[str, np.ndarray]:
     """Per-chunk timelines from ``engine.run_stream``'s records: the
     clock when the chunk ended, the window's occupancy then (never more
@@ -164,3 +183,129 @@ def summarize_trace(trace) -> Dict[str, float]:
         "peak_fleet": int(_np(trace.fleet)[act].max()),
         "spot_cost": float(_np(trace.spot_cost)[act][-1]),
     }
+
+
+# ---------------------------------------------------------------------------
+# The in-run metrics plane (core/metrics.py)
+# ---------------------------------------------------------------------------
+_METRICS_INF = 1e29  # first_breach_t sentinel threshold (engine uses 1e30)
+
+METRICS_REPORT_SCHEMA = "repro.metrics/v1"
+
+
+def from_metrics(dc: S.DatacenterState) -> Dict[str, np.ndarray]:
+    """Bucketed timelines from one lane's plane: each bucket's left edge
+    (the last is open-ended), the seconds booked into it, and the
+    time-weighted bucket means of utilization, watts, fleet, backlog and
+    flows (0.0 for buckets no interval touched)."""
+    m = dc.metrics
+    if _np(m.bucket_dt).ndim != 1:
+        raise ValueError("from_metrics reduces one lane; index the batch "
+                         "axis first (state.map_tensors(lambda t: t[b], dc))")
+    dt = _np(m.bucket_dt).astype(np.float64)
+    k = dt.shape[0]
+    w = float(_np(m.horizon).astype(np.float64)) / k
+    denom = np.maximum(dt, 1e-12)
+    mean = lambda x: np.where(dt > 0, _np(x).astype(np.float64) / denom,
+                              0.0)
+    return {
+        "bucket_start": np.arange(k, dtype=np.float64) * w,
+        "bucket_dt": dt,
+        "utilization": mean(m.bucket_util),
+        "watts": mean(m.bucket_watts),
+        "fleet": mean(m.bucket_fleet),
+        "backlog": mean(m.bucket_backlog),
+        "flows": mean(m.bucket_flows),
+    }
+
+
+def hist_percentile(hist, edges, q: float) -> float:
+    """The q-th percentile of a histogram: the bin holding it by
+    cumulative count, read as the geometric mean of its edges (bins are
+    log-spaced), the midpoint of the zero-anchored underflow bin, or the
+    lower edge of the open overflow bin.  0.0 when empty."""
+    h = _np(hist).astype(np.float64)
+    edges = _np(edges).astype(np.float64)
+    total = h.sum()
+    if total <= 0:
+        return 0.0
+    c = np.cumsum(h)
+    idx = int(np.searchsorted(c, (q / 100.0) * total, side="left"))
+    idx = min(idx, len(h) - 1)
+    lo, hi = float(edges[idx]), float(edges[idx + 1])
+    if hi >= _METRICS_INF:
+        return lo
+    if lo <= 0.0:
+        return hi / 2.0
+    return float(np.sqrt(lo * hi))
+
+
+def metrics_report(dc: S.DatacenterState) -> Dict:
+    """JSON-ready report of one lane's plane (schema
+    ``repro.metrics/v1``): the bucketed timelines, the three histograms
+    and their edges, response p50/p95/p99, the counters, per-host busy
+    seconds.  ``first_breach_t`` is None until a breach lands."""
+    m = dc.metrics
+    tl = from_metrics(dc)
+    fb = float(_np(m.first_breach_t).astype(np.float64))
+    hist = lambda h: _np(h).astype(np.int64).tolist()
+    return {
+        "schema": METRICS_REPORT_SCHEMA,
+        "enabled": bool(_np(m.enabled)),
+        "horizon_s": float(_np(m.horizon).astype(np.float64)),
+        "sla_factor": float(_np(m.sla_factor).astype(np.float64)),
+        "buckets": {k: v.tolist() for k, v in tl.items()},
+        "histograms": {
+            "edges": _np(m.edges).astype(np.float64).tolist(),
+            "response": hist(m.hist_response),
+            "exec": hist(m.hist_exec),
+            "wait": hist(m.hist_wait),
+        },
+        "percentiles": {
+            f"response_p{q}": hist_percentile(m.hist_response, m.edges, q)
+            for q in (50, 95, 99)
+        },
+        "counters": {
+            "retired": int(_np(m.hist_response).astype(np.int64).sum()),
+            "sla_breaches": int(_np(m.sla_breaches)),
+            "first_breach_t": None if fb >= _METRICS_INF else fb,
+            "peak_backlog": int(_np(m.peak_backlog)),
+        },
+        "host_busy_s": _np(m.host_busy_s).astype(np.float64).tolist(),
+    }
+
+
+def validate_metrics_report(report: Dict) -> None:
+    """Raise ``ValueError`` unless ``report`` is a well-formed v1 report
+    (keys, lengths and basic invariants)."""
+    if report.get("schema") != METRICS_REPORT_SCHEMA:
+        raise ValueError(f"unknown report schema: {report.get('schema')!r}")
+    for key in ("enabled", "horizon_s", "sla_factor", "buckets",
+                "histograms", "percentiles", "counters", "host_busy_s"):
+        if key not in report:
+            raise ValueError(f"report missing key: {key}")
+    tl = report["buckets"]
+    k = len(tl.get("bucket_dt", ()))
+    for key in ("bucket_start", "bucket_dt", "utilization", "watts",
+                "fleet", "backlog", "flows"):
+        if len(tl.get(key, ())) != k or k < 1:
+            raise ValueError(f"bucket series {key!r} is not length {k}")
+    hs = report["histograms"]
+    nb = len(hs.get("response", ()))
+    if nb < 2 or len(hs.get("edges", ())) != nb + 1:
+        raise ValueError("histogram edges must be one longer than bins")
+    for key in ("response", "exec", "wait"):
+        h = hs.get(key, ())
+        if len(h) != nb or any(int(x) < 0 for x in h):
+            raise ValueError(f"histogram {key!r} malformed")
+    cnt = report["counters"]
+    for key in ("retired", "sla_breaches", "peak_backlog"):
+        if int(cnt.get(key, -1)) < 0:
+            raise ValueError(f"counter {key!r} must be a non-negative int")
+    if sum(int(x) for x in hs["response"]) != int(cnt["retired"]):
+        raise ValueError("retired counter disagrees with response histogram")
+    fb = cnt.get("first_breach_t")
+    if fb is not None and not float(fb) >= 0.0:
+        raise ValueError("first_breach_t must be None or >= 0")
+    if fb is None and int(cnt["sla_breaches"]) > 0:
+        raise ValueError("breaches counted but first_breach_t is None")

@@ -571,3 +571,76 @@ def test_streamed_lanes_on_card(cuda):
     for x, y in zip(S.tensor_leaves(st.stats),
                     S.tensor_leaves(gs.stats)):
         assert torch.equal(y[0, 0], x)
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_elastic_and_probed_lanes_on_card(cuda):
+    """A small ``s5-100k-elastic`` (400 hosts, 200 slots) and a probed §5
+    on the card against the CPU: states, placements, scale counts and
+    histograms exact, times, joules, spot spend and bucket rows within
+    1e-5 relative; simstep launches on both paths."""
+    import dataclasses
+    from repro_torch.core import metrics as M
+    cs = _chip_smoke()
+    for make in (lambda dev: cs.s5_elastic(400, 200, S.TIME_SHARED, dev),
+                 lambda dev: dataclasses.replace(
+                     cs.section5(400, 200, S.TIME_SHARED, dev),
+                     metrics=M.make_metrics(400, horizon=12000.0,
+                                            sla_factor=2.0, device=dev))):
+        before = simstep.launches
+        gpu, g_stats = run_stats(make(cuda), max_steps=8192)
+        torch.cuda.synchronize()
+        assert simstep.launches > before
+        cpu, c_stats = run_stats(make("cpu"), max_steps=8192)
+        assert g_stats.n_events == c_stats.n_events
+        for name in ("cloudlets.state", "vms.state", "vms.host",
+                     "scaler.up_count", "scaler.down_count",
+                     "metrics.hist_response", "metrics.sla_breaches"):
+            assert torch.equal(_leaf(gpu, name).cpu(), _leaf(cpu, name)), \
+                name
+        for name in ("cloudlets.finish_time", "hosts.energy_j",
+                     "scaler.spot_cost", "metrics.bucket_util",
+                     "metrics.bucket_watts", "metrics.host_busy_s"):
+            np.testing.assert_allclose(_leaf(gpu, name).cpu().numpy(),
+                                       _leaf(cpu, name).numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+
+
+def test_policy_search_cells_on_card(cuda):
+    """Two headroom lanes x 12 autoscaler points in one
+    ``run_policy_search`` on the card: the cells equal the CPU's in
+    states and scale counts, and cell (5, 1) equals its single run on
+    the card bit for bit."""
+    import dataclasses
+    from repro_torch.core import sweep
+    cs = _chip_smoke()
+    finals = []
+    for dev in (cuda, "cpu"):
+        batch = sweep.stack_scenarios([cs.headroom_scenario(100 + s, dev)
+                                       for s in range(2)])
+        grid = sweep.policy_points((0.6, 0.75, 0.9), (0.2, 0.35),
+                                   (1.0, 4.0), device=dev)
+        finals.append((batch, grid, sweep.run_policy_search(
+            batch, grid, max_steps=4096)))
+    (batch, grid, g), (_, _, c) = finals
+    for name in ("cloudlets.state", "vms.state", "scaler.up_count",
+                 "scaler.down_count"):
+        assert torch.equal(_leaf(g, name).cpu(), _leaf(c, name)), name
+    one = S.map_tensors(lambda t: t[1], batch)
+    cell = dataclasses.replace(one, scaler=dataclasses.replace(
+        one.scaler, util_high=grid.util_high[5].clone(),
+        util_low=grid.util_low[5].clone(), cooldown=grid.cooldown[5].clone(),
+        scale_step=grid.scale_step[5].clone(),
+        price_sensitivity=grid.price_sensitivity[5].clone()))
+    out, _ = run_stats(cell, max_steps=4096)
+    for name, a in _leaves(out):
+        assert torch.equal(_leaf(g, name)[5, 1], a), name

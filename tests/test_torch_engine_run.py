@@ -1,7 +1,7 @@
 """The port's run loop: the §5 quickstart, the quiescence fixed point,
 block-size invariance, ``max_steps``/``horizon`` against the JAX engine,
-the guard on the paths not yet ported (elastic, probed), and the
-broker/market reducers against JAX."""
+an elastic and a probed scenario through ``run`` and ``step`` against
+JAX's, and the broker/market reducers against JAX."""
 import dataclasses
 import functools
 
@@ -23,7 +23,7 @@ from repro_torch.core import broker as B
 from repro_torch.core import market
 from repro_torch.core import state as S
 from repro_torch.core.convert import from_arrays
-from repro_torch.core.engine import run, run_stats, step
+from repro_torch.core.engine import run, run_stats, run_trace, step
 
 
 @pytest.mark.parametrize("policy", [S.SPACE_SHARED, S.TIME_SHARED])
@@ -117,19 +117,53 @@ def _probed():
         3, horizon=100.0))
 
 
-GATED = {
+ELASTIC_AND_PROBED = {
     "elastic": lambda: make_elastic_scenario(0, 0, 0),
     "probed": _probed,
 }
 
 
-@pytest.mark.parametrize("kind", sorted(GATED))
-def test_run_refuses_scenarios_beyond_the_static_path(kind):
-    dc = from_arrays(GATED[kind](), device="cpu")
-    with pytest.raises(NotImplementedError, match=kind):
-        run(dc)
-    with pytest.raises(NotImplementedError, match=kind):
-        step(dc)
+@pytest.mark.parametrize("kind", sorted(ELASTIC_AND_PROBED))
+def test_run_and_step_take_elastic_and_probed_scenarios(kind):
+    """The scenarios the static slices refused, through ``run`` and
+    ``step`` (``run_trace``'s steps), against the JAX engine's: states,
+    placements, scale counts and histograms exact; times, joules, spot
+    spend and the plane's float rows within 1e-3."""
+    jdc = ELASTIC_AND_PROBED[kind]()
+    dc = from_arrays(jdc, device="cpu")
+    want = j_run(jdc, max_steps=4096)
+    got = run(dc, max_steps=4096)
+    _, trace = run_trace(dc, num_steps=64)
+    _, jtrace = JE.run_trace(jdc, num_steps=64)
+    for name in ("active", "n_done", "n_running", "fleet"):
+        np.testing.assert_array_equal(getattr(trace, name).numpy(),
+                                      np.asarray(getattr(jtrace, name)),
+                                      err_msg=name)
+    for name in ("time", "spot_cost", "watts", "utilization"):
+        np.testing.assert_allclose(getattr(trace, name).numpy(),
+                                   np.asarray(getattr(jtrace, name)),
+                                   rtol=1e-4, atol=1e-3, err_msg=name)
+    _, rec = step(dc)
+    assert bool(rec.active) and float(rec.time) == float(jtrace.time[0])
+    _assert_matches_jax(got, want, kind)
+    for blk, names in (("scaler", ("up_count", "down_count")),
+                       ("metrics", ("hist_response", "hist_exec",
+                                    "hist_wait", "sla_breaches"))):
+        for name in names:
+            np.testing.assert_array_equal(
+                getattr(getattr(got, blk), name).numpy(),
+                np.asarray(getattr(getattr(want, blk), name)),
+                err_msg=f"{blk}.{name}")
+    for blk, names in (("scaler", ("spot_cost",)),
+                       ("metrics", ("bucket_dt", "bucket_util",
+                                    "bucket_watts", "host_busy_s"))):
+        for name in names:
+            np.testing.assert_allclose(
+                getattr(getattr(got, blk), name).numpy(),
+                np.asarray(getattr(getattr(want, blk), name)), rtol=1e-4,
+                atol=1e-3, err_msg=f"{blk}.{name}")
+    assert (int(got.scaler.up_count) > 0 if kind == "elastic"
+            else int(got.metrics.hist_response.sum()) > 0)
 
 
 @pytest.mark.parametrize("policy", [S.SPACE_SHARED, S.TIME_SHARED])

@@ -345,14 +345,47 @@ def test_arrival_generators_feed_streams():
         assert summarize_stream_trace(recs)["retired"] <= n
 
 
-def test_streamed_elastic_and_probed_lanes_are_refused():
+def test_streamed_elastic_and_probed_lanes_run():
+    """The lanes the static slices refused (the inert autoscaler, then
+    the inert plane, switched on) run through ``run_stream`` and match
+    JAX's ``run_stream`` on the same scenario."""
+    import jax.numpy as jnp
     dc = _infra(4)
     stream = _random_stream(0, n=5)
-    for blk, field in (("scaler", "enabled"), ("metrics", "enabled")):
-        sub = dataclasses.replace(getattr(dc, blk), **{
-            field: torch.ones((), dtype=torch.int32)})
-        with pytest.raises(NotImplementedError):
-            E.run_stream(dataclasses.replace(dc, **{blk: sub}), stream)
+    hosts = JS.make_uniform_hosts(3, pes=4, mips=1000.0, ram=8192.0,
+                                  bw=1000.0, storage=1e6, idle_w=100.0,
+                                  peak_w=250.0)
+    vms = JS.make_vms([1] * 6, [500.0] * 6, [512.0] * 6, [100.0] * 6,
+                      [1000.0] * 6)
+    jdc = JS.make_datacenter(hosts, vms, JS.make_window(4))
+    vm, lens, sub = _trace(0, n=5)
+    jstream = JS.make_stream(vm, lens, sub, chunk=16)
+    for blk in ("scaler", "metrics"):
+        on = dataclasses.replace(dc, **{blk: dataclasses.replace(
+            getattr(dc, blk), enabled=torch.ones((), dtype=torch.int32))})
+        jon = dataclasses.replace(jdc, **{blk: dataclasses.replace(
+            getattr(jdc, blk), enabled=jnp.int32(1))})
+        out, st, recs = E.run_stream(on, stream)
+        jout, jst, jrecs = JE.run_stream(jon, jstream)
+        for name in ("n_retired", "n_failed", "per_vm_done"):
+            np.testing.assert_array_equal(
+                getattr(st.stats, name).numpy(),
+                np.asarray(getattr(jst.stats, name)), err_msg=name)
+        np.testing.assert_allclose(float(st.stats.makespan),
+                                   float(jst.stats.makespan), atol=1e-3)
+        for name in ("enabled", "up_count", "down_count", "spot_cost"):
+            assert float(getattr(out.scaler, name)) == float(
+                getattr(jout.scaler, name)), name
+        for name in ("hist_response", "hist_exec", "hist_wait",
+                     "sla_breaches", "peak_backlog"):
+            np.testing.assert_array_equal(
+                getattr(out.metrics, name).numpy(),
+                np.asarray(getattr(jout.metrics, name)), err_msg=name)
+        np.testing.assert_allclose(out.metrics.bucket_dt.numpy(),
+                                   np.asarray(jout.metrics.bucket_dt),
+                                   atol=1e-3)
+        assert int(st.stats.n_retired) == 5
+    assert int(out.metrics.hist_response.sum()) == 5
 
 
 # ---------------------------------------------------------------------------

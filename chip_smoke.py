@@ -100,7 +100,20 @@ script exits non-zero:
      ``run_stream_grid``, every lane == its single run, card == CPU; a
      probed streamed lane (``bench_metrics``' lane at 2,000 arrivals),
      chunk 256 == chunk 4,096 bitwise and card == CPU;
- 19. what the migration, network, elastic, probe and streaming passes cost
+ 19. ``intercloud-100k``: the paper's largest datacenter split into a
+     federation of four §5 host parks (10,000, 20,000, 30,000 and 40,000
+     hosts at $0.01-0.05 a PE-s) shopped by ten users of 5,000 §5 VMs:
+     the CIS and the broker route them (exactly [0,0,1,1,1,1,2,2,2,2]),
+     the registry rows meet their closed forms and equal the CPU's, and
+     ``run_study`` runs the 2x2 grid as 16 lanes padded to 40,000 hosts:
+     every cell meets the §5 closed forms, the idle provider stays inert,
+     provider 2's cells equal their single runs bitwise, and the card
+     equals the CPU at 1/100 scale; routing and study walls apart;
+ 20. ``dispatch``: the ``lanes-64`` and ``dyn-lanes`` batches through the
+     lane dispatcher (``sweep.run_sharded``) over [card] and [card,
+     card], bitwise equal to ``run_batch``; ``federated_run`` over [card,
+     card] bitwise equal to ``vmap_federation``;
+ 21. what the migration, network, elastic, probe and streaming passes cost
      a full step at 100,000 hosts (the same run, bit for bit, with each
      set switched on), with host ops a step counted on the CPU, and the
      wall of a host-plan rebuild.
@@ -110,8 +123,8 @@ against its plain version, and times it at 4 lanes of [50000, 10]; and
 on padded indexes (a streamed window's), against its plain version and
 against the unpadded index.
 
-Phases 3, 4 and 4b are the simulator's main path, and 6 to 18 each a
-path of its own: simstep's launch count is set to 0 just before phase 3
+Phases 3, 4 and 4b are the simulator's main path, and 6 to 20 each a
+path of its own (20 two: the dispatched batches and the federated run): simstep's launch count is set to 0 just before phase 3
 and read just after phase 4b, and set to 0 just before and read just
 after each run of the later ones (``launches_by_path`` in the kernels'
 record; every path must show launches).  The full-depth
@@ -486,7 +499,8 @@ def section5(n_hosts, n_vms, policy, device):
 
 
 def check_section5(final, stats, policy, n_vms, tag):
-    """The closed-form §5 answers, per wave and per host."""
+    """The closed-form §5 answers, per wave and per host (``stats``, the
+    run's ``RunStats`` for the printed line, may be None)."""
     import numpy as np
     from repro_torch.core import broker as B
     from repro_torch.core import state as S
@@ -516,16 +530,19 @@ def check_section5(final, stats, policy, n_vms, tag):
     busy = np.zeros(energy.shape[0], bool)
     busy[final.vms.host.cpu().numpy()] = True
     e_busy = np.abs(energy[busy] / 2.4e6 - 1.0).max()
-    e_idle = np.abs(energy[~busy] / 1.2e6 - 1.0).max()
+    e_idle = (np.abs(energy[~busy] / 1.2e6 - 1.0).max() if (~busy).any()
+              else 0.0)                 # a park with every host busy
     check(busy.sum() == n_vms and e_busy <= 1e-5 and e_idle <= 1e-5,
           f"{tag}: energy off by {e_busy!r} (busy), {e_idle!r} (idle)")
     exec_t = ft - st
+    steps = ("" if stats is None else
+             f"{stats.n_events} events in {stats.n_steps} steps, "
+             f"{stats.n_blocks} host checks, ")
     print(f"[{tag}] {int(rep.n_completed)}/{n_cl} done, exec "
           f"{exec_t.min():.4f}-{exec_t.max():.4f} s, makespan "
           f"{float(rep.makespan)!r} s, response by wave {resp}, energy "
           f"rel err busy {e_busy:.3g} idle {e_idle:.3g}, "
-          f"{stats.n_events} events in {stats.n_steps} steps, "
-          f"{stats.n_blocks} host checks, bill ${float(rep.total_cost):.2f}")
+          f"{steps}bill ${float(rep.total_cost):.2f}")
 
 
 def state_bytes(dc):
@@ -1624,7 +1641,8 @@ def phase_stream_s5(device, card, launched, n_hosts=100_000,
         busy = np.zeros(n_hosts, bool)
         busy[final.vms.host.cpu().numpy()] = True
         e_busy = np.abs(energy[busy] / 2.4e6 - 1.0).max()
-        e_idle = np.abs(energy[~busy] / 1.2e6 - 1.0).max()
+        e_idle = (np.abs(energy[~busy] / 1.2e6 - 1.0).max() if (~busy).any()
+              else 0.0)                 # a park with every host busy
         check(e_busy <= 1e-5 and e_idle <= 1e-5,
               f"{tag}: energy off by {e_busy!r} / {e_idle!r}")
         what = ""
@@ -2339,6 +2357,264 @@ def phase_elastic_stream_lanes(device, card, launched, n_seeds=4,
           f"{runs['cpu'][4]!r} s ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Federation studies and the lane dispatcher (phases 19-20)
+# ---------------------------------------------------------------------------
+# [intercloud-100k]: the paper's largest datacenter split into four §5
+# host parks (hosts, $ per PE-s), and ten users of 5,000 §5 VMs each
+PARKS = ((10_000, 0.01), (20_000, 0.02), (30_000, 0.03), (40_000, 0.05))
+N_FLEETS, FLEET_VMS = 10, 5_000
+ASSIGNMENT = [0, 0, 1, 1, 1, 1, 2, 2, 2, 2]   # FCFS greedy by PE capacity
+
+
+def federation(device, scale=1):
+    """``[intercloud-100k]``'s providers and fleets at 1/``scale`` of
+    their size: §5 hosts (1 PE at 1000 MIPS, 1 GB, 2 TB, 100 W idle and
+    200 W peak) and §5 VMs, each with ten waves of 1.2M MI 600 s apart."""
+    from repro_torch.core import broker as B
+    from repro_torch.core import experiments as E
+    from repro_torch.core import state as S
+    providers = [E.Provider(
+        S.make_uniform_hosts(n // scale, idle_w=100.0, peak_w=200.0,
+                             device=device),
+        S.make_market(rate, 0.001, 1e-4, 0.002, device=device))
+        for n, rate in PARKS]
+    fleets = [E.UserFleet(
+        (B.VmSpec(count=FLEET_VMS // scale, pes=1, mips=1000.0, ram=512.0,
+                  bw=10.0, size=1000.0),),
+        B.WaveSpec(waves=10, length_mi=1_200_000.0, period=600.0))
+        for _ in range(N_FLEETS)]
+    return providers, fleets
+
+
+def cut(state, like):
+    """``state``'s lane cut back to the entity counts of ``like``."""
+    import dataclasses
+    from repro_torch.core.state import map_tensors
+    h = like.hosts.num_pes.shape[0]
+    v = like.vms.req_pes.shape[0]
+    c = like.cloudlets.vm.shape[0]
+    return dataclasses.replace(
+        state, hosts=map_tensors(lambda t: t[:h], state.hosts),
+        vms=map_tensors(lambda t: t[:v], state.vms),
+        cloudlets=map_tensors(lambda t: t[:c], state.cloudlets),
+        net=dataclasses.replace(state.net, cluster=state.net.cluster[:h]),
+        metrics=dataclasses.replace(
+            state.metrics, host_busy_s=state.metrics.host_busy_s[:h]))
+
+
+def same_rows(a, b):
+    """Two registry tables or reports equal, column by column (a NaN
+    equal to a NaN: the mean response of a provider with no work)."""
+    import torch
+    return all(x.dtype == y.dtype and bool(torch.allclose(
+        x.cpu(), y.cpu(), rtol=0.0, atol=0.0, equal_nan=True))
+        for x, y in zip(a, b))
+
+
+def study_agree(gpu, cpu, tag):
+    """A study on the card against the same study on the CPU: the
+    assignment, registry rows, states and placements exact; times and
+    joules within 1e-3."""
+    import torch
+    check(torch.equal(gpu.assignment.cpu(), cpu.assignment),
+          f"{tag}: assignments differ")
+    check(same_rows(gpu.table, cpu.table), f"{tag}: registry rows differ")
+    for name, a, b in (
+            ("cloudlet states", gpu.final.cloudlets.state,
+             cpu.final.cloudlets.state),
+            ("VM states", gpu.final.vms.state, cpu.final.vms.state),
+            ("placements", gpu.final.vms.host, cpu.final.vms.host),
+            ("completions", gpu.summary.n_done, cpu.summary.n_done)):
+        check(torch.equal(a.cpu(), b), f"{tag}: {name} differ")
+    err = max(float((a.cpu().double() - b.double()).abs().max())
+              for a, b in ((gpu.final.cloudlets.finish_time,
+                            cpu.final.cloudlets.finish_time),
+                           (gpu.final.cloudlets.start_time,
+                            cpu.final.cloudlets.start_time),
+                           (gpu.final.hosts.energy_j,
+                            cpu.final.hosts.energy_j)))
+    check(err <= 1e-3, f"{tag}: card and CPU differ by {err!r}")
+    return err
+
+
+def phase_intercloud(device, card, launched, scale=1, small=100):
+    """Phase 19: ``[intercloud-100k]``, an inter-cloud study over the
+    paper's largest datacenter split four ways: 100,000 hosts, 50,000
+    VMs and 500,000 cloudlets routed by the CIS and the broker, then
+    ``run_study`` over the 2x2 grid (16 lanes padded to 40,000 hosts).
+    The exact assignment, the registry's closed forms, the §5 closed
+    forms in every cell, the idle provider inert, cells of provider 2 ==
+    their single runs bitwise, and the card == the CPU at 1/``small``
+    of the size (``scale`` shrinks the whole phase, for a rehearsal)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import cis
+    from repro_torch.core import experiments as E
+    from repro_torch.core import state as S
+    from repro_torch.core import sweep
+    from repro_torch.core.engine import run_stats
+    from repro_torch.kernels.simstep import simstep
+
+    providers, fleets = federation(device, scale)
+    vm_p, task_p = sweep.policy_grid(device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dcs, assignment, table = E.build_study(providers, fleets, device=device)
+    torch.cuda.synchronize()
+    route_wall = time.perf_counter() - t0
+    simstep.launches = 0
+    t0 = time.perf_counter()
+    study = E.run_study(providers, fleets, vm_p, task_p, max_steps=8192,
+                        device=device)
+    torch.cuda.synchronize()
+    study_wall = time.perf_counter() - t0
+    launched["intercloud"] = n_study = simstep.launches
+    check(study.assignment.tolist() == ASSIGNMENT == assignment.tolist(),
+          f"intercloud: assignment {study.assignment.tolist()}")
+    # the registry: closed forms, and the CPU's rows bit for bit
+    n_hosts = np.array([n // scale for n, _ in PARKS], np.float64)
+    closed = dict(total_pes=n_hosts, max_mips_pe=np.full(4, 1000.0),
+                  free_ram=1024.0 * n_hosts, free_storage=2e6 * n_hosts,
+                  free_bw=1000.0 * n_hosts, free_pes=n_hosts,
+                  cost_per_cpu_sec=np.array([r for _, r in PARKS]),
+                  cost_per_mem=np.full(4, 0.001))
+    for name, want in closed.items():
+        got = getattr(study.table, name).cpu().numpy()
+        want = want.astype(np.float32)
+        ok = (np.allclose(got, want, rtol=1e-6, atol=0)
+              if name == "free_storage" else np.array_equal(got, want))
+        check(ok, f"intercloud: registry {name} {got} != {want}")
+    cpu_rows = cis.stack([cis.register(S.make_datacenter(
+        S.to_device(p.hosts, "cpu"), S.make_vms([1], 1000.0, 0.0, 0.0, 0.0,
+                                                device="cpu"),
+        S.make_cloudlets([0], 1.0, device="cpu"),
+        rates=S.to_device(p.rates, "cpu"), device="cpu"))
+        for p in providers])
+    check(same_rows(study.table, cpu_rows),
+          "intercloud: the card's registry rows != the CPU's")
+    # every cell: §5's closed forms for its VM count; provider 3 inert
+    n_vms = [FLEET_VMS // scale * ASSIGNMENT.count(d) for d in range(3)]
+    n_cl = 10 * N_FLEETS * (FLEET_VMS // scale)
+    for p, tp in enumerate(task_p.tolist()):
+        for d in range(3):
+            cell = cut(lane(study.final, p, d), dcs[d])
+            check_section5(cell, None, tp, n_vms[d],
+                           f"intercloud-{p}-dc{d}")
+        idle = lane(study.final, p, 3)
+        check(float(idle.time) == 0.0
+              and int((idle.cloudlets.state == CL_DONE).sum()) == 0
+              and float(idle.hosts.energy_j.abs().max()) == 0.0,
+              f"intercloud: the idle provider stepped under policy {p}")
+    check(study.fed_done.tolist() == [n_cl] * 4,
+          f"intercloud: fed_done {study.fed_done.tolist()}")
+    # provider 2's cells, each run alone
+    singles = 0.0
+    for p in range(4):
+        one = dataclasses.replace(dcs[2], vm_policy=vm_p[p].clone(),
+                                  task_policy=task_p[p].clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single, _ = run_stats(one, max_steps=8192)
+        torch.cuda.synchronize()
+        singles += time.perf_counter() - t0
+        check(same_state(cut(lane(study.final, p, 2), single), single),
+              f"intercloud: cell ({p}, dc2) != its single run")
+    # card == CPU on the same federation at 1/100 scale
+    runs, small_walls = {}, {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        prov, fl = federation(dev, scale=small)
+        t0 = time.perf_counter()
+        runs[where] = E.run_study(prov, fl, *sweep.policy_grid(device=dev),
+                                  max_steps=8192, device=dev)
+        torch.cuda.synchronize()
+        small_walls[where] = time.perf_counter() - t0
+    err = study_agree(runs["card"], runs["cpu"], f"intercloud-1/{small}")
+    check(runs["cpu"].assignment.tolist() == ASSIGNMENT,
+          f"intercloud-1/{small}: assignment")
+    print(f"[intercloud-100k] 4 providers ({n_hosts.astype(int).tolist()} "
+          f"§5 hosts at {[r for _, r in PARKS]} $ a PE-s), {N_FLEETS} users "
+          f"of {FLEET_VMS // scale} VMs, {n_cl} cloudlets: assignment "
+          f"{ASSIGNMENT} exact; registry rows at their closed forms and == "
+          f"the CPU's; run_study over the 2x2 grid, 16 lanes padded to "
+          f"{int(n_hosts[-1])} hosts, {max(n_vms)} VM slots and "
+          f"{10 * max(n_vms)} cloudlet slots: every cell meets the §5 "
+          f"closed forms, the idle provider inert, fed_done {n_cl} a "
+          f"policy, provider 2's cells == their single runs bitwise; "
+          f"routing (build_study) {route_wall!r} s, run_study "
+          f"{study_wall!r} s ({n_study} simstep launches), provider 2's "
+          f"four single runs {singles!r} s; at 1/{small} card == CPU (max "
+          f"float err {err:.3g}), card {small_walls['card']!r} s, CPU "
+          f"{small_walls['cpu']!r} s ({card})")
+
+
+def phase_dispatch(device, card, launched, n_seeds=16, n_hosts=256,
+                   n_dyn=8, small=100):
+    """Phase 20: ``[dispatch]``, the lane dispatcher: the ``lanes-64``
+    and ``dyn-lanes`` batches through ``run_sharded(partitioner=
+    "dispatch")`` over ``[card]`` and ``[card, card]``, each ==
+    ``run_batch`` bitwise; ``federated_run`` == ``vmap_federation``
+    bitwise on the federation at 1/``small`` of its size."""
+    import torch
+    from repro_torch.core import experiments as E
+    from repro_torch.core import federation as F
+    from repro_torch.core import sweep
+    from repro_torch.kernels.simstep import simstep
+
+    vm_p, task_p = sweep.policy_grid(device=device)
+    batches = (
+        ("lanes-64", 1 << 20, [shared_hosts(s, n_hosts, device)
+                               for s in range(n_seeds)]),
+        ("dyn-lanes", 4096, dyn_lane_scenarios(n_dyn, device)))
+    n_launch, lines = 0, []
+    for tag, steps, dcs in batches:
+        fused = sweep.fuse_grid(sweep.stack_scenarios(dcs), vm_p, task_p)
+        walls = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = sweep.run_batch(fused, max_steps=steps)
+        torch.cuda.synchronize()
+        walls["run_batch"] = time.perf_counter() - t0
+        for name, devs in (("[card]", [device]),
+                           ("[card, card]", [device, device])):
+            simstep.launches = 0
+            t0 = time.perf_counter()
+            out = sweep.run_sharded(fused, devices=devs, max_steps=steps,
+                                    partitioner="dispatch")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            n_launch += simstep.launches
+            check(same_state(out, ref),
+                  f"dispatch: {tag} over {name} != run_batch")
+        lines.append(f"{tag} ({fused.time.shape[0]} lanes, chunks of 4) "
+                     f"run_batch {walls['run_batch']!r} s, dispatched over "
+                     f"[card] {walls['[card]']!r} s and [card, card] "
+                     f"{walls['[card, card]']!r} s")
+    launched["dispatch"] = n_launch
+    dcs, _, _ = E.build_study(*federation(device, scale=small),
+                              device=device)
+    stack = sweep.stack_scenarios(dcs)
+    t0 = time.perf_counter()
+    ref = F.vmap_federation(stack, max_steps=8192)
+    torch.cuda.synchronize()
+    vmap_wall = time.perf_counter() - t0
+    simstep.launches = 0
+    t0 = time.perf_counter()
+    fed = F.federated_run(stack, devices=[device, device], max_steps=8192)
+    torch.cuda.synchronize()
+    fed_wall = time.perf_counter() - t0
+    launched["federated"] = simstep.launches
+    check(same_state(fed[0], ref[0]) and same_rows(fed[1], ref[1])
+          and same_rows(fed[2], ref[2]),
+          "dispatch: federated_run != vmap_federation")
+    print(f"[dispatch] every spelling == run_batch bitwise: "
+          f"{'; '.join(lines)}; {n_launch} simstep launches dispatched; "
+          f"federated_run over [card, card] == vmap_federation bitwise on "
+          f"the 1/{small} federation (4 datacenters): {fed_wall!r} s against "
+          f"{vmap_wall!r} s ({card})")
+
+
 def plan_ms(dc, reps=20):
     """Wall milliseconds of one host-plan rebuild of ``dc`` (its two host
     syncs included)."""
@@ -2964,6 +3240,8 @@ def main():
     phase_s5_probed(device, card, launched)
     phase_policy_search(device, card, launched)
     phase_elastic_stream_lanes(device, card, launched)
+    phase_intercloud(device, card, launched)
+    phase_dispatch(device, card, launched)
     phase_pass_cost(device, card)
     for path, n in launched.items():
         check(n > 0, f"simstep never launched on the {path} path")

@@ -1,11 +1,16 @@
-"""Network study on the PyTorch port: staged transfers under WAN
-contention (the first half of ``examples/network_study.py``; its
-federation-routing half needs the port of ``core/federation.py``).
+"""Network study on the PyTorch port (``examples/network_study.py``):
 
-One provider fleet stages every cloudlet's data behind a narrow WAN
-gateway and behind a wide one: the STAGE_IN/STAGE_OUT transfers
-fair-share the gateway, and the makespan stretches accordingly (the 2x2
-policy grid over both fleets in one fused ``sweep.run_grid`` call).
+  1. *WAN contention*: one provider fleet stages every cloudlet's data
+     behind a narrow WAN gateway and behind a wide one; the
+     STAGE_IN/STAGE_OUT transfers fair-share the gateway, and the
+     makespan stretches accordingly (the 2x2 policy grid over both
+     fleets in one fused ``sweep.run_grid`` call).
+  2. *Latency-aware federation routing*: users in a far region shop a
+     cheap-but-far provider and a pricier-but-near one.  The
+     latency-blind broker piles everyone onto the cheap provider's
+     narrow WAN; the latency-weighted broker (a latency matrix and
+     ``latency_weight`` through ``experiments.run_study``) splits by
+     region and finishes earlier.
 
     PYTHONPATH=src python examples/torch_network_study.py [--device cpu]
 
@@ -16,6 +21,7 @@ import argparse
 import torch
 
 from repro_torch.core import broker as B
+from repro_torch.core import experiments as E
 from repro_torch.core import state as S
 from repro_torch.core import sweep
 
@@ -49,7 +55,7 @@ grid = sweep.run_grid(batch, *sweep.policy_grid(device=dev), max_steps=8192)
 summ = sweep.summarize_batch(grid)
 mk, mb = summ.makespan.cpu(), summ.transferred_mb.cpu()
 names = ["space/space", "space/time", "time/space", "time/time"]
-print("staged transfers under WAN contention (narrow vs wide)")
+print("=== 1. staged transfers under WAN contention (narrow vs wide) ===")
 print(f"{'policy':<12} {'narrow 25MB/s':>14} {'wide 250MB/s':>13} "
       f"{'stretch':>8}")
 for p, name in enumerate(names):
@@ -58,3 +64,50 @@ for p, name in enumerate(names):
 print(f"staged MB per cell: {float(mb[0, 0]):.0f} (byte-conserved across "
       f"policies: {bool(torch.all(mb == mb[0, 0]))})")
 assert bool(torch.all(mk[:, 0] >= mk[:, 1] - 1e-3))   # contention never helps
+
+# ---------------------------------------------------------------------------
+# 2. Latency-aware vs latency-blind federation routing
+# ---------------------------------------------------------------------------
+topology = lambda bw_wan, lat_wan: S.make_topology(
+    [0] * 8, bw_intra=500.0, bw_inter=200.0, bw_wan=bw_wan, lat_wan=lat_wan,
+    device=dev)
+park = lambda: S.make_uniform_hosts(8, pes=2, ram=4096.0, device=dev)
+market = lambda rate: S.make_market(rate, 1e-3, 1e-4, 2e-3, device=dev)
+providers = [
+    # cheap, but far from the users and behind a narrow gateway
+    E.Provider(park(), market(0.01), net=topology(20.0, 0.25)),
+    # pricier, near, wide gateway
+    E.Provider(park(), market(0.03), net=topology(100.0, 0.01)),
+]
+fleets = [E.UserFleet((B.VmSpec(count=4, pes=1, ram=256.0),),
+                      B.WaveSpec(waves=2, length_mi=30_000.0, period=60.0,
+                                 file_size=120.0, output_size=30.0))
+          for _ in range(4)]
+# all four users live in region 1 (provider 1's region)
+latency = torch.tensor([[0.0, 0.4], [0.4, 0.005]], dtype=torch.float32)
+origin = torch.tensor([1, 1, 1, 1], dtype=torch.int32)
+vm_p, task_p = sweep.policy_grid(device=dev)
+
+print("\n=== 2. federation routing: latency-blind vs latency-aware ===")
+rows = []
+for name, weight in (("latency-blind", 0.0), ("latency-aware", 0.1)):
+    study = E.run_study(providers, fleets, vm_p, task_p, max_steps=8192,
+                        reserve_pes=True, latency=latency, origin=origin,
+                        latency_weight=weight, device=dev)
+    assign = study.assignment.tolist()
+    mk = float(study.fed_makespan[1])              # the space/time row
+    cost = float(study.fed_cost[1])
+    mb = float(study.fed_transferred_mb[1])
+    rows.append((name, assign, mk, cost, mb))
+    print(f"{name:<14} assignment={assign} "
+          f"makespan={mk:7.1f} s  cost=${cost:6.2f}  staged={mb:.0f} MB")
+
+blind, aware = rows
+assert all(d == 0 for d in blind[1])    # everyone chases the low price
+assert any(d == 1 for d in aware[1])    # the near provider wins users
+# spreading load off the congested narrow WAN finishes the work earlier
+assert aware[2] <= blind[2] + 1e-3
+print(f"latency-aware routing cuts federation makespan "
+      f"{blind[2]:.1f} -> {aware[2]:.1f} s "
+      f"({100 * (1 - aware[2] / blind[2]):.0f}%) at "
+      f"${aware[3] - blind[3]:+.2f} market cost")

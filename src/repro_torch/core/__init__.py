@@ -1,5 +1,5 @@
 """The simulator core in PyTorch (``repro.core`` ported: the static,
-dynamic, networked, streamed, elastic and probed paths).
+dynamic, networked, streamed, elastic and probed paths, and federation).
 
   state.py         entity model (Datacenter/Host/VM/Cloudlet/Market)
   convert.py       leaf-by-leaf state conversion to and from other packages
@@ -14,12 +14,17 @@ dynamic, networked, streamed, elastic and probed paths).
                    event-horizon leap, batched runs over lanes,
                    streamed runs (``run_stream``)
   streaming.py     admission and retirement of streamed windows
-  workloads.py     NumPy-seeded streamed arrival processes
+  workloads.py     arrival processes: generator-drawn resident blocks,
+                   NumPy-seeded streams
   migration.py     live migration: THRESHOLD / DRAIN, delay, joules
   network.py       staged transfers as fair-shared flows, routed copies
-  sweep.py         stacked scenario batches, fused policy grids and
-                   the autoscaler policy search
-  experiments.py   elasticity studies: SLA violations, Pareto fronts
+  sweep.py         stacked scenario batches, fused policy grids, the
+                   autoscaler policy search and the lane dispatcher
+                   over a list of devices
+  cis.py           Cloud Information Service: registry rows, matching
+  federation.py    user routing over the registry, federated runs
+  experiments.py   inter-cloud policy studies; elasticity studies: SLA
+                   violations, Pareto fronts
   broker.py        DatacenterBroker builders, collection, VM destruction
   market.py        §3.3 cost model: quotes, bills, surge pricing, spot
   telemetry.py     NumPy reducers of run_trace's records and of the

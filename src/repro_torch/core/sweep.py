@@ -29,8 +29,16 @@ The autoscaler policy search (``run_policy_search``) fuses P
 autoscaler points (``policy_points``) into the lane axis the same way
 (``fuse_policies``), for ``experiments.run_elasticity_study``.
 
-The sharded runners (``run_sharded`` and the mesh arguments) belong to
-the multi-device slice of the port and are not here.
+The lane dispatcher (``run_sharded``, and the ``devices`` arguments of
+``run_grid``, ``run_policy_search`` and the stream runners) splits the lane axis over a list
+of devices, where the JAX package splits it over a mesh: the lanes,
+sorted by an estimate of their cost, go out in chunks of four,
+round-robin, one ``batched_run`` a chunk, and come back in lane order
+on ``devices[0]``.  A list may name one card twice.  On one card the
+chunks run one after another, each retiring at its own slowest lane.
+Every spelling equals ``run_batch`` bit for bit, because lane i equals
+its single run.  JAX's ``"gspmd"`` and ``"shard_map"`` partitioners
+build one SPMD program over a mesh and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -43,15 +51,17 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.energy import energy_total_j
 from repro_torch.core.provisioning import FIRST_FIT
-from repro_torch.core.state import (CL_DONE, CL_EMPTY, INF, VM_EMPTY,
-                                    ArrivalStream, DatacenterState,
-                                    StreamState, map_tensors, tensor_leaves,
+from repro_torch.core.state import (CL_CREATED, CL_DONE, CL_EMPTY, INF,
+                                    VM_EMPTY, VM_PENDING, ArrivalStream,
+                                    DatacenterState, StreamState,
+                                    map_tensors, tensor_leaves, to_device,
                                     with_leaves)
 from repro_torch.core.streaming import StreamChunkRecord
+from repro_torch.device import resolve_device
 
 __all__ = ["pad_scenario", "stack_scenarios", "run_batch", "run_grid",
            "run_grid_nested", "fuse_grid", "inert_lane", "pad_batch",
-           "policy_grid", "SweepSummary", "summarize_batch",
+           "run_sharded", "policy_grid", "SweepSummary", "summarize_batch",
            "stack_streams", "inert_stream_lane", "run_stream_batch",
            "run_stream_grid", "StreamSweepSummary", "summarize_stream",
            "PolicyGrid", "policy_points", "fuse_policies",
@@ -217,19 +227,31 @@ def _unfuse(out: DatacenterState, n_pol: int) -> DatacenterState:
 
 def run_grid(batch: DatacenterState, vm_policies, task_policies, *,
              max_steps: int = 1_000_000, provision_policy: int = FIRST_FIT,
-             leap: bool | None = None) -> DatacenterState:
+             leap: bool | None = None, devices=None,
+             sharded: bool | None = None,
+             partitioner: str = "auto") -> DatacenterState:
     """Scenarios x policy grid as ONE fused batch: ``fuse_grid``, then
     ``engine.batched_run``, then a reshape to a [P, B, ...] final state.
 
     ``vm_policies``/``task_policies`` are i32[P], paired (the 2x2
-    Figure 3 matrix is P = 4, ``policy_grid``).  Every lane equals the
+    Figure 3 matrix is P = 4, ``policy_grid``).  With ``sharded`` (the
+    default when ``devices`` is given) the fused lanes go through
+    ``run_sharded`` over ``devices`` instead.  Every lane equals the
     single ``engine.run`` of its cell and ``run_grid_nested``, bit for
-    bit.
+    bit, whichever the spelling.
     """
     vm_p, task_p = _policies(batch, vm_policies, task_policies)
-    out = engine.batched_run(fuse_grid(batch, vm_p, task_p),
-                             max_steps=max_steps,
-                             provision_policy=provision_policy, leap=leap)
+    if sharded is None:
+        sharded = devices is not None
+    fused = fuse_grid(batch, vm_p, task_p)
+    if sharded:
+        out = run_sharded(fused, devices=devices, max_steps=max_steps,
+                          provision_policy=provision_policy,
+                          partitioner=partitioner, leap=leap)
+    else:
+        out = engine.batched_run(fused, max_steps=max_steps,
+                                 provision_policy=provision_policy,
+                                 leap=leap)
     return _unfuse(out, vm_p.shape[0])
 
 
@@ -249,6 +271,91 @@ def run_grid_nested(batch: DatacenterState, vm_policies, task_policies, *,
         outs.append(run_batch(cell, max_steps=max_steps,
                               provision_policy=provision_policy, leap=leap))
     return _stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# The lane dispatcher: the lane axis over a list of devices
+# ---------------------------------------------------------------------------
+def _devices(devices) -> list[torch.device]:
+    """``devices`` as a list of ``torch.device``; ``None`` is the card."""
+    if devices is None:
+        return [resolve_device()]
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices is empty")
+    return devs
+
+
+def _check_partitioner(partitioner: str) -> None:
+    """``"auto"`` and ``"dispatch"`` both name the dispatcher."""
+    if partitioner in ("gspmd", "shard_map"):
+        raise ValueError(
+            f"partitioner {partitioner!r} builds one SPMD program over a "
+            "JAX device mesh and has no counterpart in the port; use "
+            "'dispatch' (or 'auto')")
+    if partitioner not in ("auto", "dispatch"):
+        raise ValueError(f"unknown partitioner: {partitioner!r}")
+
+
+def _dispatch_cost(batch: DatacenterState) -> np.ndarray:
+    """Host-side estimate of each lane's step count, to order the chunks:
+    CREATED cloudlets, twice the pending VMs, four times the unfired
+    event rows, all four times over under a migration policy.  Only the
+    order depends on it, never a lane's result."""
+    count = lambda m: m.sum(dim=-1).cpu().numpy().astype(np.float64)
+    est = count(batch.cloudlets.state == CL_CREATED)
+    est += 2.0 * count(batch.vms.state == VM_PENDING)
+    if batch.events.shape[-2]:
+        kinds = batch.events[..., 1].to(torch.int32)
+        est += 4.0 * count(~batch.event_fired & (kinds != 0))
+    est *= np.where(batch.mig_policy.cpu().numpy() != 0, 4.0, 1.0)
+    return est
+
+
+def _take(tree, idx: torch.Tensor, device):
+    return map_tensors(lambda x: x[idx.to(x.device)].to(device), tree)
+
+
+def _cat(parts, device):
+    return with_leaves(parts[0], [
+        torch.cat([x.to(device) for x in xs])
+        for xs in zip(*(tensor_leaves(p) for p in parts))])
+
+
+def _dispatch_run(batch: DatacenterState, devices, *, max_steps: int,
+                  provision_policy: int, leap: bool | None,
+                  chunk: int = 4) -> DatacenterState:
+    """Sorted-chunk dispatch: lanes sorted by ``_dispatch_cost``,
+    descending and stable, cut into chunks of ``chunk`` lanes dealt
+    round-robin over ``devices``, one ``engine.batched_run`` a chunk, so
+    each chunk retires at its own slowest lane; the results come back in
+    lane order on ``devices[0]``."""
+    order = np.argsort(-_dispatch_cost(batch), kind="stable")
+    outs = []
+    for i in range(0, order.size, chunk):
+        dev = devices[(i // chunk) % len(devices)]
+        sub = _take(batch, torch.from_numpy(order[i:i + chunk]), dev)
+        outs.append(engine.batched_run(sub, max_steps=max_steps,
+                                       provision_policy=provision_policy,
+                                       leap=leap))
+    inv = torch.from_numpy(np.argsort(order, kind="stable"))
+    return _take(_cat(outs, devices[0]), inv, devices[0])
+
+
+def run_sharded(batch: DatacenterState, *, devices=None,
+                max_steps: int = 1_000_000,
+                provision_policy: int = FIRST_FIT,
+                partitioner: str = "auto",
+                leap: bool | None = None) -> DatacenterState:
+    """``run_batch`` with the lane axis split over ``devices`` (a list of
+    devices, which may name one card twice; default the card) by the
+    sorted-chunk dispatcher (``_dispatch_run``).  ``partitioner`` is
+    ``"dispatch"`` or ``"auto"`` (the same); ``"gspmd"`` and
+    ``"shard_map"`` raise ``ValueError``.  The result lies on
+    ``devices[0]`` and equals ``run_batch`` bit for bit."""
+    _check_partitioner(partitioner)
+    return _dispatch_run(batch, _devices(devices), max_steps=max_steps,
+                         provision_policy=provision_policy, leap=leap)
 
 
 # ---------------------------------------------------------------------------
@@ -314,13 +421,21 @@ def fuse_policies(batch: DatacenterState, grid: PolicyGrid
 def run_policy_search(batch: DatacenterState, grid: PolicyGrid, *,
                       max_steps: int = 1_000_000,
                       provision_policy: int = FIRST_FIT,
-                      leap: bool | None = None) -> DatacenterState:
+                      leap: bool | None = None, devices=None
+                      ) -> DatacenterState:
     """Every (scenario, autoscaler point) cell in one elastic batch
-    (``fuse_policies``, then ``engine.batched_run``), reshaped to
-    ``[P, B, ...]``; each cell equals the single ``engine.run`` of its
-    scenario with those knobs, bit for bit."""
-    out = engine.batched_run(fuse_policies(batch, grid), max_steps=max_steps,
-                             provision_policy=provision_policy, leap=leap)
+    (``fuse_policies``, then ``engine.batched_run``, or ``run_sharded``
+    over ``devices`` when given), reshaped to ``[P, B, ...]``; each cell
+    equals the single ``engine.run`` of its scenario with those knobs,
+    bit for bit."""
+    fused = fuse_policies(batch, grid)
+    if devices is None:
+        out = engine.batched_run(fused, max_steps=max_steps,
+                                 provision_policy=provision_policy,
+                                 leap=leap)
+    else:
+        out = run_sharded(fused, devices=devices, max_steps=max_steps,
+                          provision_policy=provision_policy, leap=leap)
     return _unfuse(out, grid.util_high.shape[0])
 
 
@@ -364,7 +479,7 @@ def run_stream_batch(batch: DatacenterState,
                      streams: ArrivalStream | Sequence[ArrivalStream], *,
                      reservoir: int = 64, provision_policy: int = FIRST_FIT,
                      leap: bool | None = None,
-                     max_steps_per_chunk: int = 4096
+                     max_steps_per_chunk: int = 4096, devices=None
                      ) -> tuple[DatacenterState, StreamState,
                                 StreamChunkRecord]:
     """``engine.run_stream`` over stacked windowed lanes.
@@ -373,14 +488,39 @@ def run_stream_batch(batch: DatacenterState,
     windows (``state.make_window``); ``streams`` a stacked [B, K, M]
     table, or a sequence that ``stack_streams`` stacks.  Each lane admits
     and retires on its own; lane i equals ``engine.run_stream`` of its
-    scenario bit for bit.
+    scenario bit for bit.  ``devices`` (a list) splits the lanes into one
+    contiguous block a device, the lane count padded to a multiple of
+    the devices with inert stream lanes, as the JAX package's mesh path
+    does; the result lies on ``devices[0]``, unpadded.
     """
     if not isinstance(streams, ArrivalStream):
         streams = stack_streams(list(streams))
-    return engine.batched_run_stream(
-        batch, streams, reservoir=reservoir,
-        provision_policy=provision_policy, leap=leap,
-        max_steps_per_chunk=max_steps_per_chunk)[:3]
+    kw = dict(reservoir=reservoir, provision_policy=provision_policy,
+              leap=leap, max_steps_per_chunk=max_steps_per_chunk)
+    if devices is None:
+        return engine.batched_run_stream(batch, streams, **kw)[:3]
+    devs = _devices(devices)
+    have = batch.time.shape[0]
+    per = -(-have // len(devs))
+    lanes = per * len(devs)
+    if lanes != have:
+        batch = pad_batch(batch, lanes)
+        pad = tensor_leaves(inert_stream_lane(streams))
+        streams = with_leaves(streams, [
+            torch.cat([x, p[None].expand((lanes - have,) + p.shape)])
+            for x, p in zip(tensor_leaves(streams), pad)])
+    outs = []
+    for k, dev in enumerate(devs):
+        block = lambda t: to_device(
+            map_tensors(lambda x: x[k * per:(k + 1) * per], t), dev)
+        outs.append(engine.batched_run_stream(block(batch), block(streams),
+                                              **kw))
+    home = devs[0]
+    cut = lambda t: map_tensors(lambda x: x[:have], t)
+    recs = StreamChunkRecord(*(torch.cat([r.to(home) for r in col])[:have]
+                               for col in zip(*(o[2] for o in outs))))
+    return (cut(_cat([o[0] for o in outs], home)),
+            cut(_cat([o[1] for o in outs], home)), recs)
 
 
 def run_stream_grid(batch: DatacenterState,
@@ -388,12 +528,13 @@ def run_stream_grid(batch: DatacenterState,
                     vm_policies, task_policies, *, reservoir: int = 64,
                     provision_policy: int = FIRST_FIT,
                     leap: bool | None = None,
-                    max_steps_per_chunk: int = 4096
+                    max_steps_per_chunk: int = 4096, devices=None
                     ) -> tuple[DatacenterState, StreamState,
                                StreamChunkRecord]:
     """Streamed scenarios x policy grid as one fused [P*B] batch
     (``fuse_grid`` for the states, a tile for the queues, which carry no
-    policy), reshaped to [P, B, ...]."""
+    policy), reshaped to [P, B, ...]; ``devices`` as in
+    ``run_stream_batch``."""
     if not isinstance(streams, ArrivalStream):
         streams = stack_streams(list(streams))
     vm_p, task_p = _policies(batch, vm_policies, task_policies)
@@ -403,7 +544,7 @@ def run_stream_grid(batch: DatacenterState,
     out = run_stream_batch(
         fuse_grid(batch, vm_p, task_p), map_tensors(tile, streams),
         reservoir=reservoir, provision_policy=provision_policy, leap=leap,
-        max_steps_per_chunk=max_steps_per_chunk)
+        max_steps_per_chunk=max_steps_per_chunk, devices=devices)
     recs = StreamChunkRecord(*(r.reshape((n_pol, -1) + r.shape[1:])
                                for r in out[2]))
     return _unfuse(out[0], n_pol), _unfuse(out[1], n_pol), recs

@@ -9,6 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 
@@ -35,6 +36,22 @@ def test_package_files_found():
 @pytest.mark.parametrize("path", PACKAGE + [ROOT / "chip_smoke.py"],
                          ids=_rel)
 def test_no_jax_or_repro_import(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{_rel(path)} imports {bad}"
+
+
+def test_federation_slice_modules_found():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PACKAGE}
+    assert {"core/cis.py", "core/federation.py", "core/experiments.py",
+            "core/sweep.py", "core/workloads.py"} <= names
+    assert {"torch_intercloud_study.py", "torch_federation_sim.py",
+            "torch_network_study.py"} <= {p.name for p in EXAMPLES}
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=_rel)
+def test_port_examples_import_no_jax(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{_rel(path)} imports {bad}"

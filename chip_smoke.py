@@ -29,12 +29,16 @@ script exits non-zero:
      convolutions (so f32 comparisons hold f32 precision): the
      flash-attention and selective-scan kernels against their plain
      versions on edge cases and timed at the main path's shapes (flash in
-     bf16 on its tensor-core design and in f32 on its FMA design); small
+     bf16 on its tensor-core design and in f32 on its FMA design, and
+     held to its plain version in bf16 at moonshot's MHA shape too); small
      models (smoke configs, f32) on the card against the CPU, prefill and
-     greedy serving; full-depth bf16 prefill of qwen3-0.6b (4 x 2048) and
-     falcon-mamba-7b (2 x 2048) through the kernels, then serving 16
+     greedy serving (the three MoE smoke configs among them); full-depth
+     bf16 prefill of qwen3-0.6b (4 x 2048), falcon-mamba-7b (2 x 2048)
+     and moonshot-v1-16b-a3b (4 x 2048, 56.1 GB of parameters, one model
+     on the card at a time) through the kernels, then serving 16
      requests on 8 slots with each; prefill against token-by-token
-     decode at full width in f32, depth cut to 4 layers.
+     decode at full width in f32, depth cut to 4 layers (moonshot at a
+     capacity factor of 16, where neither side drops).
 
   6. the event-horizon leap: a staggered static scenario (512 hosts of
      2 PEs, 256 VMs, 3 waves) leap on and leap off, bitwise equal, with
@@ -75,7 +79,7 @@ script exits non-zero:
      resident run bitwise); ``stream-tight``, 10,000 hosts and 50,000
      arrivals through 5,000 slots, card == CPU and chunk 1,024 == chunk
      8,192 bitwise; ``stream-poisson``, ``bench_streaming``'s lane at
-     2,000 arrivals, leap on == off bitwise and card == CPU, with
+     1,000 arrivals, leap on == off bitwise and card == CPU, with
      cloudlets/s; ``stream-lanes``, 4 small streamed scenarios x the 2x2
      grid in one ``run_stream_grid``, every lane == its single run (the
      resident comparisons read every arrival's times from a reservoir of
@@ -91,14 +95,14 @@ script exits non-zero:
      24 bins, SLA factor 2): probes on == off on every other leaf, leap
      on == off with the plane, 500,000 retirements, the buckets spanning
      the makespan, busy seconds and SLA counters against closed forms;
- 17. ``policy-search``: ``bench_elasticity``'s headroom lanes, 8 seeds x
+ 17. ``policy-search``: ``bench_elasticity``'s headroom lanes, 4 seeds x
      12 autoscaler points in one ``run_policy_search``: every cell ==
      its single run bitwise, card == CPU; then ``run_elasticity_study``
      with probes on, card == CPU on counts and the Pareto mask;
  18. ``elastic-stream-lanes``: 4 elastic streamed scenarios (numpy copies
      of the conformance recipe) x the 2x2 grid in one
      ``run_stream_grid``, every lane == its single run, card == CPU; a
-     probed streamed lane (``bench_metrics``' lane at 2,000 arrivals),
+     probed streamed lane (``bench_metrics``' lane at 1,000 arrivals),
      chunk 256 == chunk 4,096 bitwise and card == CPU;
  19. ``intercloud-100k``: the paper's largest datacenter split into a
      federation of four §5 host parks (10,000, 20,000, 30,000 and 40,000
@@ -109,22 +113,33 @@ script exits non-zero:
      every cell meets the §5 closed forms, the idle provider stays inert,
      provider 2's cells equal their single runs bitwise, and the card
      equals the CPU at 1/100 scale; routing and study walls apart;
- 20. ``dispatch``: the ``lanes-64`` and ``dyn-lanes`` batches through the
-     lane dispatcher (``sweep.run_sharded``) over [card] and [card,
-     card], bitwise equal to ``run_batch``; ``federated_run`` over [card,
-     card] bitwise equal to ``vmap_federation``;
+ 20. ``dispatch``: the ``lanes-64`` and ``dyn-lanes`` batches through
+     ``sweep.run_sharded``: ``"auto"`` over [card] as one ``batched_run``
+     of every lane (counted), and the dispatcher's chunks of 4 over
+     [card] and [card, card], all bitwise equal to ``run_batch``;
+     ``federated_run`` over [card, card] bitwise equal to
+     ``vmap_federation``;
+ 22. ``straggler``: ``ft.simulate_sync_training`` at 4,096 workers x 20
+     steps under none, drop and backup (8,192 hosts): JAX's closed forms,
+     step times on the card equal to the CPU's;
+ 23. ``lm-fleet``: ``launch.simulate --lm-profile`` (an LM serving cell
+     written as a roofline JSON) at 10,000 chips, 5,000 VMs, 10 waves:
+     every request done, none faster than its closed form;
+ 24. ``energy-study``: ``examples/torch_energy_study.py`` on the card and
+     on the CPU, the same rows, joules within 1e-3 J;
  21. what the migration, network, elastic, probe and streaming passes cost
      a full step at 100,000 hosts (the same run, bit for bit, with each
      set switched on), with host ops a step counted on the CPU, and the
-     wall of a host-plan rebuild.
+     wall of a host-plan rebuild (run after 22-24).
 
 Phase 2 also holds simstep with a task policy per row (a batch's lanes)
 against its plain version, and times it at 4 lanes of [50000, 10]; and
 on padded indexes (a streamed window's), against its plain version and
 against the unpadded index.
 
-Phases 3, 4 and 4b are the simulator's main path, and 6 to 20 each a
-path of its own (20 two: the dispatched batches and the federated run): simstep's launch count is set to 0 just before phase 3
+Phases 3, 4 and 4b are the simulator's main path, and 6 to 20 and 22
+to 24 each a path of its own (20 two: the dispatched batches and the
+federated run): simstep's launch count is set to 0 just before phase 3
 and read just after phase 4b, and set to 0 just before and read just
 after each run of the later ones (``launches_by_path`` in the kernels'
 record; every path must show launches).  The full-depth
@@ -151,7 +166,10 @@ BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:66
 SCAN_TOL = 2e-4                                     # tests/test_kernels.py:103
-LM_CELLS = (("qwen3-0.6b", 4), ("falcon-mamba-7b", 2))   # (arch, batch)
+LM_CELLS = (("qwen3-0.6b", 4), ("falcon-mamba-7b", 2),   # (arch, batch)
+            ("moonshot-v1-16b-a3b", 4))
+# moonshot-v1-16b-a3b's parameter bytes by its config: bf16, routers f32
+MOONSHOT_PARAM_BYTES = 56_128_573_440
 # the scan kernel's design: N/4 lanes a channel, dt/x/B/C staged by cp.async
 SCAN_DESIGN = "lane-split-cp.async"
 PREFILL_LEN = 2048
@@ -1718,7 +1736,7 @@ def poisson_stream(n, device, n_vms=32, n_hosts=8, window=64, chunk=4096):
     return dc, S.make_stream(vm, length, sub, chunk=chunk, device=device)
 
 
-def phase_stream_poisson(device, card, launched, n=2000):
+def phase_stream_poisson(device, card, launched, n=1000):
     """Phase 14c: ``bench_streaming``'s lane at n arrivals: leap on ==
     leap off bitwise on the card, the card against the CPU, and
     cloudlets per second for each."""
@@ -2121,7 +2139,7 @@ def headroom_scenario(seed, device, n_vms=24, per_slot=6, alive=4):
                              device=device)
 
 
-def phase_policy_search(device, card, launched, n_seeds=8):
+def phase_policy_search(device, card, launched, n_seeds=4):
     """Phase 17: ``policy-search``: ``n_seeds`` headroom lanes x 12
     autoscaler points (``bench_elasticity``'s grid) in one
     ``run_policy_search`` on the card: every cell equals its single run
@@ -2259,7 +2277,7 @@ def elastic_streamed_scenario(seed, device):
 
 
 def phase_elastic_stream_lanes(device, card, launched, n_seeds=4,
-                               n_probed=2000):
+                               n_probed=1000):
     """Phase 18: ``elastic-stream-lanes``: ``n_seeds`` elastic streamed
     scenarios x the 2x2 grid in one ``run_stream_grid``, and one probed
     streamed lane (``bench_metrics``' lane at ``n_probed`` arrivals,
@@ -2552,15 +2570,25 @@ def phase_intercloud(device, card, launched, scale=1, small=100):
 def phase_dispatch(device, card, launched, n_seeds=16, n_hosts=256,
                    n_dyn=8, small=100):
     """Phase 20: ``[dispatch]``, the lane dispatcher: the ``lanes-64``
-    and ``dyn-lanes`` batches through ``run_sharded(partitioner=
-    "dispatch")`` over ``[card]`` and ``[card, card]``, each ==
-    ``run_batch`` bitwise; ``federated_run`` == ``vmap_federation``
-    bitwise on the federation at 1/``small`` of its size."""
+    and ``dyn-lanes`` batches through ``run_sharded`` with ``"auto"``
+    over ``[card]`` (one ``batched_run`` of every lane, counted) and with
+    ``partitioner="dispatch"`` over ``[card]`` and ``[card, card]`` (the
+    chunks), each == ``run_batch`` bitwise; ``federated_run`` ==
+    ``vmap_federation`` bitwise on the federation at 1/``small`` of its
+    size."""
     import torch
+    from repro_torch.core import engine
     from repro_torch.core import experiments as E
     from repro_torch.core import federation as F
     from repro_torch.core import sweep
     from repro_torch.kernels.simstep import simstep
+
+    batched_run = engine.batched_run
+    runs = []
+
+    def counted(batch, **kw):
+        runs.append(batch.time.shape[0])
+        return batched_run(batch, **kw)
 
     vm_p, task_p = sweep.policy_grid(device=device)
     batches = (
@@ -2576,21 +2604,40 @@ def phase_dispatch(device, card, launched, n_seeds=16, n_hosts=256,
         ref = sweep.run_batch(fused, max_steps=steps)
         torch.cuda.synchronize()
         walls["run_batch"] = time.perf_counter() - t0
-        for name, devs in (("[card]", [device]),
-                           ("[card, card]", [device, device])):
+        lanes = fused.time.shape[0]
+        calls = {}
+        for name, devs, part in (("auto [card]", [device], "auto"),
+                                 ("[card]", [device], "dispatch"),
+                                 ("[card, card]", [device, device],
+                                  "dispatch")):
             simstep.launches = 0
-            t0 = time.perf_counter()
-            out = sweep.run_sharded(fused, devices=devs, max_steps=steps,
-                                    partitioner="dispatch")
-            torch.cuda.synchronize()
-            walls[name] = time.perf_counter() - t0
+            runs.clear()
+            engine.batched_run = counted
+            try:
+                t0 = time.perf_counter()
+                out = sweep.run_sharded(fused, devices=devs,
+                                        max_steps=steps, partitioner=part)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+            finally:
+                engine.batched_run = batched_run
+            calls[name] = list(runs)
             n_launch += simstep.launches
             check(same_state(out, ref),
                   f"dispatch: {tag} over {name} != run_batch")
-        lines.append(f"{tag} ({fused.time.shape[0]} lanes, chunks of 4) "
-                     f"run_batch {walls['run_batch']!r} s, dispatched over "
-                     f"[card] {walls['[card]']!r} s and [card, card] "
-                     f"{walls['[card, card]']!r} s")
+        check(calls["auto [card]"] == [lanes],
+              f"dispatch: {tag} auto over [card] made batched_runs of "
+              f"{calls['auto [card]']} lanes, expected one of {lanes}")
+        check(calls["[card]"] == [4] * (lanes // 4),
+              f"dispatch: {tag} dispatch over [card] made batched_runs of "
+              f"{calls['[card]']} lanes")
+        lines.append(f"{tag} ({lanes} lanes) run_batch "
+                     f"{walls['run_batch']!r} s, auto over [card] "
+                     f"{walls['auto [card]']!r} s ({len(calls['auto [card]'])}"
+                     f" batched_run of {lanes} lanes), dispatched in chunks "
+                     f"of 4 over [card] {walls['[card]']!r} s "
+                     f"({len(calls['[card]'])} batched_runs) and [card, "
+                     f"card] {walls['[card, card]']!r} s")
     launched["dispatch"] = n_launch
     dcs, _, _ = E.build_study(*federation(device, scale=small),
                               device=device)
@@ -2613,6 +2660,161 @@ def phase_dispatch(device, card, launched, n_seeds=16, n_hosts=256,
           f"federated_run over [card, card] == vmap_federation bitwise on "
           f"the 1/{small} federation (4 datacenters): {fed_wall!r} s against "
           f"{vmap_wall!r} s ({card})")
+
+
+# ---------------------------------------------------------------------------
+# The simulator's leftovers (phases 22-24)
+# ---------------------------------------------------------------------------
+# an LM serving cell as a roofline JSON: test_system.py's
+# test_lm_fleet_profile_roundtrip numbers (100 TFLOP a request over 256
+# chips), 6 GB of device memory a chip
+LM_PROFILE = {"arch": "qwen2-1.5b", "shape": "prefill_32k", "chips": 256,
+              "cost_per_device": {"flops": 1.0e14 / 256},
+              "memory": {"peak_bytes_per_device": 6.0e9}}
+
+
+def phase_straggler(device, card, launched, n_workers=4096, steps=20,
+                    slow_frac=0.05, slow_factor=4.0):
+    """Phase 22: ``[straggler]``, ``ft.simulate_sync_training`` at
+    ``n_workers`` workers and ``steps`` steps under ``none``, ``drop``
+    (``drop_k = n - n_slow``) and ``backup`` (2 x ``n_workers`` hosts):
+    JAX's closed forms (``none`` slows by ``slow_factor``, ``drop``
+    recovers the ideal step), ``step_times`` on the card == the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.ft import simulate_sync_training
+    from repro_torch.kernels.simstep import simstep
+
+    n_slow = int(round(slow_frac * n_workers))
+    kw = dict(n_workers=n_workers, steps=steps, slow_frac=slow_frac,
+              slow_factor=slow_factor, seed=0)
+    runs, n_launch = [], 0
+    for policy, drop_k in (("none", None), ("drop", n_workers - n_slow),
+                           ("backup", None)):
+        simstep.launches = 0
+        t0 = time.perf_counter()
+        rep = simulate_sync_training(policy=policy, drop_k=drop_k,
+                                     device=device, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch += simstep.launches
+        cpu = simulate_sync_training(policy=policy, drop_k=drop_k,
+                                     device="cpu", **kw)
+        check(np.array_equal(rep.step_times, cpu.step_times),
+              f"straggler {policy}: card step times != CPU's")
+        check(rep.stats.n_events == cpu.stats.n_events,
+              f"straggler {policy}: events {rep.stats.n_events} vs "
+              f"{cpu.stats.n_events}")
+        runs.append((policy, rep, wall, simstep.launches))
+    none, drop, backup = (r[1] for r in runs)
+    check(abs(none.slowdown_vs_ideal - slow_factor) <= 1e-3 * slow_factor,
+          f"straggler none: slowdown {none.slowdown_vs_ideal!r}")
+    check(abs(drop.slowdown_vs_ideal - 1.0) <= 1e-3,
+          f"straggler drop: slowdown {drop.slowdown_vs_ideal!r}")
+    check(backup.mean_step <= none.mean_step,
+          "straggler: backup slower than none")
+    launched["straggler"] = n_launch
+    for policy, rep, wall, n in runs:
+        hosts = n_workers * (2 if policy == "backup" else 1)
+        print(f"[straggler] {policy}: {n_workers} workers x {steps} steps "
+              f"({hosts} hosts, {hosts * steps} cloudlets, {n_slow} slow at "
+              f"1/{slow_factor:g}): mean step {rep.mean_step!r} s, p99 "
+              f"{rep.p99_step!r} s, slowdown {rep.slowdown_vs_ideal!r}; "
+              f"card == CPU; wall {wall!r} s, {rep.stats.n_events} events, "
+              f"{n} simstep launches ({card})")
+
+
+def phase_lm_fleet(device, card, launched, n_hosts=10_000, n_vms=5_000,
+                   waves=10):
+    """Phase 23: ``[lm-fleet]``, ``launch.simulate --lm-profile`` with the
+    ``LM_PROFILE`` cell on the card: every cloudlet done, no execution
+    shorter than the profile's closed form (FLOPs / chip MIPS)."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from repro_torch.core.workloads import TPU_V5E_MIPS
+    from repro_torch.kernels.simstep import simstep
+    from repro_torch.launch import simulate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "cell.json"
+        path.write_text(json.dumps(LM_PROFILE))
+        buf = io.StringIO()
+        simstep.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out, rep = simulate.main([
+                "--lm-profile", str(path), "--hosts", str(n_hosts),
+                "--vms", str(n_vms), "--waves", str(waves), "--device",
+                str(device)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched["lm-fleet"] = simstep.launches
+    cl = out.cloudlets
+    n = n_vms * waves
+    check(cl.state.shape[0] == n and bool((cl.state == CL_DONE).all()),
+          f"lm-fleet: {int((cl.state == CL_DONE).sum())}/{n} done")
+    flops = LM_PROFILE["cost_per_device"]["flops"] * LM_PROFILE["chips"]
+    closed = flops * 1e-6 / TPU_V5E_MIPS
+    exec_min = float((cl.finish_time - cl.start_time).min())
+    check(exec_min >= closed - 1e-3,
+          f"lm-fleet: execution {exec_min!r} s under {closed!r} s")
+    for line in buf.getvalue().splitlines():
+        print(line)
+    print(f"[lm-fleet] --lm-profile ({LM_PROFILE['arch']}/"
+          f"{LM_PROFILE['shape']}, {flops:.3g} FLOP a request) --hosts "
+          f"{n_hosts} --vms {n_vms} --waves {waves} on the card: {n}/{n} "
+          f"done, shortest execution {exec_min!r} s >= {closed!r} s; wall "
+          f"{wall!r} s, {simstep.launches} simstep launches ({card})")
+
+
+def phase_energy_study(device, card, launched):
+    """Phase 24: ``[energy-study]``, ``examples/torch_energy_study.py`` on
+    the card and on the CPU: the same printed rows; the grid's joules
+    within 1e-3 J, its makespans and mean responses within 1e-3 s."""
+    import contextlib
+    import io
+    import runpy
+    import torch
+    from repro_torch.kernels.simstep import simstep
+
+    script = str(Path(__file__).resolve().parent / "examples"
+                 / "torch_energy_study.py")
+    res = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        buf = io.StringIO()
+        argv = sys.argv
+        sys.argv = [script, "--device", str(dev)]
+        simstep.launches = 0
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                env = runpy.run_path(script, run_name="__main__")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            sys.argv = argv
+        res[name] = (buf.getvalue().splitlines(), env["summ"], wall,
+                     simstep.launches)
+    launched["energy-study"] = res["card"][3]
+    (g_lines, g, g_wall, _), (c_lines, c, c_wall, _) = res["card"], res["cpu"]
+    check(g_lines == c_lines, "energy-study: card rows != CPU rows")
+    err_j = float((g.energy_j.cpu().double() - c.energy_j.double())
+                  .abs().max())
+    err_s = max(float((getattr(g, f).cpu().double()
+                       - getattr(c, f).double()).abs().max())
+                for f in ("makespan", "mean_response"))
+    check(err_j <= 1e-3 and err_s <= 1e-3,
+          f"energy-study: card vs CPU {err_j!r} J, {err_s!r} s")
+    check(torch.equal(g.n_done.cpu(), c.n_done), "energy-study: done")
+    for line in g_lines:
+        if " MJ" in line or " kJ" in line:
+            print(f"[energy-study] {line.strip()}")
+    print(f"[energy-study] examples/torch_energy_study.py: card rows == CPU "
+          f"rows, grid joules within {err_j!r} J, times within {err_s!r} "
+          f"s; wall card {g_wall!r} s, CPU {c_wall!r} s, {res['card'][3]} "
+          f"simstep launches ({card})")
 
 
 def plan_ms(dc, reps=20):
@@ -2882,6 +3084,26 @@ def phase_lm_kernels(device):
                                atol=FLASH_TOL["bfloat16"],
                                rtol=FLASH_TOL["bfloat16"])
     main_err = float((got.float() - want.float()).abs().max())
+    # moonshot-v1-16b-a3b's prefill shape: MHA, one query head a KV head
+    from repro_torch import configs as CFG
+    mcfg = CFG.get_config("moonshot-v1-16b-a3b")
+    mshape = (dict(LM_CELLS)["moonshot-v1-16b-a3b"], PREFILL_LEN,
+              mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim)
+    mq, mk, mv = flash_inputs(gen, *mshape, torch.bfloat16, device)
+    mgot = flash_attention(mq, mk, mv, causal=True)
+    mwant = attention_ref(mq, mk, mv, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mgot.float(), mwant.float(),
+                               atol=FLASH_TOL["bfloat16"],
+                               rtol=FLASH_TOL["bfloat16"])
+    moon_err = float((mgot.float() - mwant.float()).abs().max())
+    mkind = design(torch.bfloat16, mcfg.head_dim)
+    check(mkind == "wgmma-bf16", f"moonshot's flash shape runs {mkind}")
+    print(f"[lm-kernels] flash_attention [{mshape[0]},{mshape[1]},"
+          f"{mshape[2]}/{mshape[3]},{mshape[4]}] bf16 causal "
+          f"(moonshot-v1-16b-a3b's prefill) on the {mkind} design: "
+          f"max_abs_err vs plain {moon_err!r}, tol {FLASH_TOL['bfloat16']}")
+    del mq, mk, mv, mgot, mwant
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                          enable_gqa=True).transpose(1, 2)
@@ -2919,7 +3141,8 @@ def phase_lm_kernels(device):
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/flash.py:71",
-             "max_abs_err": max(max(worst.values()), main_err), "ms": ms,
+             "max_abs_err": max(max(worst.values()), main_err, moon_err),
+             "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": library_ms,
              "f32_design": design(torch.float32, hd), "f32_ms": f32_ms,
@@ -2986,25 +3209,36 @@ def phase_lm_kernels(device):
 
 
 def phase_lm_agreement(device):
-    """Phase 5b: smoke configs in f32, the same weights on the card and on
-    the CPU: prefill logits and KV stacks within 1e-4, and a greedy serve
-    run of 4 requests over 2 slots with the same tokens and slot state."""
+    """Phase 5b: smoke configs in f32 (the three MoE ones among them;
+    jamba's runs flash, the selective scan and MoE in one model), the
+    same weights on the card and on the CPU (the plain versions): prefill
+    logits and KV stacks within 1e-4, MoE aux equal within 1e-6, and a
+    greedy serve run of 4 requests over 2 slots with the same tokens and
+    slot state."""
     import numpy as np
     import torch
     from repro_torch import configs as CFG
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
 
-    for arch in ("qwen3-0.6b", "h2o-danube-1.8b", "falcon-mamba-7b"):
+    for arch in ("qwen3-0.6b", "h2o-danube-1.8b", "falcon-mamba-7b",
+                 "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
+                 "jamba-1.5-large-398b"):
         cfg = CFG.get_smoke_config(arch)
         cpu = M.init_params(cfg, torch.Generator().manual_seed(1),
                             device="cpu")
         gpu = tree_to(cpu, device)
         toks = torch.from_numpy(np.random.default_rng(2).integers(
             0, cfg.vocab_size, (2, 40)))
-        (lc, kvc), (lg, kvg) = (M.prefill(p, cfg, toks.to(p["embed"].device))
-                                for p in (cpu, gpu))
+        mets = ([], [])
+        (lc, kvc), (lg, kvg) = (M.prefill(p, cfg, toks.to(p["embed"].device),
+                                          metrics=m)
+                                for p, m in zip((cpu, gpu), mets))
         err = float((lg.cpu() - lc).abs().max())
+        aux_err = max([abs(float(mg[k]) - float(mc[k]))
+                       for mc, mg in zip(*mets) for k in mc], default=0.0)
+        check(len(mets[0]) == len(mets[1]) and aux_err <= 1e-6,
+              f"{arch} smoke prefill: MoE aux differ by {aux_err}")
         kv_err = max([float((g.cpu() - c).abs().max())
                       for pg, pc in zip(kvg, kvc) for g, c in zip(pg, pc)],
                      default=0.0)
@@ -3017,10 +3251,12 @@ def phase_lm_agreement(device):
             check(torch.equal(getattr(sg, field).cpu(), getattr(sc, field)),
                   f"{arch} smoke serve: {field} differs card vs CPU")
         check(runs[0].steps == runs[1].steps, f"{arch} smoke serve steps")
+        moe = (f", {len(mets[1])} MoE sub-layers, aux err {aux_err!r}"
+               if mets[1] else "")
         print(f"[lm-small] {arch} smoke (f32): card == CPU, prefill logits "
-              f"err {err!r}, kv err {kv_err!r}; greedy serve of 4 requests "
-              f"on 2 slots: tokens, n_generated, active, position equal "
-              f"({runs[1].steps} steps)")
+              f"err {err!r}, kv err {kv_err!r}{moe}; greedy serve of 4 "
+              f"requests on 2 slots: tokens, n_generated, active, position "
+              f"equal ({runs[1].steps} steps)")
 
 
 def profile_top(fn, label, card):
@@ -3059,7 +3295,12 @@ def phase_lm_main(device, card, launched):
     """Phase 5c: each model at full width and depth in bf16: prefill of
     ``batch`` x 2048 tokens through the kernels (counts set to 0 just
     before and read just after, added to ``launched``), then serving 16
-    requests on 8 slots (prompt 32, max-new 32, greedy)."""
+    requests on 8 slots (prompt 32, max-new 32, greedy).  The models run
+    one at a time, each freed before the next is built; an MoE model
+    reports its prefill's ``dropped_frac`` and the device time of one
+    decode step of 8 slots against the bytes of every expert."""
+    import gc
+
     import numpy as np
     import torch
     from repro_torch import configs as CFG
@@ -3079,11 +3320,18 @@ def phase_lm_main(device, card, launched):
         init_s = time.perf_counter() - t0
         tokens = torch.randint(2, cfg.vocab_size, (batch, PREFILL_LEN),
                                generator=gen, device=device)
+        n_params = tree_bytes(params)
+        if arch == "moonshot-v1-16b-a3b":
+            check(abs(n_params - MOONSHOT_PARAM_BYTES)
+                  <= 1e-3 * MOONSHOT_PARAM_BYTES,
+                  f"{arch}: {n_params} parameter bytes, expected "
+                  f"{MOONSHOT_PARAM_BYTES}")
         M.prefill(params, cfg, tokens)                # warm, not counted
         torch.cuda.synchronize()
+        moe_metrics = []
         flash_attention.launches = selective_scan.launches = 0
         t0 = time.perf_counter()
-        logits, kvs = M.prefill(params, cfg, tokens)
+        logits, kvs = M.prefill(params, cfg, tokens, metrics=moe_metrics)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"flash_attention": flash_attention.launches,
@@ -3104,14 +3352,23 @@ def phase_lm_main(device, card, launched):
         check(tuple(logits.shape) == (batch, 1, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"{arch} prefill logits {tuple(logits.shape)} not finite")
+        moe = ""
+        if moe_metrics:
+            dropped = [float(m["dropped_frac"]) for m in moe_metrics]
+            lbl = [float(m["load_balance_loss"]) for m in moe_metrics]
+            check(all(np.isfinite(dropped + lbl)),
+                  f"{arch} prefill: MoE aux not finite")
+            moe = (f"; {len(moe_metrics)} MoE sub-layers, dropped_frac "
+                   f"mean {statistics.fmean(dropped)!r} max {max(dropped)!r},"
+                   f" load-balance loss mean {statistics.fmean(lbl)!r}")
         print(f"[lm-prefill] {arch} bf16, {cfg.num_layers} layers, "
               f"{batch} x {PREFILL_LEN} tokens: wall {wall!r} s, "
               f"{batch * PREFILL_LEN / wall!r} prompt tokens/s; launches "
               f"{counts}, flash on {kind}; params "
-              f"{tree_bytes(params)} bytes, KV "
+              f"{n_params} bytes, KV "
               f"{tree_bytes(kvs)} bytes on the device, peak allocated "
               f"{torch.cuda.max_memory_allocated()} bytes; init "
-              f"{init_s!r} s ({card})")
+              f"{init_s!r} s{moe} ({card})")
         del logits, kvs
         profile_top(lambda: M.prefill(params, cfg, tokens),
                     f"{arch} prefill {batch} x {PREFILL_LEN}", card)
@@ -3139,7 +3396,22 @@ def phase_lm_main(device, card, launched):
                 M.decode_step(params, cfg, tok, cache, pos)
         decode8()
         profile_top(decode8, f"{arch} 8 decode steps, 8 slots", card)
-        del params, cache
+        if cfg.num_experts:
+            # one decode step of 8 slots: T*k = 8*k pairs, capacity 8 an
+            # expert, so every expert's three matrices are read
+            step_ms = eager_ms(lambda: M.decode_step(params, cfg, tok, cache,
+                                                     pos), reps=20)
+            moe_layers = sum(sp.moe for sp in cfg.pattern) * cfg.num_blocks
+            expert_bytes = (moe_layers * 3 * cfg.num_experts * cfg.d_model
+                            * cfg.d_ff * 2)
+            read_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+            print(f"[lm-serve] {arch} decode step, 8 slots: {step_ms!r} ms "
+                  f"(CUDA events, eager); its experts' weights "
+                  f"{expert_bytes} bytes take {read_ms!r} ms at 3.35 TB/s "
+                  f"({card})")
+        del params, cache, report, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_lm_prefill_vs_decode(device):
@@ -3155,11 +3427,19 @@ def phase_lm_prefill_vs_decode(device):
     for arch, _ in LM_CELLS:
         cfg = dataclasses.replace(CFG.get_config(arch), num_layers=4,
                                   dtype="float32")
+        if cfg.num_experts:
+            # a capacity at which neither side drops (JAX's hybrid-moe
+            # family uses 16): with drops, prefill's capacity (128
+            # tokens) and decode's (2) differ by design
+            cfg = dataclasses.replace(cfg, capacity_factor=16.0)
         gen = torch.Generator(device=device).manual_seed(3)
         params = M.init_params(cfg, gen, device=device)
         toks = torch.randint(2, cfg.vocab_size, (2, 64), generator=gen,
                              device=device)
-        full, _ = M.prefill(params, cfg, toks)
+        mets = []
+        full, _ = M.prefill(params, cfg, toks, metrics=mets)
+        check(all(float(m["dropped_frac"]) == 0.0 for m in mets),
+              f"{arch} prefill vs decode: the prefill dropped tokens")
         cache = M.init_cache(cfg, 2, 64, device=device)
         for t in range(64):
             pos = torch.full((2,), t, dtype=torch.int32, device=device)
@@ -3174,6 +3454,7 @@ def phase_lm_prefill_vs_decode(device):
               f"prefill == decode, top-1 equal, max|diff|/max|logit| "
               f"{rel!r}")
         del params, cache
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -3242,6 +3523,9 @@ def main():
     phase_elastic_stream_lanes(device, card, launched)
     phase_intercloud(device, card, launched)
     phase_dispatch(device, card, launched)
+    phase_straggler(device, card, launched)
+    phase_lm_fleet(device, card, launched)
+    phase_energy_study(device, card, launched)
     phase_pass_cost(device, card)
     for path, n in launched.items():
         check(n > 0, f"simstep never launched on the {path} path")

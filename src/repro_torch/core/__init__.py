@@ -15,7 +15,7 @@ dynamic, networked, streamed, elastic and probed paths, and federation).
                    streamed runs (``run_stream``)
   streaming.py     admission and retirement of streamed windows
   workloads.py     arrival processes: generator-drawn resident blocks,
-                   NumPy-seeded streams
+                   NumPy-seeded streams; LM-fleet profiles
   migration.py     live migration: THRESHOLD / DRAIN, delay, joules
   network.py       staged transfers as fair-shared flows, routed copies
   sweep.py         stacked scenario batches, fused policy grids, the

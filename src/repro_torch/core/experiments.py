@@ -288,17 +288,18 @@ def run_elasticity_study(batch: S.DatacenterState, grid: sweep.PolicyGrid,
                          include_unfinished: bool = True,
                          max_steps: int = 1_000_000,
                          provision_policy: int = FIRST_FIT,
-                         devices=None) -> ElasticityStudy:
+                         devices=None, partitioner: str = "auto"
+                         ) -> ElasticityStudy:
     """Policy search, then the Pareto front against a static fleet.
 
     Every (scenario, point) cell runs in one elastic batch; the baseline
     is ``static_batch`` (default: ``batch`` with the scaler disabled and
     its spot accrual live, so a static fleet pays the spot price for
-    every alive VM all run long).  ``devices`` forwards to
-    ``sweep.run_policy_search``."""
+    every alive VM all run long).  ``devices`` and ``partitioner``
+    forward to ``sweep.run_policy_search``."""
     final = sweep.run_policy_search(batch, grid, max_steps=max_steps,
                                     provision_policy=provision_policy,
-                                    devices=devices)
+                                    devices=devices, partitioner=partitioner)
     summary = sweep.summarize_batch(final)
     sla = sla_violations(final, factor=sla_factor,
                          include_unfinished=include_unfinished).sum(

@@ -37,7 +37,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.segments import rounds_for, run_scan, run_starts
+from repro_torch.core.segments import (rounds_for, run_scan, run_starts,
+                                       segment_cumsum)
 from repro_torch.core.state import (CL_CREATED, INF, NET_RUN, SPACE_SHARED,
                                     VM_ACTIVE, DatacenterState, map_tensors)
 from repro_torch.kernels.simstep.ops import (RowIndex, padded_row_index,
@@ -48,7 +49,12 @@ __all__ = ["cloudlet_runnable", "vm_has_work", "host_level_shares",
            "lanes_of", "stream_lanes", "HostPlan", "host_plan",
            "refresh_slots", "host_sums",
            "host_consumed", "vm_sums", "lane_axis", "lane_rates",
-           "lane_min", "lane_runnable", "run_counts"]
+           "lane_min", "lane_runnable", "run_counts",
+           "segment_cumsum_grouped"]
+
+# The JAX package's back-compat name for the grouped cumsum, which lives
+# in ``segments``.
+segment_cumsum_grouped = segment_cumsum
 
 
 def lane_axis(dc: DatacenterState) -> DatacenterState:

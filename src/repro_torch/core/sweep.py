@@ -30,15 +30,20 @@ autoscaler points (``policy_points``) into the lane axis the same way
 (``fuse_policies``), for ``experiments.run_elasticity_study``.
 
 The lane dispatcher (``run_sharded``, and the ``devices`` arguments of
-``run_grid``, ``run_policy_search`` and the stream runners) splits the lane axis over a list
-of devices, where the JAX package splits it over a mesh: the lanes,
-sorted by an estimate of their cost, go out in chunks of four,
-round-robin, one ``batched_run`` a chunk, and come back in lane order
-on ``devices[0]``.  A list may name one card twice.  On one card the
-chunks run one after another, each retiring at its own slowest lane.
-Every spelling equals ``run_batch`` bit for bit, because lane i equals
-its single run.  JAX's ``"gspmd"`` and ``"shard_map"`` partitioners
-build one SPMD program over a mesh and have no counterpart here.
+``run_grid``, ``run_policy_search`` and the stream runners) splits the
+lane axis over a list of devices, where the JAX package splits it over
+a mesh: the lanes, sorted by an estimate of their cost, go out in
+chunks of four, round-robin, one ``batched_run`` a chunk, and come back
+in lane order on ``devices[0]`` (the stream runners cut one contiguous
+block a device instead).  A list may name one card twice.  With
+``partitioner="auto"`` (the default) a list of one distinct device runs
+the whole batch as one ``batched_run`` there, as a one-device JAX mesh
+keeps the fused program; ``"dispatch"`` always cuts, even on one card,
+where the pieces run one after another.  The stream runners take no
+partitioner and always follow the one-distinct-device rule.  Every
+spelling equals ``run_batch`` bit for bit, because lane i equals its
+single run.  JAX's ``"gspmd"`` and ``"shard_map"`` partitioners build
+one SPMD program over a mesh and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -286,8 +291,22 @@ def _devices(devices) -> list[torch.device]:
     return devs
 
 
+def _distinct(devices: list[torch.device]) -> int:
+    """How many different devices ``devices`` names (``cuda`` and the
+    current ``cuda:i`` are one)."""
+    key = lambda d: (torch.device("cuda", torch.cuda.current_device())
+                     if d.type == "cuda" and d.index is None else d)
+    return len({key(d) for d in devices})
+
+
+def _one_batch(partitioner: str, devices: list[torch.device]) -> bool:
+    """``"auto"`` over one distinct device runs the batch whole."""
+    return partitioner == "auto" and _distinct(devices) == 1
+
+
 def _check_partitioner(partitioner: str) -> None:
-    """``"auto"`` and ``"dispatch"`` both name the dispatcher."""
+    """``"auto"`` (one batch on one distinct device, else the dispatcher)
+    and ``"dispatch"`` (always the dispatcher)."""
     if partitioner in ("gspmd", "shard_map"):
         raise ValueError(
             f"partitioner {partitioner!r} builds one SPMD program over a "
@@ -350,11 +369,19 @@ def run_sharded(batch: DatacenterState, *, devices=None,
     """``run_batch`` with the lane axis split over ``devices`` (a list of
     devices, which may name one card twice; default the card) by the
     sorted-chunk dispatcher (``_dispatch_run``).  ``partitioner`` is
-    ``"dispatch"`` or ``"auto"`` (the same); ``"gspmd"`` and
-    ``"shard_map"`` raise ``ValueError``.  The result lies on
-    ``devices[0]`` and equals ``run_batch`` bit for bit."""
+    ``"dispatch"`` (always the dispatcher) or ``"auto"`` (one
+    ``batched_run`` on ``devices[0]`` when the list names one distinct
+    device, the dispatcher otherwise); ``"gspmd"`` and ``"shard_map"``
+    raise ``ValueError``.  The result lies on ``devices[0]`` and equals
+    ``run_batch`` bit for bit."""
     _check_partitioner(partitioner)
-    return _dispatch_run(batch, _devices(devices), max_steps=max_steps,
+    devs = _devices(devices)
+    if _one_batch(partitioner, devs):
+        return engine.batched_run(to_device(batch, devs[0]),
+                                  max_steps=max_steps,
+                                  provision_policy=provision_policy,
+                                  leap=leap)
+    return _dispatch_run(batch, devs, max_steps=max_steps,
                          provision_policy=provision_policy, leap=leap)
 
 
@@ -421,13 +448,13 @@ def fuse_policies(batch: DatacenterState, grid: PolicyGrid
 def run_policy_search(batch: DatacenterState, grid: PolicyGrid, *,
                       max_steps: int = 1_000_000,
                       provision_policy: int = FIRST_FIT,
-                      leap: bool | None = None, devices=None
-                      ) -> DatacenterState:
+                      leap: bool | None = None, devices=None,
+                      partitioner: str = "auto") -> DatacenterState:
     """Every (scenario, autoscaler point) cell in one elastic batch
     (``fuse_policies``, then ``engine.batched_run``, or ``run_sharded``
-    over ``devices`` when given), reshaped to ``[P, B, ...]``; each cell
-    equals the single ``engine.run`` of its scenario with those knobs,
-    bit for bit."""
+    over ``devices`` with ``partitioner`` when given), reshaped to
+    ``[P, B, ...]``; each cell equals the single ``engine.run`` of its
+    scenario with those knobs, bit for bit."""
     fused = fuse_policies(batch, grid)
     if devices is None:
         out = engine.batched_run(fused, max_steps=max_steps,
@@ -435,7 +462,8 @@ def run_policy_search(batch: DatacenterState, grid: PolicyGrid, *,
                                  leap=leap)
     else:
         out = run_sharded(fused, devices=devices, max_steps=max_steps,
-                          provision_policy=provision_policy, leap=leap)
+                          provision_policy=provision_policy,
+                          partitioner=partitioner, leap=leap)
     return _unfuse(out, grid.util_high.shape[0])
 
 
@@ -491,7 +519,9 @@ def run_stream_batch(batch: DatacenterState,
     scenario bit for bit.  ``devices`` (a list) splits the lanes into one
     contiguous block a device, the lane count padded to a multiple of
     the devices with inert stream lanes, as the JAX package's mesh path
-    does; the result lies on ``devices[0]``, unpadded.
+    does; the result lies on ``devices[0]``, unpadded.  A list of one
+    distinct device runs the whole batch there, as a one-device mesh
+    does.
     """
     if not isinstance(streams, ArrivalStream):
         streams = stack_streams(list(streams))
@@ -500,6 +530,10 @@ def run_stream_batch(batch: DatacenterState,
     if devices is None:
         return engine.batched_run_stream(batch, streams, **kw)[:3]
     devs = _devices(devices)
+    if _one_batch("auto", devs):
+        return engine.batched_run_stream(to_device(batch, devs[0]),
+                                         to_device(streams, devs[0]),
+                                         **kw)[:3]
     have = batch.time.shape[0]
     per = -(-have // len(devs))
     lanes = per * len(devs)

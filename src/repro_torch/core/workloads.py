@@ -12,7 +12,14 @@ give JAX's cloudlets).
 ``diurnal_stream`` and ``mmpp_stream`` draw every arrival on the host
 from ``np.random.default_rng(seed)`` and build a sorted chunk table with
 ``state.make_stream``, so one seed gives the JAX package's stream
-exactly.  The LM-fleet profiles belong to a later slice of the port.
+exactly.
+
+The LM-fleet profiles (``LmWorkloadProfile``, ``profile_from_roofline``,
+``cloudlets_from_profile``, ``make_tpu_hosts``) render one (arch x
+shape) cell of an LM workload as cloudlet parameters and a pool of
+accelerator hosts, with the JAX package's NumPy arithmetic: 1 MI is 1e6
+FLOP, one simulated TPU-v5e chip is ``TPU_V5E_MIPS`` (a parameter of the
+simulated fleet, not a measurement).
 """
 from __future__ import annotations
 
@@ -27,7 +34,11 @@ from repro_torch.device import resolve_device
 
 __all__ = ["poisson_arrivals", "poisson_from_draws", "bursty_arrivals",
            "bursty_from_noise", "diurnal_rate", "diurnal_stream",
-           "mmpp_stream"]
+           "mmpp_stream", "LmWorkloadProfile", "profile_from_roofline",
+           "cloudlets_from_profile", "TPU_V5E_MIPS", "make_tpu_hosts"]
+
+TPU_V5E_MIPS = 197e6     # one simulated chip's MIPS (1 MI = 1e6 FLOP)
+_MI_PER_FLOP = 1e-6
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -159,3 +170,57 @@ def mmpp_stream(seed: int, n_vms: int, *, rate_low: float, rate_high: float,
     times = np.sort(np.concatenate(times)) if times else np.zeros((0,))
     return _stream(rng, times, n_vms, length_mi, file_size, output_size,
                    chunk, device)
+
+
+# ---------------------------------------------------------------------------
+# LM-fleet profiles (an LM workload's roofline rendered as cloudlets)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LmWorkloadProfile:
+    """One (arch x shape) cell rendered as cloudlet parameters."""
+    name: str
+    length_mi: float        # FLOPs per step/request, in MI (1e6 FLOP)
+    file_size_mb: float     # input bytes per request (tokens, embeddings)
+    output_size_mb: float   # output bytes per request
+    hbm_gb_per_chip: float  # peak device memory: sets the VM's RAM demand
+    chips: int              # devices the cell was sized for
+
+
+def profile_from_roofline(name: str, *, hlo_gflops: float,
+                          in_bytes: float = 0.0, out_bytes: float = 0.0,
+                          hbm_bytes_per_chip: float = 0.0, chips: int = 256
+                          ) -> LmWorkloadProfile:
+    """A cell's FLOPs and bytes in simulator units."""
+    return LmWorkloadProfile(
+        name=name,
+        length_mi=hlo_gflops * 1e9 * _MI_PER_FLOP,
+        file_size_mb=in_bytes / 1e6,
+        output_size_mb=out_bytes / 1e6,
+        hbm_gb_per_chip=hbm_bytes_per_chip / 1e9,
+        chips=chips,
+    )
+
+
+def cloudlets_from_profile(profile: LmWorkloadProfile, n_vms: int,
+                           *, requests_per_vm: int, period: float,
+                           first_at: float = 0.0, device=None
+                           ) -> S.CloudletState:
+    """A steady request stream of this LM workload against a VM fleet:
+    ``requests_per_vm`` requests a VM, ``period`` apart (f32 times)."""
+    vm_ids = np.repeat(np.arange(n_vms, dtype=np.int32), requests_per_vm)
+    waves = np.tile(np.arange(requests_per_vm, dtype=np.float32), n_vms)
+    submit = first_at + waves * period
+    return S.make_cloudlets(vm_ids, profile.length_mi, submit,
+                            profile.file_size_mb, profile.output_size_mb,
+                            device=device)
+
+
+def make_tpu_hosts(n_chips: int, *, hbm_gb: float = 16.0,
+                   ici_gbps: float = 50.0, device=None) -> S.HostState:
+    """A pool of TPU-v5e-class hosts in simulator units (1 chip = 1 PE,
+    "RAM" = HBM in MB, bandwidth in MB/s)."""
+    return S.make_hosts(
+        np.full(n_chips, 1), np.full(n_chips, TPU_V5E_MIPS),
+        np.full(n_chips, hbm_gb * 1024.0),
+        np.full(n_chips, ici_gbps * 1000.0),
+        np.full(n_chips, 1e9), device=device)

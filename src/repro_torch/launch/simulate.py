@@ -5,12 +5,16 @@ PyTorch port.
         --vms 50 --waves 10 --task-policy time [--device cpu]
 
 Reproduces the §5 experiment at any scale and prints the broker report
-and, with ``--trace N``, a completion curve of N steps.  Runs on the
-CUDA device unless ``--device`` says otherwise.
+and, with ``--trace N``, a completion curve of N steps.  With
+``--lm-profile FILE`` it simulates an LM-serving fleet instead, sized
+from a roofline JSON (``arch``, ``shape``, ``chips``,
+``cost_per_device.flops``, ``memory.peak_bytes_per_device``).  Runs on
+the CUDA device unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 
 def main(argv=None):
@@ -25,6 +29,8 @@ def main(argv=None):
     ap.add_argument("--task-policy", default="space",
                     choices=["space", "time"])
     ap.add_argument("--cpu-rate", type=float, default=0.01)
+    ap.add_argument("--lm-profile", default=None,
+                    help="roofline JSON: simulate that LM workload instead")
     ap.add_argument("--trace", type=int, default=0,
                     help="emit a completion curve with N trace steps")
     ap.add_argument("--device", default="cuda")
@@ -37,13 +43,34 @@ def main(argv=None):
 
     pol = {"space": S.SPACE_SHARED, "time": S.TIME_SHARED}
     dev = args.device
-    hosts = S.make_uniform_hosts(args.hosts, device=dev)
-    vms = B.build_fleet([B.VmSpec(count=args.vms, pes=1, mips=1000.0,
-                                  ram=512.0, bw=10.0, size=1000.0)],
-                        device=dev)
-    cl = B.build_waves(args.vms, B.WaveSpec(
-        waves=args.waves, length_mi=args.task_mi, period=args.wave_period),
-        device=dev)
+    if args.lm_profile:
+        from repro_torch.core.workloads import (cloudlets_from_profile,
+                                                make_tpu_hosts,
+                                                profile_from_roofline)
+        with open(args.lm_profile) as f:
+            art = json.load(f)
+        prof = profile_from_roofline(
+            f"{art['arch']}/{art['shape']}",
+            hlo_gflops=art["cost_per_device"]["flops"] * art["chips"] / 1e9,
+            hbm_bytes_per_chip=art["memory"]["peak_bytes_per_device"],
+            chips=art["chips"])
+        hosts = make_tpu_hosts(args.hosts, device=dev)
+        vms = B.build_fleet([B.VmSpec(count=args.vms, pes=1, mips=197e6,
+                                      ram=prof.hbm_gb_per_chip * 1024 + 1,
+                                      size=100.0)], device=dev)
+        cl = cloudlets_from_profile(prof, args.vms,
+                                    requests_per_vm=args.waves,
+                                    period=args.wave_period, device=dev)
+        print(f"[simulate] LM fleet: {prof.name}, "
+              f"{prof.length_mi/1e6:.1f} TFLOP/request")
+    else:
+        hosts = S.make_uniform_hosts(args.hosts, device=dev)
+        vms = B.build_fleet([B.VmSpec(count=args.vms, pes=1, mips=1000.0,
+                                      ram=512.0, bw=10.0, size=1000.0)],
+                            device=dev)
+        cl = B.build_waves(args.vms, B.WaveSpec(
+            waves=args.waves, length_mi=args.task_mi,
+            period=args.wave_period), device=dev)
     dc = S.make_datacenter(
         hosts, vms, cl, vm_policy=pol[args.vm_policy],
         task_policy=pol[args.task_policy], reserve_pes=True,

@@ -1,5 +1,6 @@
 """LM substrate of the port: one configurable decoder (dense GQA, Mamba-1
-SSM, multi-codebook audio, VLM stub); MoE and training are later slices."""
+SSM, top-k MoE, multi-codebook audio, VLM stub); training is a later
+slice."""
 from repro_torch.models.config import (  # noqa: F401
     LayerSpec,
     ModelConfig,

@@ -3,7 +3,8 @@ arrays) and the port's nested dicts of tensors.
 
 Both sides keep the same keys, the same ``[in, out]`` weight layout and
 the same stacking over blocks, so a conversion is a copy leaf by leaf,
-dtypes kept (``A_log`` and ``D`` stay f32 in a bf16 model).  NumPy has no
+dtypes kept (``A_log``, ``D`` and an MoE ``router`` stay f32 in a bf16
+model; expert weights are [num_blocks, E, ...]).  NumPy has no
 bfloat16 of its own: JAX hands out ``ml_dtypes.bfloat16`` arrays, which
 cross as their 16-bit patterns.
 
@@ -43,8 +44,6 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device=None) -> dict:
     if set(np_params["blocks"]) != expected:
         raise ValueError(f"{cfg.name}: blocks {sorted(np_params['blocks'])}"
                          f", expected {sorted(expected)}")
-    if any(spec.moe for spec in cfg.pattern):
-        raise NotImplementedError("MoE sub-layers are not ported yet")
     return _tree(np_params, resolve_device(device))
 
 

@@ -2,7 +2,8 @@
 stack, head(s), and the serving entry points ``prefill`` and
 ``decode_step``.
 
-Port of ``repro.models.model`` without the training loss (a later slice).
+Port of ``repro.models.model`` without the training loss (a later slice);
+``forward`` returns the MoE load-balance loss as JAX's does.
 Parameters are a nested dict of tensors with the JAX package's keys and
 layouts.  Entry points run where the parameters live: ``init_params``
 puts them on the CUDA device unless the caller passes ``device="cpu"``.
@@ -81,14 +82,19 @@ def compute_logits(params, cfg: ModelConfig, hidden: torch.Tensor
 
 
 def forward(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
-            collect_kv: bool = False):
-    """Returns (hidden [B,Stot,D], kv stacks | ())."""
+            collect_kv: bool = False, metrics: list | None = None):
+    """Returns (hidden [B,Stot,D], kv stacks | (), moe_aux): ``moe_aux``
+    is the f32 load-balance loss summed over the MoE sub-layers (0
+    without MoE).  ``metrics``, if given, collects every MoE sub-layer's
+    ``{"load_balance_loss", "dropped_frac"}`` in order."""
     x = embed_tokens(params, cfg, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, kvs = tfm.apply_blocks(params["blocks"], cfg, x, positions,
-                              collect_kv=collect_kv)
+    x, kvs, aux, moe = tfm.apply_blocks(params["blocks"], cfg, x, positions,
+                                        collect_kv=collect_kv)
+    if metrics is not None:
+        metrics.extend(moe)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, kvs
+    return x, kvs, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
@@ -98,13 +104,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None):
+def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
+            metrics: list | None = None):
     """Full forward collecting KV; returns (last-token logits, kv stacks).
 
     kv stacks: tuple per attn sub-layer of (k, v) [num_blocks, B, S, K, hd].
+    ``metrics`` as in ``forward``.
     """
-    hidden, kvs = forward(params, cfg, tokens, vision_embeds=vision_embeds,
-                          collect_kv=True)
+    hidden, kvs, _ = forward(params, cfg, tokens,
+                             vision_embeds=vision_embeds, collect_kv=True,
+                             metrics=metrics)
     return compute_logits(params, cfg, hidden[:, -1:]), kvs
 
 

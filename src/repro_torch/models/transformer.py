@@ -3,9 +3,9 @@
 Port of ``repro.models.transformer``.  Block parameters and caches are
 stacked over blocks as in the JAX package ({'sub{i}': {...: [num_blocks,
 ...]}}), and a Python loop over blocks takes the place of ``lax.scan``:
-block ``j`` reads views ``leaf[j]``, so nothing is copied.  Sub-layers
-with MoE raise ``NotImplementedError`` (at init and in the converter)
-until the MoE slice is ported.
+block ``j`` reads views ``leaf[j]``, so nothing is copied.  A sub-layer
+whose spec sets ``moe`` runs ``moe.moe_block`` as its MLP; the forward
+pass sums its load-balance loss over sub-layers and blocks.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import init_mlp, mlp, rms_norm, torch_dtype
@@ -26,13 +27,6 @@ def _has_mlp(cfg: ModelConfig, spec: LayerSpec) -> bool:
     return spec.moe or cfg.d_ff > 0
 
 
-def _no_moe(spec: LayerSpec):
-    if spec.moe:
-        raise NotImplementedError(
-            "MoE sub-layers are not ported yet (models/moe.py is a later "
-            "slice of the port)")
-
-
 def block_slice(tree, j: int):
     """The views ``leaf[j]`` of a nested dict of stacked tensors."""
     if isinstance(tree, dict):
@@ -40,16 +34,21 @@ def block_slice(tree, j: int):
     return tree[j]
 
 
-def _stack(trees: list):
-    """Stack a list of like nested dicts leaf by leaf, popping each leaf
-    out of the dicts so its per-block tensors are freed once stacked."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {key: _stack([t.pop(key) for t in trees])
-                for key in list(first)}
-    out = torch.stack(trees)
-    trees.clear()
-    return out
+def _alloc(tree, n: int):
+    """Empty tensors [n, ...] shaped, typed and placed like ``tree``'s."""
+    if isinstance(tree, dict):
+        return {key: _alloc(val, n) for key, val in tree.items()}
+    return torch.empty((n, *tree.shape), dtype=tree.dtype,
+                       device=tree.device)
+
+
+def _fill(out, tree, j: int):
+    """``out[j] = tree``, leaf by leaf."""
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            _fill(out[key], val, j)
+    else:
+        out[j].copy_(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -57,7 +56,6 @@ def _stack(trees: list):
 # ---------------------------------------------------------------------------
 def _init_sublayer(gen: torch.Generator, cfg: ModelConfig,
                    spec: LayerSpec) -> dict:
-    _no_moe(spec)
     dt = torch_dtype(cfg.dtype)
     p: dict[str, Any] = {"norm1": torch.zeros((cfg.d_model,), dtype=dt,
                                               device=gen.device)}
@@ -67,17 +65,29 @@ def _init_sublayer(gen: torch.Generator, cfg: ModelConfig,
         p["mixer"] = ssm.init_mamba(gen, cfg, dt)
     if _has_mlp(cfg, spec):
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dt, device=gen.device)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
+        if spec.moe:
+            p["mlp"] = moe_mod.init_moe(gen, cfg, dt)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
     return p
 
 
 def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """{'sub{i}': dict of tensors stacked over num_blocks}."""
+    """{'sub{i}': dict of tensors stacked over num_blocks}.
+
+    Each stacked leaf is allocated once and filled block by block, so
+    the peak is the parameters plus one block's sub-layer (a full-size
+    MoE model holds no second copy of its experts)."""
     out = {}
     for i, spec in enumerate(cfg.pattern):
-        per_block = [_init_sublayer(gen, cfg, spec)
-                     for _ in range(cfg.num_blocks)]
-        out[f"sub{i}"] = _stack(per_block)
+        stacked = None
+        for j in range(cfg.num_blocks):
+            block = _init_sublayer(gen, cfg, spec)
+            if stacked is None:
+                stacked = _alloc(block, cfg.num_blocks)
+            _fill(stacked, block, j)
+            del block
+        out[f"sub{i}"] = stacked
     return out
 
 
@@ -85,8 +95,11 @@ def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    """One sub-layer; an MoE sub-layer returns its aux dict
+    (``{"load_balance_loss", "dropped_frac"}``) as the third value
+    (``None`` otherwise)."""
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
-    kv = None
+    kv, aux = None, None
     if spec.mixer == "attn":
         mix, kv = attn.attention_block(params["mixer"], cfg, h, positions)
     else:
@@ -94,31 +107,46 @@ def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
     x = x + mix
     if _has_mlp(cfg, spec):
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
-        x = x + mlp(params["mlp"], h2)
-    return x, kv
+        if spec.moe:
+            y, aux = moe_mod.moe_block(params["mlp"], cfg, h2)
+        else:
+            y = mlp(params["mlp"], h2)
+        x = x + y
+    return x, kv, aux
 
 
 def apply_blocks(blocks: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, *, collect_kv: bool = False):
-    """Run all layers.  Returns (x, kv) where kv is a tuple, one entry per
-    attention sub-layer of the pattern, of (k, v) stacked over blocks
-    [num_blocks, B, S, K, hd] (``()`` unless ``collect_kv``)."""
+    """Run all layers.  Returns (x, kv, aux, moe): kv is a tuple, one entry
+    per attention sub-layer of the pattern, of (k, v) stacked over blocks
+    [num_blocks, B, S, K, hd] (``()`` unless ``collect_kv``); aux the
+    f32 load-balance loss summed over the MoE sub-layers (per block, then
+    over blocks, as JAX's scan sums it; 0 without MoE); moe every MoE
+    sub-layer's aux dict, in order."""
     kv_lists: list[list] = []
+    block_aux, moe = [], []
     for j in range(cfg.num_blocks):
         block = block_slice(blocks, j)
         kvs = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, spec in enumerate(cfg.pattern):
-            x, kv = _sublayer_fwd(block[f"sub{i}"], cfg, spec, x, positions)
+            x, kv, m = _sublayer_fwd(block[f"sub{i}"], cfg, spec, x,
+                                     positions)
             if kv is not None and collect_kv:
                 kvs.append(kv)
+            if m is not None:
+                aux = aux + m["load_balance_loss"]
+                moe.append(m)
         kv_lists.append(kvs)
+        block_aux.append(aux)
+    aux = torch.stack(block_aux).sum()
     if not collect_kv or not kv_lists or not kv_lists[0]:
-        return x, ()
+        return x, (), aux, tuple(moe)
     stacked = tuple(
         (torch.stack([kvs[a][0] for kvs in kv_lists]),
          torch.stack([kvs[a][1] for kvs in kv_lists]))
         for a in range(len(kv_lists[0])))
-    return x, stacked
+    return x, stacked, aux, tuple(moe)
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +163,6 @@ def init_block_caches(cfg: ModelConfig, batch: int, max_seq: int,
     dt = torch_dtype(cfg.dtype)
     caches = {}
     for i, spec in enumerate(cfg.pattern):
-        _no_moe(spec)
         if spec.mixer == "attn":
             smax = min(max_seq, cfg.sliding_window or max_seq)
             shape = (cfg.num_blocks, batch, smax, cfg.num_kv_heads,
@@ -157,7 +184,8 @@ def apply_blocks_decode(blocks: dict, caches: dict, cfg: ModelConfig,
     """One decode step through all layers.
 
     x [B,1,D]; position i32[B] (absolute index of the new token).  The
-    caches are updated in place; returns (x, caches).
+    caches are updated in place; returns (x, caches).  An MoE sub-layer
+    routes the B tokens with the default capacity, as JAX's does.
     """
     for j in range(cfg.num_blocks):
         block, cache = block_slice(blocks, j), block_slice(caches, j)
@@ -173,5 +201,9 @@ def apply_blocks_decode(blocks: dict, caches: dict, cfg: ModelConfig,
             x = x + mix
             if _has_mlp(cfg, spec):
                 h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-                x = x + mlp(p["mlp"], h2)
+                if spec.moe:
+                    y, _ = moe_mod.moe_block(p["mlp"], cfg, h2)
+                else:
+                    y = mlp(p["mlp"], h2)
+                x = x + y
     return x, caches

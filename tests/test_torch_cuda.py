@@ -437,7 +437,9 @@ def test_scan_wrapper_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-1.8b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "moonshot-v1-16b-a3b",
+                                  "qwen3-moe-235b-a22b",
+                                  "jamba-1.5-large-398b"])
 def test_smoke_model_on_card_matches_cpu(cuda, arch):
     from repro_torch import configs as CFG
     from repro_torch.launch.serve import serve
@@ -644,3 +646,64 @@ def test_policy_search_cells_on_card(cuda):
     out, _ = run_stats(cell, max_steps=4096)
     for name, a in _leaves(out):
         assert torch.equal(_leaf(g, name)[5, 1], a), name
+
+
+def test_moe_block_on_card_is_deterministic(cuda):
+    """bf16 MoE on the card: two runs give the same bits (no scatter-add
+    atomics in the combine), and f32 agrees with the CPU within 1e-5."""
+    from repro_torch.models import config as TC
+    from repro_torch.models import moe
+    cfg = TC.ModelConfig(name="m", num_layers=1, d_model=256, num_heads=2,
+                         num_kv_heads=2, head_dim=128, d_ff=192,
+                         vocab_size=11, pattern=TC.uniform_pattern(moe=True),
+                         num_experts=16, num_experts_per_tok=4,
+                         dtype="float32")
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg,
+                          torch.float32)
+    x = torch.randn((4, 64, 256), generator=torch.Generator().manual_seed(1))
+    want, waux = moe.moe_block(params, cfg, x)
+    gp = {k: v.to(cuda) for k, v in params.items()}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, gaux = moe.moe_block(gp, cfg, x.to(cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+    assert float(gaux["dropped_frac"]) == float(waux["dropped_frac"])
+    bp = {k: (v if k == "router" else v.to(torch.bfloat16))
+          for k, v in gp.items()}
+    xb = x.to(cuda, torch.bfloat16)
+    a, _ = moe.moe_block(bp, cfg, xb)
+    b, _ = moe.moe_block(bp, cfg, xb)
+    assert torch.equal(a, b)
+
+
+def test_straggler_step_times_on_card_equal_cpu(cuda):
+    from repro_torch.ft import simulate_sync_training
+    for policy in ("none", "drop", "backup"):
+        kw = dict(n_workers=64, steps=6, slow_frac=0.1, policy=policy,
+                  seed=2)
+        g = simulate_sync_training(device=cuda, **kw)
+        c = simulate_sync_training(device="cpu", **kw)
+        assert np.array_equal(g.step_times, c.step_times), policy
+
+
+def test_auto_on_the_card_runs_one_batch(cuda, monkeypatch):
+    from repro_torch.core import engine, sweep
+    cs = _chip_smoke()
+    batch = sweep.stack_scenarios([cs.shared_hosts(s, 16, cuda)
+                                   for s in range(3)])
+    ref = sweep.run_batch(batch, max_steps=1 << 16)
+    calls = []
+    real = engine.batched_run
+
+    def counted(b, **kw):
+        calls.append(b.time.shape[0])
+        return real(b, **kw)
+    monkeypatch.setattr(engine, "batched_run", counted)
+    out = sweep.run_sharded(batch, devices=[cuda, "cuda"],
+                            max_steps=1 << 16)
+    assert calls == [3]
+    for name, a in _leaves(out):
+        assert torch.equal(_leaf(ref, name), a), name

@@ -50,6 +50,16 @@ def test_federation_slice_modules_found():
             "torch_network_study.py"} <= {p.name for p in EXAMPLES}
 
 
+def test_moe_and_leftover_modules_found():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PACKAGE}
+    assert {"models/moe.py", "ft/__init__.py", "ft/straggler.py",
+            "configs/moonshot_v1_16b_a3b.py", "configs/qwen3_moe_235b_a22b.py",
+            "configs/jamba_1_5_large_398b.py"} <= names
+    assert {"torch_energy_study.py", "torch_lm_fleet_sim.py"} <= {
+        p.name for p in EXAMPLES}
+
+
 @pytest.mark.parametrize("path", EXAMPLES, ids=_rel)
 def test_port_examples_import_no_jax(path):
     bad = [m for m in _imports(path)

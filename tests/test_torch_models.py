@@ -34,8 +34,8 @@ from repro_torch.models import ssm as TS
 from repro_torch.models.convert import (cache_from_jax, params_from_jax,
                                         to_numpy)
 
-# test_models.py's FAMILIES other than hybrid-moe, built from the port's
-# own config module (the field values are the same)
+# test_models.py's FAMILIES, built from the port's own config module
+# (the field values are the same)
 FAMILIES = {
     "dense+bias+qknorm": dict(
         name="d", num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
@@ -48,6 +48,11 @@ FAMILIES = {
     "mamba": dict(
         name="mm", num_layers=2, d_model=64, num_heads=0, num_kv_heads=0,
         head_dim=0, d_ff=0, vocab_size=97, ssm_state=8, dtype="float32"),
+    "hybrid-moe": dict(
+        name="h", num_layers=8, d_model=64, num_heads=4, num_kv_heads=2,
+        head_dim=16, d_ff=128, vocab_size=97, num_experts=4,
+        num_experts_per_tok=2, ssm_state=8, capacity_factor=16.0,
+        dtype="float32"),
 }
 ATTN_FAMILIES = ["dense+bias+qknorm", "swa"]
 SLICE_ARCHS = ["qwen3-0.6b", "h2o-danube-1.8b", "falcon-mamba-7b"]
@@ -58,6 +63,9 @@ def _cfgs(family):
     if family == "mamba":
         return (JC.ModelConfig(pattern=JC.mamba_pattern(), **kw),
                 TC.ModelConfig(pattern=TC.mamba_pattern(), **kw))
+    if family == "hybrid-moe":
+        return (JC.ModelConfig(pattern=JC.jamba_pattern(), **kw),
+                TC.ModelConfig(pattern=TC.jamba_pattern(), **kw))
     return JC.ModelConfig(**kw), TC.ModelConfig(**kw)
 
 
@@ -86,21 +94,18 @@ def test_configs_equal_jax(arch):
         assert j.param_count() == t.param_count()
 
 
-@pytest.mark.parametrize("arch", TCFG.MOE_ARCH_IDS)
-def test_moe_configs_wait_for_their_slice(arch):
-    assert arch in JCFG.ARCH_IDS
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TCFG.get_config(arch)
-
-
-def test_moe_pattern_raises_in_the_model():
-    cfg = TC.ModelConfig(name="h", num_layers=8, d_model=32, num_heads=2,
-                         num_kv_heads=2, head_dim=16, d_ff=32, vocab_size=11,
-                         pattern=TC.jamba_pattern(), num_experts=2,
-                         num_experts_per_tok=1, ssm_state=4,
-                         dtype="float32")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TM.init_params(cfg, device="cpu")
+def test_registry_equals_jax():
+    """The ten archs in JAX's order, the four shape cells, and
+    ``all_cells``' 40 (arch, shape, applicable) triples."""
+    assert TCFG.ARCH_IDS == JCFG.ARCH_IDS
+    assert {k: dataclasses.asdict(v) for k, v in TCFG.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in JCFG.SHAPES.items()}
+    got, want = list(TCFG.all_cells()), list(JCFG.all_cells())
+    assert len(got) == 40 and got == want
+    assert sum(not ok for _, _, ok in got) == sum(
+        not ok for _, _, ok in want) > 0
+    with pytest.raises(KeyError):
+        TCFG.get_config("gpt-5")
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +264,7 @@ def test_decode_step_matches_jax(arch):
 
 
 def _roundtrip(tcfg, toks, params):
-    hidden, _ = TM.forward(params, tcfg, toks)
+    hidden, _, _ = TM.forward(params, tcfg, toks)
     full = TM.compute_logits(params, tcfg, hidden)
     b, s = toks.shape[:2]
     cache = TM.init_cache(tcfg, b, s, device="cpu")
@@ -298,7 +303,7 @@ def test_vlm_stub_prepends_vision():
     params = TM.init_params(tcfg, device="cpu")
     toks = torch.randint(0, tcfg.vocab_size, (2, 10))
     vis = torch.randn(2, tcfg.vision_tokens, tcfg.d_model)
-    hidden, _ = TM.forward(params, tcfg, toks, vision_embeds=vis)
+    hidden, _, _ = TM.forward(params, tcfg, toks, vision_embeds=vis)
     assert hidden.shape == (2, 10 + tcfg.vision_tokens, tcfg.d_model)
     logits, kv = TM.prefill(params, tcfg, toks, vision_embeds=vis)
     assert torch.isfinite(logits).all()
@@ -309,9 +314,11 @@ def test_vlm_stub_prepends_vision():
 # parameters: the converter and the port's own init
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b",
-                                  "musicgen-large"])
+                                  "musicgen-large", "moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b"])
 def test_converter_round_trip_is_exact(arch):
-    """bf16 leaves cross as bit patterns; A_log and D stay f32."""
+    """bf16 leaves cross as bit patterns; A_log, D and the MoE router
+    stay f32."""
     jcfg = dataclasses.replace(JCFG.get_smoke_config(arch),
                                dtype="bfloat16")
     tcfg = dataclasses.replace(TCFG.get_smoke_config(arch),
@@ -329,6 +336,14 @@ def test_converter_round_trip_is_exact(arch):
             "blocks"]["sub0"]["mixer"]
         assert mixer["A_log"].dtype == mixer["D"].dtype == torch.float32
         assert mixer["in_proj"].dtype == torch.bfloat16
+    moe = [i for i, spec in enumerate(tcfg.pattern) if spec.moe]
+    if moe:
+        mlp = params_from_jax(np_params, tcfg, device="cpu")[
+            "blocks"][f"sub{moe[0]}"]["mlp"]
+        assert mlp["router"].dtype == torch.float32
+        assert mlp["gate"].dtype == torch.bfloat16
+        assert mlp["gate"].shape == (tcfg.num_blocks, tcfg.num_experts,
+                                     tcfg.d_model, tcfg.d_ff)
 
 
 @pytest.mark.parametrize("arch", TCFG.ARCH_IDS)

@@ -95,7 +95,9 @@ def test_slot_reuse_after_completion():
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-1.8b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "moonshot-v1-16b-a3b",
+                                  "qwen3-moe-235b-a22b",
+                                  "jamba-1.5-large-398b"])
 def test_continuous_batching_mixed_phases(arch):
     """Slots at different positions advance in one batched step (SWA ring
     and Mamba state included)."""
@@ -133,7 +135,8 @@ def test_sampling_uses_the_generator():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b",
-                                  "musicgen-large"])
+                                  "musicgen-large", "moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b"])
 def test_launch_serve_drains_on_cpu(arch, capsys):
     report = launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                                 "--requests", "5", "--slots", "2",

@@ -84,12 +84,13 @@ def test_sharded_two_devices_matches_single_device_bitwise():
     dcs, batch = _static()
     vm_p, task_p = sweep.policy_grid(device=CPU)
     sharded = sweep.run_grid(batch, vm_p, task_p, max_steps=192,
-                             devices=TWO)
+                             devices=TWO, partitioner="dispatch")
     single = sweep.run_grid(batch, vm_p, task_p, max_steps=192,
                             sharded=False)
     _same(sharded, single, "two-device grid")
     odd = sweep.run_sharded(sweep.fuse_grid(batch, vm_p[:1], task_p[:1]),
-                            devices=TWO, max_steps=192)
+                            devices=TWO, max_steps=192,
+                            partitioner="dispatch")
     _same(odd, _lane(single, 0), "odd lane count")
     # scenario i's own policies sit at grid row i % 4
     for i, dc in enumerate(dcs):
@@ -121,7 +122,7 @@ def test_sharded_two_devices_dynamic_lanes_bitwise():
     dsingle = sweep.run_grid(dbatch, vm_p, task_p, max_steps=384,
                              sharded=False)
     dshard = sweep.run_grid(dbatch, vm_p, task_p, max_steps=384,
-                            devices=TWO)
+                            devices=TWO, partitioner="dispatch")
     _same(dshard, dsingle, "dynamic dispatch")
     assert int(dsingle.mig_count.sum()) > 0
     for i, s in enumerate((0, 2)):        # the padded lane, leap off
@@ -158,13 +159,15 @@ def test_elastic_lanes_bitwise_through_sharded_sweeps():
 def test_sharded_two_devices_elastic_lanes_bitwise():
     _, batch = _elastic()
     single = sweep.run_batch(batch, max_steps=512)
-    sh = sweep.run_sharded(batch, devices=TWO, max_steps=512)
+    sh = sweep.run_sharded(batch, devices=TWO, max_steps=512,
+                           partitioner="dispatch")
     _same(sh, single, "elastic, two devices")
     assert int(single.scaler.up_count.sum()) > 0
     assert float(single.scaler.spot_cost.sum()) > 0.0
     grid = sweep.policy_points(util_highs=(0.55, 0.72), util_lows=(0.18,),
                                cooldowns=(2.0,), device=CPU)
-    _same(sweep.run_policy_search(batch, grid, max_steps=512, devices=TWO),
+    _same(sweep.run_policy_search(batch, grid, max_steps=512, devices=TWO,
+                                  partitioner="dispatch"),
           sweep.run_policy_search(batch, grid, max_steps=512),
           "policy search, two devices")
 
@@ -174,7 +177,8 @@ def test_elasticity_study_over_two_devices_bitwise():
     grid = sweep.policy_points(util_highs=(0.6,), util_lows=(0.2,),
                                cooldowns=(1.0, 3.0), device=CPU)
     a = X.run_elasticity_study(batch, grid, max_steps=512)
-    b = X.run_elasticity_study(batch, grid, max_steps=512, devices=TWO)
+    b = X.run_elasticity_study(batch, grid, max_steps=512, devices=TWO,
+                               partitioner="dispatch")
     _same(b.final, a.final, "elasticity study, two devices")
     np.testing.assert_array_equal(b.pareto, a.pareto)
     assert torch.equal(b.sla, a.sla) and torch.equal(b.cost, a.cost)
@@ -183,7 +187,8 @@ def test_elasticity_study_over_two_devices_bitwise():
 def test_run_sharded_one_device_metrics_bitwise():
     _, batch = _metric_batch()
     ref = sweep.run_batch(batch, max_steps=512)
-    out = sweep.run_sharded(batch, devices=[CPU], max_steps=512)
+    out = sweep.run_sharded(batch, devices=[CPU], max_steps=512,
+                            partitioner="dispatch")
     _same(out.metrics, ref.metrics, "dispatch metrics")
 
 
@@ -192,7 +197,8 @@ def test_sharded_two_devices_metrics_bitwise():
     vm_p, task_p = sweep.policy_grid(device=CPU)
     single = sweep.run_grid(batch, vm_p, task_p, max_steps=512,
                             sharded=False)
-    out = sweep.run_grid(batch, vm_p, task_p, max_steps=512, devices=TWO)
+    out = sweep.run_grid(batch, vm_p, task_p, max_steps=512, devices=TWO,
+                         partitioner="dispatch")
     _same(out.metrics, single.metrics, "two-device metrics")
     assert int(single.metrics.hist_response.sum()) > 0
 
@@ -201,20 +207,93 @@ def test_sharded_two_devices_metrics_bitwise():
 # tests/test_streaming.py
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("devices", [[CPU], TWO, [CPU] * 3])
-def test_stream_sharded_bitwise(devices):
-    """Contiguous blocks a device, the lane count padded with inert
-    stream lanes (3 lanes over 2 devices), == the plain batch."""
+def test_stream_sharded_bitwise(monkeypatch, devices):
+    """The one batch a list of one distinct device runs, and contiguous
+    blocks a device (reached here by turning the one-batch rule off),
+    the lane count padded with inert stream lanes (3 lanes over 2
+    devices), == the plain batch."""
     dcs = [_infra(8) for _ in range(3)]
     streams = [_random_stream(s, n=30, chunk=16) for s in range(3)]
     batch = sweep.stack_scenarios(dcs)
     a = sweep.run_stream_batch(batch, streams)
-    b = sweep.run_stream_batch(batch, streams, devices=devices)
-    _same(a, b, f"streamed lanes over {len(devices)} devices")
     vp, tp = sweep.policy_grid(device=CPU)
-    _same(sweep.run_stream_grid(batch, streams, vp[:2], tp[:2],
-                                devices=devices),
-          sweep.run_stream_grid(batch, streams, vp[:2], tp[:2]),
-          "streamed grid")
+    grid = sweep.run_stream_grid(batch, streams, vp[:2], tp[:2])
+    for route in ("one batch", "blocks"):
+        if route == "blocks":
+            monkeypatch.setattr(sweep, "_one_batch", lambda *a: False)
+        b = sweep.run_stream_batch(batch, streams, devices=devices)
+        _same(a, b, f"streamed lanes over {len(devices)} devices, {route}")
+        _same(sweep.run_stream_grid(batch, streams, vp[:2], tp[:2],
+                                    devices=devices),
+              grid, f"streamed grid, {route}")
+
+
+# ---------------------------------------------------------------------------
+# "auto" on one distinct device runs one batch; "dispatch" cuts chunks
+# ---------------------------------------------------------------------------
+def _count_calls(monkeypatch, name):
+    """Count the calls the sweep makes to ``engine.<name>``."""
+    calls = []
+    real = getattr(E, name)
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].time.shape[0])
+        return real(*args, **kwargs)
+    monkeypatch.setattr(E, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("devices", [[CPU], TWO, [CPU] * 3])
+def test_auto_on_one_device_runs_one_batch(monkeypatch, devices):
+    """A list naming one device (once or more) under ``"auto"`` makes one
+    ``batched_run`` of every lane, as JAX keeps the fused program on a
+    one-device mesh; ``"dispatch"`` makes one a chunk of 4.  Both equal
+    ``run_batch`` bit for bit."""
+    _, batch = _static(5)
+    vm_p, task_p = sweep.policy_grid(device=CPU)
+    fused = sweep.fuse_grid(batch, vm_p, task_p)
+    ref = sweep.run_batch(fused, max_steps=256)
+    calls = _count_calls(monkeypatch, "batched_run")
+    out = sweep.run_sharded(fused, devices=devices, max_steps=256)
+    assert calls == [20]
+    _same(out, ref, "auto")
+    calls.clear()
+    out = sweep.run_sharded(fused, devices=devices, max_steps=256,
+                            partitioner="dispatch")
+    assert calls == [4] * 5
+    _same(out, ref, "dispatch")
+    calls.clear()
+    grid = sweep.run_grid(batch, vm_p, task_p, max_steps=256,
+                          devices=devices)
+    assert calls == [20]
+    _same(grid, sweep._unfuse(ref, 4), "run_grid, auto")
+    _, ebatch = _elastic()
+    points = sweep.policy_points(util_highs=(0.6,), util_lows=(0.2,),
+                                 cooldowns=(1.0, 3.0), device=CPU)
+    calls.clear()
+    sweep.run_policy_search(ebatch, points, max_steps=512, devices=devices)
+    assert calls == [6]
+
+
+def test_auto_streamed_on_one_device_runs_one_batch(monkeypatch):
+    """The stream runners: [cpu, cpu] makes one ``batched_run_stream``;
+    with the one-batch rule off, one a listed device."""
+    dcs = [_infra(8) for _ in range(3)]
+    streams = [_random_stream(s, n=30, chunk=16) for s in range(3)]
+    batch = sweep.stack_scenarios(dcs)
+    calls = _count_calls(monkeypatch, "batched_run_stream")
+    sweep.run_stream_batch(batch, streams, devices=TWO)
+    assert calls == [3]
+    calls.clear()
+    monkeypatch.setattr(sweep, "_one_batch", lambda *a: False)
+    sweep.run_stream_batch(batch, streams, devices=TWO)
+    assert calls == [2, 2]
+
+
+def test_distinct_devices_and_one_batch():
+    assert sweep._distinct([torch.device(CPU)] * 3) == 1
+    assert sweep._one_batch("auto", [torch.device(CPU)] * 2)
+    assert not sweep._one_batch("dispatch", [torch.device(CPU)])
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,23 @@ script exits non-zero:
      on the card at a time) through the kernels, then serving 16
      requests on 8 slots with each; prefill against token-by-token
      decode at full width in f32, depth cut to 4 layers (moonshot at a
-     capacity factor of 16, where neither side drops).
+     capacity factor of 16, where neither side drops);
+  5e. the training slice's backward kernels (``flash_attention_bwd``,
+     ``selective_scan_bwd``) against autograd of their plain versions on
+     edge shapes and at the training path's shapes (f32 atol 1e-4, bf16
+     flash 0.02 x max|ref|, the scan 1e-3 x max|ref|), each run twice with
+     equal bits, the forward's output equal with and without its
+     log-sum-exp; timed beside the plain version's backward and SDPA's;
+  5f. three training steps of the smoke configs of 5b, card == CPU
+     (losses and parameters within 1e-4);
+  5g. ``launch.train.train`` with launch/train.py's defaults at full width:
+     qwen3-0.6b at full size (4 x 2048, 10 steps) and falcon-mamba-7b at 8
+     of its 64 layers (2 x 2048, 5 steps): finite and falling loss, finite
+     grad norms, a non-zero gradient in every leaf, launches as the shape
+     predicts; step time, tokens/s, peak memory, device busy share;
+  5h. the supervisor: qwen3-0.6b's smoke config with a checkpoint
+     directory and a failure at step 6 equals an uninterrupted run bit for
+     bit.
 
   6. the event-horizon leap: a staggered static scenario (512 hosts of
      2 PEs, 256 VMs, 3 waves) leap on and leap off, bitwise equal, with
@@ -146,7 +162,10 @@ record; every path must show launches).  The full-depth
 prefills are the LM slice's main path: the flash-attention and
 selective-scan counts are set to 0 just before each and read just after,
 and the bf16 prefill's dtype must route its flash launches to the
-tensor-core kernel.
+tensor-core kernel.  The full-width training runs of 5g are the training
+slice's: all four LM kernels' counts are set to 0 just before each run
+and read just after (``launches_by_path`` of the forward kernels holds
+both paths).
 The next-to-last line is the kernels' JSON record, the last the
 device's.  Without a CUDA device, or outside a checkout, the script
 fails before printing either.
@@ -166,6 +185,15 @@ BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:66
 SCAN_TOL = 2e-4                                     # tests/test_kernels.py:103
+F32_GRAD_ATOL = 1e-4            # f32 gradients, backward kernel vs plain
+FLASH_BWD_TOL = 0.02            # bf16 flash gradients: x max|ref|
+SCAN_BWD_TOL = 1e-3             # scan gradients: x max|ref|
+SCAN_BWD_DESIGN = "lane-split-recompute"
+SMALL_ARCHS = ("qwen3-0.6b", "h2o-danube-1.8b", "falcon-mamba-7b",
+               "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
+               "jamba-1.5-large-398b")
+# (arch, layers or None for full depth, batch, steps) at PREFILL_LEN
+TRAIN_CELLS = (("qwen3-0.6b", None, 4, 10), ("falcon-mamba-7b", 8, 2, 5))
 LM_CELLS = (("qwen3-0.6b", 4), ("falcon-mamba-7b", 2),   # (arch, batch)
             ("moonshot-v1-16b-a3b", 4))
 # moonshot-v1-16b-a3b's parameter bytes by its config: bf16, routers f32
@@ -3221,9 +3249,7 @@ def phase_lm_agreement(device):
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
 
-    for arch in ("qwen3-0.6b", "h2o-danube-1.8b", "falcon-mamba-7b",
-                 "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
-                 "jamba-1.5-large-398b"):
+    for arch in SMALL_ARCHS:
         cfg = CFG.get_smoke_config(arch)
         cpu = M.init_params(cfg, torch.Generator().manual_seed(1),
                             device="cpu")
@@ -3457,6 +3483,359 @@ def phase_lm_prefill_vs_decode(device):
         torch.cuda.empty_cache()
 
 
+def plain_grads(fn, inputs, dout):
+    """Autograd of ``fn`` (a plain version) at ``inputs``: their grads."""
+    ts = [t.detach().clone().requires_grad_(True) for t in inputs]
+    fn(*ts).backward(dout)
+    return [t.grad for t in ts]
+
+
+def backward_ms(out, inputs, dout, reps):
+    """Milliseconds per autograd backward of ``out`` (graph kept; CUDA
+    events around ``reps`` eager calls)."""
+    import torch
+    torch.autograd.grad(out, inputs, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        torch.autograd.grad(out, inputs, dout, retain_graph=True)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_train_kernels(device):
+    """Phase 5e: the two backward kernels against autograd of their plain
+    versions on the card (every head dim and both dtypes, a window, Sq <
+    Skv, an f32 shape, qwen3-0.6b's and moonshot-v1-16b-a3b's training
+    shapes in bf16; N 4, 8 and 16, S not a multiple of the 16-step chunk,
+    falcon-mamba-7b's shape), each run twice with equal bits, and the
+    forward's output equal with and without its log-sum-exp; then timed
+    at the training path's shapes.  Returns their records (without the
+    launch counts)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (BWD_DESIGN, HEAD_DIMS,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.selective_scan import (selective_scan_bwd,
+                                                    selective_scan_ref)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def flash_case(b, s, h, kh, hd, dtype, window=None, skv=None):
+        q, k, v = flash_inputs(gen, b, s, h, kh, hd, dtype, device, skv)
+        do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+        out, lse = flash_attention(q, k, v, window=window, return_lse=True)
+        tag = f"[{b},{s},{h}/{kh},{hd}] {dtype} window {window} skv {skv}"
+        check(torch.equal(out, flash_attention(q, k, v, window=window)),
+              f"flash forward {tag}: output differs with its lse")
+        got = flash_attention_bwd(q, k, v, out, do, lse, window=window)
+        again = flash_attention_bwd(q, k, v, out, do, lse, window=window)
+        want = plain_grads(lambda *t: attention_ref(*t, window=window),
+                           (q, k, v), do)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash_attention_bwd {tag}: two runs differ")
+        errs, rels = [], []
+        for name, g, w in zip("qkv", got, want):
+            err = float((g.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            tol = (F32_GRAD_ATOL if dtype == torch.float32
+                   else FLASH_BWD_TOL * top)
+            check(err <= tol, f"flash_attention_bwd {tag}: d{name} max abs "
+                  f"err {err} > {tol}")
+            errs.append(err)
+            rels.append(err / top if top else 0.0)
+        return max(errs), max(rels), (q, k, v, out, do, lse)
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_rel = 0.0
+    cases = [(1, 130, 4, 2, hd, None, None) for hd in HEAD_DIMS] + [
+        (2, 200, 4, 1, 64, 48, None), (1, 96, 2, 2, 64, None, 160),
+        (1, 300, 2, 1, 32, 7, None)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, kh, hd, window, skv in cases:
+            err, rel, _ = flash_case(b, s, h, kh, hd, dtype, window, skv)
+            name = str(dtype).split(".")[1]
+            worst[name] = max(worst[name], err)
+            if dtype == torch.bfloat16:
+                worst_rel = max(worst_rel, rel)
+    err, _, _ = flash_case(2, 512, 8, 4, 64, torch.float32)
+    worst["float32"] = max(worst["float32"], err)
+    mcfg_heads = (16, 16, 128)                  # moonshot-v1-16b-a3b's MHA
+    err, rel, _ = flash_case(4, PREFILL_LEN, *mcfg_heads, torch.bfloat16)
+    worst["bfloat16"] = max(worst["bfloat16"], err)
+    worst_rel = max(worst_rel, rel)
+    b, s, h, kh, hd = 4, PREFILL_LEN, 16, 8, 128          # qwen3-0.6b
+    err, rel, (q, k, v, out, do, lse) = flash_case(b, s, h, kh, hd,
+                                                   torch.bfloat16)
+    worst["bfloat16"] = max(worst["bfloat16"], err)
+    worst_rel = max(worst_rel, rel)
+    print(f"[train-kernels] flash_attention_bwd vs autograd of the plain "
+          f"version: {2 * len(cases) + 3} shapes, f32 atol {F32_GRAD_ATOL}, "
+          f"bf16 {FLASH_BWD_TOL} x max|ref|: max_abs_err {worst}, bf16 "
+          f"max err / max|ref| {worst_rel!r}; every shape twice, bitwise "
+          f"equal; forward output equal with and without lse")
+    ms = device_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse),
+                   reps=10)
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    plain_ms = backward_ms(attention_ref(*ts), ts, do, reps=2)
+    del ts
+    tq, tk, tv = (t.detach().transpose(1, 2).clone().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(tq, tk, tv, is_causal=True,
+                                             enable_gqa=True)
+    library_ms = backward_ms(lib_out, (tq, tk, tv),
+                             do.transpose(1, 2).contiguous(), reps=10)
+    del tq, tk, tv, lib_out
+    flops = 2.5 * 4 * b * h * s * s * hd / 2
+    moved = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    bound_ms = max(flops / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+    bound_by = ("operations" if flops / BF16_OPS_PER_S
+                >= moved / HBM_BYTES_PER_S else "bytes")
+    print(f"[train-kernels] flash_attention_bwd [{b},{s},{h}/{kh},{hd}] "
+          f"bf16 causal on the {BWD_DESIGN} design: kernel {ms!r} ms "
+          f"(device, graph replay), autograd of the plain version "
+          f"{plain_ms!r} ms, SDPA's backward (yardstick) {library_ms!r} ms "
+          f"(CUDA events, eager), bound {bound_ms!r} ms ({flops:.4g} FLOP "
+          f"at bf16 peak, {moved} bytes; {bound_by})")
+    flash = {"name": "flash_attention_bwd", "route": "cuda",
+             "design": BWD_DESIGN,
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_bwd.cu",
+             "replaces": "no TPU counterpart: the gradient of "
+                         "src/repro/kernels/flash_attention/flash.py:71",
+             "max_abs_err": max(worst.values()),
+             "bf16_max_rel_err": worst_rel, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms}
+    del q, k, v, out, do, lse
+    torch.cuda.empty_cache()
+
+    # (B, S, di, N): N 4/8/16, S not a multiple of the 16-step chunk, di
+    # not a multiple of the 32-channel block, S = 1
+    scases = [(2, 100, 96, 4), (1, 257, 256, 8), (2, 130, 200, 16),
+              (1, 45, 30, 16), (3, 1, 32, 4),
+              (2, PREFILL_LEN, 8192, 16)]               # falcon-mamba-7b
+    sworst = srel = 0.0
+    for bb, ss, di, n in scases:
+        args = scan_inputs(gen, bb, ss, di, n, device)
+        dy = torch.randn(args[1].shape, generator=gen, device=device)
+        got = selective_scan_bwd(*args, dy)
+        again = selective_scan_bwd(*args, dy)
+        want = plain_grads(selective_scan_ref, args, dy)
+        torch.cuda.synchronize()
+        tag = f"[{bb},{ss},{di}] N={n}"
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"selective_scan_bwd {tag}: two runs differ")
+        for name, g, w in zip(("dt", "x", "B", "C", "A", "D"), got, want):
+            err = float((g - w).abs().max())
+            top = float(w.abs().max())
+            check(err <= SCAN_BWD_TOL * top, f"selective_scan_bwd {tag}: "
+                  f"d{name} max abs err {err} > {SCAN_BWD_TOL} x {top}")
+            # (S = 1 has dA == 0 exactly: h before the first step is 0)
+            sworst = max(sworst, err)
+            srel = max(srel, err / top if top else 0.0)
+        del got, again, want
+    print(f"[train-kernels] selective_scan_bwd vs autograd of the plain "
+          f"version: {len(scases)} shapes, tol {SCAN_BWD_TOL} x max|ref|: "
+          f"max_abs_err {sworst!r}, max err / max|ref| {srel!r}; every "
+          f"shape twice, bitwise equal")
+    ms = device_ms(lambda: selective_scan_bwd(*args, dy), reps=5)
+    ts = [t.detach().clone().requires_grad_(True) for t in args]
+    plain_ms = backward_ms(selective_scan_ref(*ts), ts, dy, reps=1)
+    del ts
+    moved = 4 * (5 * bb * ss * di + 4 * bb * ss * n + 2 * (di * n + di))
+    exps = bb * ss * di * n
+    bound_ms = max(moved / HBM_BYTES_PER_S, exps / SFU_OPS_PER_S) * 1e3
+    bound_by = ("bytes" if moved / HBM_BYTES_PER_S >= exps / SFU_OPS_PER_S
+                else "operations")
+    print(f"[train-kernels] selective_scan_bwd [{bb},{ss},{di}] N={n}: "
+          f"kernel {ms!r} ms (device, graph replay), autograd of the plain "
+          f"version {plain_ms!r} ms (CUDA events, eager), bound {bound_ms!r}"
+          f" ms ({moved} bytes at 3.35 TB/s; {exps} exps at "
+          f"{SFU_OPS_PER_S:.4g}/s SFU; {bound_by}), library call: none")
+    scan = {"name": "selective_scan_bwd", "route": "cuda",
+            "design": SCAN_BWD_DESIGN,
+            "source": "src/repro_torch/kernels/selective_scan/csrc/"
+                      "selective_scan_bwd.cu",
+            "replaces": "no TPU counterpart: the gradient of "
+                        "src/repro/kernels/selective_scan/scan.py:50",
+            "max_abs_err": sworst, "max_rel_err": srel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+    del args, dy
+    torch.cuda.empty_cache()
+    return [flash, scan]
+
+
+def phase_train_small(device, steps=3):
+    """Phase 5f: ``steps`` training steps (AdamW, peak lr 1e-3) of the
+    smoke configs of phase 5b in f32, the same parameters and batches on
+    the card and on the CPU: each step's loss within 1e-4, and every
+    parameter within 1e-4 after the last."""
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.data.synthetic import config_for, make_batch
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for arch in SMALL_ARCHS:
+        cfg = CFG.get_smoke_config(arch)
+        tcfg = TrainConfig(opt=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                           total_steps=steps))
+        cpu = init_train_state(cfg, tcfg, torch.Generator().manual_seed(1),
+                               device="cpu")
+        gpu = init_train_state(cfg, tcfg, params=tree_map(
+            lambda t: t.to(device), cpu.params))
+        step = make_train_step(cfg, tcfg)
+        scfg = config_for(cfg, 4, 64)
+        loss_err, losses = 0.0, []
+        for i in range(steps):
+            batch = make_batch(scfg, i, device="cpu")
+            cpu, mc = step(cpu, batch)
+            gpu, mg = step(gpu, {k: v.to(device) for k, v in batch.items()})
+            losses.append(float(mg["loss"]))
+            loss_err = max(loss_err, abs(float(mc["loss"]) - losses[-1]))
+        param_err = max(float((g.cpu() - c).abs().max()) for c, g in
+                        zip(tree_leaves(cpu.params), tree_leaves(gpu.params)))
+        check(loss_err <= 1e-4 and param_err <= 1e-4,
+              f"{arch} smoke training: loss err {loss_err}, param err "
+              f"{param_err}")
+        print(f"[train-small] {arch} smoke (f32), {steps} steps of 4 x 64: "
+              f"card == CPU, losses {losses!r}, loss err {loss_err!r}, "
+              f"param err {param_err!r}")
+
+
+def phase_train_main(device, card, launched):
+    """Phase 5g: ``launch.train.train`` at full width with its CLI's
+    defaults (AdamW peak lr 3e-3, remat "nothing"): qwen3-0.6b at full
+    size (4 x 2048, 10 steps) and falcon-mamba-7b at 8 of its 64 layers
+    (2 x 2048, 5 steps).  The kernels' counts are set to 0 just before
+    each run and read just after (added to ``launched``), and must equal
+    what the shape predicts (remat runs each forward twice).  Checks:
+    finite losses, the last below the first, finite grad norms, and a
+    non-zero gradient in every parameter leaf (one more loss_and_grads,
+    not counted); prints step time, tokens/s, peak memory and the device's
+    busy share of one step under the profiler."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.data.synthetic import config_for, make_batch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_bwd)
+    from repro_torch.launch.train import kernel_launches, train
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   make_train_step)
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_flatten
+
+    for arch, layers, batch, steps in TRAIN_CELLS:
+        cfg = CFG.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for f in (flash_attention, flash_attention_bwd, selective_scan,
+                  selective_scan_bwd):
+            f.launches = 0
+        rep = train(cfg, steps=steps, batch=batch, seq=PREFILL_LEN,
+                    device=device, log_every=5, log=print)
+        counts = kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        n_attn = sum(sp.mixer == "attn" for sp in cfg.pattern) * \
+            cfg.num_blocks
+        n_ssm = cfg.num_layers - n_attn
+        want = {"flash_attention": 2 * n_attn * steps,
+                "flash_attention_bwd": n_attn * steps,
+                "selective_scan": 2 * n_ssm * steps,
+                "selective_scan_bwd": n_ssm * steps}
+        check(counts == want, f"{arch} training launches {counts}, expected "
+              f"{want}")
+        for name, n in counts.items():
+            launched[name] += n
+        check(np.isfinite(rep.losses).all() and np.isfinite(
+            rep.grad_norms).all(), f"{arch} training: loss or grad norm not "
+            f"finite: {rep.losses} {rep.grad_norms}")
+        check(rep.losses[-1] < rep.losses[0], f"{arch} training: loss "
+              f"{rep.losses[0]} -> {rep.losses[-1]} does not fall")
+        scfg = config_for(cfg, batch, PREFILL_LEN)
+        one = make_batch(scfg, steps, device=device)
+        _, _, grads = loss_and_grads(rep.state.params, cfg, one)
+        paths, leaves, _ = tree_flatten(grads)
+        zero = [p for p, g in zip(paths, leaves)
+                if not bool((g != 0).any()) or not bool(
+                    torch.isfinite(g).all())]
+        check(not zero, f"{arch}: zero or non-finite gradients in {zero}")
+        del grads, leaves
+        step_ms = statistics.median(rep.step_seconds[1:]) * 1e3
+        tokens = batch * PREFILL_LEN
+        print(f"[train-main] {arch} bf16, {cfg.num_layers} layers"
+              f"{'' if layers is None else ' (cut)'}, {batch} x "
+              f"{PREFILL_LEN} tokens, {steps} steps: loss {rep.losses[0]!r} "
+              f"-> {rep.losses[-1]!r}, grad norms {rep.grad_norms!r}; step "
+              f"{step_ms!r} ms (median after the first, host clock, synced), "
+              f"first {rep.step_seconds[0] * 1e3!r} ms, "
+              f"{tokens / step_ms * 1e3!r} tokens/s; launches {counts} (= "
+              f"the shape's prediction); "
+              f"every one of {len(paths)} parameter leaves has a non-zero "
+              f"gradient; params {tree_bytes(rep.state.params)} bytes, peak "
+              f"allocated {peak} bytes ({card})")
+        tcfg = TrainConfig(opt=AdamWConfig(peak_lr=3e-3, warmup_steps=2,
+                                           total_steps=steps))
+        step_fn = make_train_step(cfg, tcfg)
+        profile_top(lambda: step_fn(rep.state, one),
+                    f"{arch} one training step", card)
+        del rep, one, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_train_supervisor(device, card, steps=12):
+    """Phase 5h: ``launch.train.train`` at qwen3-0.6b's smoke config with
+    a checkpoint directory and a failure at step 6 (checkpoints every 4):
+    it restarts once, and its losses and final parameters equal an
+    uninterrupted run's bit for bit."""
+    import tempfile
+
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+
+    cfg = CFG.get_smoke_config("qwen3-0.6b")
+    quiet = lambda line: None  # noqa: E731
+    plain = train(cfg, steps=steps, batch=8, seq=128, device=device,
+                  log=quiet)
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        sup = train(cfg, steps=steps, batch=8, seq=128, device=device,
+                    ckpt_dir=d, ckpt_every=4, fail_at=(6,), log=quiet)
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(sup.state.params),
+                   tree_leaves(plain.state.params)))
+    check(sup.restarts == 1 and sup.losses == plain.losses and same,
+          f"supervised run: {sup.restarts} restarts, losses equal "
+          f"{sup.losses == plain.losses}, params equal {same}")
+    print(f"[train-supervisor] qwen3-0.6b smoke, {steps} steps, failure at "
+          f"step 6, checkpoints every 4: {sup.restarts} restart, "
+          f"{sup.steps_run} steps run, losses and final parameters equal "
+          f"the uninterrupted run's bit for bit; loss {sup.losses[0]!r} -> "
+          f"{sup.losses[-1]!r} ({card})")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3546,7 +3925,24 @@ def main():
               f"path")
     phase_lm_prefill_vs_decode(device)
 
-    print(json.dumps({"kernels": [record, *lm_records]}))
+    # the training slice: the backward kernels, card == CPU, the main path
+    # (counts set to 0 just before each full-width run, read just after)
+    train_records = phase_train_kernels(device)
+    phase_train_small(device)
+    from repro_torch.launch.train import kernel_launches
+    trained = dict.fromkeys(kernel_launches(), 0)
+    phase_train_main(device, card, trained)
+    phase_train_supervisor(device, card)
+    for r in lm_records:
+        r["launches_by_path"] = {"prefill": r["launches"],
+                                 "train": trained[r["name"]]}
+        r["launches"] += trained[r["name"]]
+    for r in train_records:
+        r["launches"] = trained[r["name"]]
+        check(r["launches"] > 0, f"{r['name']} never launched on the "
+              f"training path")
+
+    print(json.dumps({"kernels": [record, *lm_records, *train_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

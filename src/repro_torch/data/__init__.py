@@ -1,2 +1,3 @@
-"""Scenario-building data helpers (``repro.data`` in NumPy): arrival-time
-samplers for the streamed workloads of ``core/workloads.py``."""
+"""Data helpers (``repro.data``): the synthetic LM token batches of
+training, and arrival-time samplers for the streamed workloads of
+``core/workloads.py``."""

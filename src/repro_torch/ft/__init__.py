@@ -1,5 +1,12 @@
-"""Fault tolerance studies on the port's simulator: straggler mitigation
-for synchronous training (``repro.ft``'s ``straggler`` module)."""
+"""Fault tolerance (``repro.ft``): the checkpoint/restart supervisor of
+training, and straggler mitigation for synchronous training studied on
+the port's simulator."""
+from repro_torch.ft.supervisor import (  # noqa: F401
+    FailureInjector,
+    SimulatedFailure,
+    Supervisor,
+    SupervisorReport,
+)
 from repro_torch.ft.straggler import (  # noqa: F401
     StragglerReport,
     simulate_sync_training,

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
 Each kernel is one ``.cu`` file with a plain C entry point, which may
-include headers from its own ``csrc/`` directory.  ``nvcc`` compiles it
+include headers from its own ``csrc/`` directory (a forward kernel and
+its backward are two files, and two libraries, in one directory).  ``nvcc`` compiles it
 for Hopper (``sm_90a``) into a shared library of its own, which
 ``ctypes`` loads: seconds per file, where an extension that includes
 PyTorch's headers takes minutes.  Libraries go to ``build/kernels/`` at
@@ -36,7 +37,11 @@ SOURCES = {
     "simstep": _PKG / "simstep" / "csrc" / "simstep.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" /
     "flash_attention.cu",
+    "flash_attention_bwd": _PKG / "flash_attention" / "csrc" /
+    "flash_attention_bwd.cu",
     "selective_scan": _PKG / "selective_scan" / "csrc" / "selective_scan.cu",
+    "selective_scan_bwd": _PKG / "selective_scan" / "csrc" /
+    "selective_scan_bwd.cu",
 }
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]

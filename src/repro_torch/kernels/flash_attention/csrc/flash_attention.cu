@@ -5,7 +5,11 @@
 // _flash_kernel): q [B,Sq,H,hd], k/v [B,Skv,KH,hd] -> o [B,Sq,H,hd], query
 // head h reading KV head h / (H/KH), an optional sliding window, an online
 // softmax in f32 with masked scores set to -1e30, and `acc / max(l, 1e-30)`
-// at the end.  Inputs f32 or bf16; the output has q's dtype.
+// at the end.  Inputs f32 or bf16; the output has q's dtype.  When the
+// caller passes an `lse` buffer (training: autograd keeps it for the
+// backward in flash_attention_bwd.cu), both designs also write each row's
+// log-sum-exp of its scaled scores, m + log(l), f32 [B, H, Sq]; the output
+// is computed as without it.
 //
 // Bound on the card: at the main path's shape (qwen3-0.6b prefill,
 // [4, 2048, 16/8, 128] bf16) the causal half of the two products is
@@ -86,8 +90,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
-             int h, int kh, int causal, int window, float scale) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int sq, int skv, int h, int kh,
+             int causal, int window, float scale) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   constexpr int KLD = HD + 4;     // padded K row: float4 reads of 16 rows
   constexpr int CPT = HD / 16;    // accumulator columns per thread
@@ -235,13 +240,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       store(&ob[(int64_t)qpos * q_stride + tc + 16 * c], acc[i][c] / denom);
+    // l[i] is the row's whole sum in each of its 16 threads
+    if (lse != nullptr && tc == 0)
+      lse[((int64_t)b * h + head) * sq + qpos] = m[i] + logf(denom);
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int skv, int h, int kh, int causal,
-                   int window, cudaStream_t stream) {
+                   float* lse, int b, int sq, int skv, int h, int kh,
+                   int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   // above 48 KB only with the attribute; set once, before any graph capture
   static bool opted_in = false;
@@ -256,21 +264,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((sq + BQ - 1) / BQ, h, b);
   flash_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, h, kh, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, h, kh,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, int b, int sq, int skv, int h, int kh,
-                      int causal, int window, cudaStream_t stream) {
+                      void* o, float* lse, int b, int sq, int skv, int h,
+                      int kh, int causal, int window, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
-    case 80: return launch<T, 80>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
+    case 80: return launch<T, 80>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -333,8 +341,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int bsz, int sq, int skv,
-                   int h, int kh, int causal, int window, float scale) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int bsz, int sq, int skv, int h, int kh, int causal,
+                   int window, float scale) {
   using T = Tile<HD>;
   constexpr int HDP = T::HDP;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -509,6 +518,12 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   // a real row's sum holds exp(0) = 1 for its max, so l >= 1 and the
   // division has no slow path to take
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  // m and l are the row's in each of the four threads of a quad
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lb = lse + ((int64_t)b * h + head) * sq;
+    if (r0 < sq) lb[r0] = m0 + logf(d0);
+    if (r0 + 8 < sq) lb[r0 + 8] = m1 + logf(d1);
+  }
 #pragma unroll
   for (int j = 0; j < HDP / 8; ++j) {
     const int col = 8 * j + c0;
@@ -527,8 +542,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int skv, int h, int kh, int causal,
-                   int window, cudaStream_t stream) {
+                   float* lse, int b, int sq, int skv, int h, int kh,
+                   int causal, int window, cudaStream_t stream) {
   constexpr int smem = Tile<HD>::SMEM;
   static bool opted_in = false;   // set once, before any graph capture
   if (!opted_in) {
@@ -544,19 +559,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      b, sq, skv, h, kh, causal, window, scale);
+      lse, b, sq, skv, h, kh, causal, window, scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, int b, int sq, int skv, int h, int kh,
-                      int causal, int window, cudaStream_t stream) {
+                      void* o, float* lse, int b, int sq, int skv, int h,
+                      int kh, int causal, int window, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
-    case 32: return launch<32>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
-    case 64: return launch<64>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
-    case 80: return launch<80>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
-    case 128: return launch<128>(q, k, v, o, b, sq, skv, h, kh, causal, window, stream);
+    case 16: return launch<16>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
+    case 32: return launch<32>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
+    case 64: return launch<64>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
+    case 80: return launch<80>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
+    case 128: return launch<128>(q, k, v, o, lse, b, sq, skv, h, kh, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -566,21 +581,23 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 float32 (the FMA kernel), 1 bfloat16 (the tensor-core kernel).
-// window <= 0 means none.  Returns the CUDA error of the launch (0 on
-// success); the caller's stream is not synced.
+// window <= 0 means none; lse null (serving) or f32 [B, H, Sq] (training).
+// Returns the CUDA error of the launch (0 on success); the caller's stream
+// is not synced.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
+                                      const void* v, void* o, float* lse,
+                                      int dtype,
                                       int64_t b, int64_t sq, int64_t skv,
                                       int64_t h, int64_t kh, int64_t hd,
                                       int causal, int64_t window,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)tc::launch_hd((int)hd, q, k, v, o, (int)b, (int)sq,
+    return (int)tc::launch_hd((int)hd, q, k, v, o, lse, (int)b, (int)sq,
                               (int)skv, (int)h, (int)kh, causal, (int)window,
                               s);
   if (dtype == 0)
-    return (int)launch_hd<float>((int)hd, q, k, v, o, (int)b, (int)sq,
+    return (int)launch_hd<float>((int)hd, q, k, v, o, lse, (int)b, (int)sq,
                                  (int)skv, (int)h, (int)kh, causal,
                                  (int)window, s);
   return (int)cudaErrorInvalidValue;

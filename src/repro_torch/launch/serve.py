@@ -3,10 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu --requests 12 --slots 4 --max-new 16
 
-Port of ``repro.launch.serve`` (without ``--ckpt``: checkpoint restore is
-a later slice).  Generates batched requests against a randomly
-initialised model and reports throughput and per-request latency.  Runs
-on the CUDA device unless ``--device cpu`` is given.
+Port of ``repro.launch.serve``.  Generates batched requests against a
+randomly initialised model (or the parameters of the latest checkpoint
+in ``--ckpt``, as ``launch.train --ckpt-dir`` writes them) and reports
+throughput and per-request latency.  Runs on the CUDA device unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -91,6 +92,23 @@ def serve(cfg, params, *, requests: int = 12, slots: int = 4,
                        latencies=done_lat, state=state)
 
 
+def restore_params(directory: str, like: dict) -> dict:
+    """The parameters of the latest checkpoint in ``directory``, a train
+    state's (``params/...``) or a bare parameter tree; ``like`` if there
+    is none."""
+    from repro_torch.checkpoint import latest_step, restore
+
+    step = latest_step(directory)
+    if step is None:
+        return like
+    try:
+        params = restore(directory, step, {"params": like})["params"]
+    except KeyError:
+        params = restore(directory, step, like)
+    print(f"[serve] restored checkpoint step {step}")
+    return params
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -101,6 +119,7 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
@@ -111,6 +130,8 @@ def main(argv=None):
     cfg = CFG.get_smoke_config(args.arch) if args.smoke \
         else CFG.get_config(args.arch)
     params = M.init_params(cfg, device=args.device)
+    if args.ckpt:
+        params = restore_params(args.ckpt, params)
     report = serve(cfg, params, requests=args.requests, slots=args.slots,
                    max_new=args.max_new, prompt_len=args.prompt_len,
                    max_seq=args.max_seq, temperature=args.temperature)

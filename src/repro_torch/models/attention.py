@@ -4,9 +4,10 @@ qk-norm (qwen3) and sliding windows (h2o-danube).
 
 Port of ``repro.models.attention``.  Where the JAX model computes the
 chunked online softmax inline (``flash_attention_ref``), the port calls
-``kernels.flash_attention.attention``: the CUDA kernel for CUDA tensors,
-the plain version for CPU tensors.  Decode attention stays plain PyTorch
-(the JAX package has no kernel for it).
+``kernels.flash_attention.attention``: the CUDA kernel for CUDA tensors
+(with the backward kernel as its gradient in training), the plain version,
+differentiated by autograd, for CPU tensors.  Decode attention stays
+plain PyTorch (the JAX package has no kernel for it).
 """
 from __future__ import annotations
 

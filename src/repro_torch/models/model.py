@@ -1,9 +1,12 @@
 """Top-level LM: embeddings (text / multi-codebook / VLM stub), the block
-stack, head(s), and the serving entry points ``prefill`` and
-``decode_step``.
+stack, head(s), the training loss, and the serving entry points
+``prefill`` and ``decode_step``.
 
-Port of ``repro.models.model`` without the training loss (a later slice);
-``forward`` returns the MoE load-balance loss as JAX's does.
+Port of ``repro.models.model``.  ``forward`` returns the MoE load-balance
+loss as JAX's does; ``loss_fn`` is the training loss, differentiated by
+autograd: on CUDA tensors the attention and Mamba sub-layers' gradients
+come from the hand-written backward kernels (``kernels.flash_attention``,
+``kernels.selective_scan``), on CPU tensors from their plain versions.
 Parameters are a nested dict of tensors with the JAX package's keys and
 layouts.  Entry points run where the parameters live: ``init_params``
 puts them on the CUDA device unless the caller passes ``device="cpu"``.
@@ -13,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
@@ -20,7 +24,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, rms_norm, torch_dtype
 
 __all__ = ["init_params", "embed_tokens", "compute_logits", "forward",
-           "prefill", "decode_step", "init_cache"]
+           "loss_fn", "prefill", "decode_step", "init_cache",
+           "MOE_AUX_COEF"]
+
+MOE_AUX_COEF = 0.01
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -56,14 +63,19 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
                  vision_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    """tokens [B,S] (or [B,S,CB] for codebooks) -> [B, S(+P), D]."""
+    """tokens [B,S] (or [B,S,CB] for codebooks) -> [B, S(+P), D].
+
+    A lookup through ``F.embedding``, whose gradient is summed in a fixed
+    order (indexing's ``index_put_`` accumulates on the CPU in no fixed
+    order, so two training runs would part in the embedding's last bits).
+    """
     if cfg.num_codebooks:
         # sum of per-codebook embeddings
-        x = params["embed"][0][tokens[..., 0]]
+        x = F.embedding(tokens[..., 0], params["embed"][0])
         for c in range(1, cfg.num_codebooks):
-            x = x + params["embed"][c][tokens[..., c]]
+            x = x + F.embedding(tokens[..., c], params["embed"][c])
     else:
-        x = params["embed"][tokens]
+        x = F.embedding(tokens, params["embed"])
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     return x
@@ -82,19 +94,58 @@ def compute_logits(params, cfg: ModelConfig, hidden: torch.Tensor
 
 
 def forward(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
-            collect_kv: bool = False, metrics: list | None = None):
+            remat: str = "none", collect_kv: bool = False,
+            metrics: list | None = None):
     """Returns (hidden [B,Stot,D], kv stacks | (), moe_aux): ``moe_aux``
     is the f32 load-balance loss summed over the MoE sub-layers (0
     without MoE).  ``metrics``, if given, collects every MoE sub-layer's
-    ``{"load_balance_loss", "dropped_frac"}`` in order."""
+    ``{"load_balance_loss", "dropped_frac"}`` in order.  ``remat`` as in
+    ``transformer.apply_blocks``; it defaults to "none" here (JAX's
+    ``forward`` defaults to "nothing"), so a call keeps its launches, and
+    ``loss_fn`` defaults to "nothing" as JAX's does."""
     x = embed_tokens(params, cfg, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, kvs, aux, moe = tfm.apply_blocks(params["blocks"], cfg, x, positions,
-                                        collect_kv=collect_kv)
+                                        remat=remat, collect_kv=collect_kv)
     if metrics is not None:
         metrics.extend(moe)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, kvs, aux
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor):
+    """Mean masked cross-entropy in f32; logits [..., V], targets [...]."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, *,
+            remat: str = "nothing"):
+    """batch: tokens [B,S]/[B,S,CB], targets (same shape), optional
+    vision_embeds [B,P,D], optional loss_mask.  Returns (loss, metrics):
+    ``{"xent", "moe_aux", "perplexity"}``, f32 scalars.
+
+    JAX's ``constrain`` and ``unroll`` (sharding and XLA knobs) have no
+    one-card meaning and are not taken."""
+    tokens = batch["tokens"]
+    vision = batch.get("vision_embeds")
+    hidden, _, aux = forward(params, cfg, tokens, vision_embeds=vision,
+                             remat=remat)
+    if cfg.vision_tokens and vision is not None:
+        hidden = hidden[:, vision.shape[1]:]
+    logits = compute_logits(params, cfg, hidden)
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    xent = _xent(logits, targets, mask.float())
+    loss = xent + MOE_AUX_COEF * aux
+    return loss, {"xent": xent, "moe_aux": aux,
+                  "perplexity": torch.exp(xent)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

@@ -4,9 +4,10 @@ MoE is ported).
 Port of ``repro.models.ssm``.  Where the JAX model runs a chunked
 associative scan inline, the port's prefill/forward path calls
 ``kernels.selective_scan.selective_scan``: the CUDA kernel for CUDA
-tensors (a sequential scan per channel, state in registers), the plain
-sequential version for CPU tensors.  The two sum in another order than
-the JAX chunked scan; the tests hold them to 1e-4.
+tensors (a sequential scan per channel, state in registers; in training
+the backward kernel is its gradient), the plain sequential version,
+differentiated by autograd, for CPU tensors.  The two sum in another
+order than the JAX chunked scan; the tests hold them to 1e-4.
 
 ``cfg.ssm_scan_bf16`` (bf16 decay/cumprod tensors in the JAX chunked scan)
 has no counterpart: the port's scan always runs in f32.

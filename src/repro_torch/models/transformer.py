@@ -6,12 +6,19 @@ stacked over blocks as in the JAX package ({'sub{i}': {...: [num_blocks,
 block ``j`` reads views ``leaf[j]``, so nothing is copied.  A sub-layer
 whose spec sets ``moe`` runs ``moe.moe_block`` as its MLP; the forward
 pass sums its load-balance loss over sub-layers and blocks.
+
+Remat: with a gradient wanted, each block runs under
+``torch.utils.checkpoint`` (policy selectable, as JAX wraps each scan
+step in ``jax.checkpoint``), so the backward recomputes the block's
+internals, the attention and scan kernels' forward launches included.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -20,7 +27,36 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import init_mlp, mlp, rms_norm, torch_dtype
 
 __all__ = ["init_blocks", "apply_blocks", "apply_blocks_decode",
-           "init_block_caches", "block_slice"]
+           "init_block_caches", "block_slice", "REMAT_POLICIES"]
+
+_aten = torch.ops.aten
+# what each policy saves (JAX's checkpoint_dots / ..._with_no_batch_dims):
+# the outputs of matrix products, with or without a batch dimension
+_DOTS = {_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+         _aten.baddbmm.default}
+_DOTS_NO_BATCH = {_aten.mm.default, _aten.addmm.default}
+REMAT_POLICIES = {"none": None, "nothing": (), "dots": _DOTS,
+                  "dots_no_batch": _DOTS_NO_BATCH}
+
+
+def _save_ops(ops, ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(fn, remat: str):
+    """``fn`` under the named remat policy: "none" as it is, "nothing"
+    recomputing everything, "dots"/"dots_no_batch" keeping the products'
+    outputs (``create_selective_checkpoint_contexts``)."""
+    ops = REMAT_POLICIES[remat]
+    if ops is None:
+        return fn
+    kw = {}
+    if ops:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts,
+            functools.partial(_save_ops, ops))
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
 
 
 def _has_mlp(cfg: ModelConfig, spec: LayerSpec) -> bool:
@@ -116,18 +152,21 @@ def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
 
 
 def apply_blocks(blocks: dict, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, *, collect_kv: bool = False):
+                 positions: torch.Tensor, *, remat: str = "nothing",
+                 collect_kv: bool = False):
     """Run all layers.  Returns (x, kv, aux, moe): kv is a tuple, one entry
     per attention sub-layer of the pattern, of (k, v) stacked over blocks
     [num_blocks, B, S, K, hd] (``()`` unless ``collect_kv``); aux the
     f32 load-balance loss summed over the MoE sub-layers (per block, then
     over blocks, as JAX's scan sums it; 0 without MoE); moe every MoE
-    sub-layer's aux dict, in order."""
-    kv_lists: list[list] = []
-    block_aux, moe = [], []
-    for j in range(cfg.num_blocks):
-        block = block_slice(blocks, j)
-        kvs = []
+    sub-layer's aux dict, in order.
+
+    ``remat`` ("none", "nothing", "dots", "dots_no_batch", JAX's names)
+    checkpoints each block when a gradient is wanted; under ``no_grad``
+    (prefill) nothing is checkpointed."""
+
+    def block_fn(x, block):
+        kvs, moe_j = [], []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, spec in enumerate(cfg.pattern):
             x, kv, m = _sublayer_fwd(block[f"sub{i}"], cfg, spec, x,
@@ -136,7 +175,18 @@ def apply_blocks(blocks: dict, cfg: ModelConfig, x: torch.Tensor,
                 kvs.append(kv)
             if m is not None:
                 aux = aux + m["load_balance_loss"]
-                moe.append(m)
+                moe_j.append(m)
+        return x, kvs, aux, moe_j
+
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} not in {sorted(REMAT_POLICIES)}")
+    if torch.is_grad_enabled():
+        block_fn = _checkpointed(block_fn, remat)
+    kv_lists: list[list] = []
+    block_aux, moe = [], []
+    for j in range(cfg.num_blocks):
+        x, kvs, aux, moe_j = block_fn(x, block_slice(blocks, j))
+        moe.extend(moe_j)
         kv_lists.append(kvs)
         block_aux.append(aux)
     aux = torch.stack(block_aux).sum()

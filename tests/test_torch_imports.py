@@ -72,3 +72,18 @@ def test_no_library_attention_or_compile(path):
     text = path.read_text()
     for word in ("scaled_dot_product_attention", "torch.compile"):
         assert word not in text, f"{_rel(path)} uses {word}"
+
+
+def test_training_slice_modules_found():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PACKAGE}
+    assert {"tree.py", "train/__init__.py", "train/optimizer.py",
+            "train/compression.py", "train/step.py",
+            "checkpoint/__init__.py", "checkpoint/manager.py",
+            "ft/supervisor.py", "launch/train.py"} <= names
+    assert "torch_train_smoke.py" in {p.name for p in EXAMPLES}
+    csrc = ROOT / "src" / "repro_torch" / "kernels"
+    assert (csrc / "flash_attention" / "csrc" /
+            "flash_attention_bwd.cu").is_file()
+    assert (csrc / "selective_scan" / "csrc" /
+            "selective_scan_bwd.cu").is_file()

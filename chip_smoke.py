@@ -9,8 +9,8 @@ script exits non-zero:
   1. header: the card (nvidia-smi name and power limit), torch and CUDA
      versions, and the build of every kernel from the checkout's sources,
      with ptxas's registers and spills for every instantiation (the
-     tensor-core flash kernel must not spill, nor have its wgmma
-     serialized);
+     tensor-core flash kernels, forward and backward, must not spill, nor
+     have their wgmma serialized);
   2. each kernel against its plain PyTorch version on the card, on edge
      tiles and at the main path's shapes, and timed there (simstep on
      dense tiles and on ragged ones: rows of 0 to 100,000 slots, slots of
@@ -39,19 +39,22 @@ script exits non-zero:
      requests on 8 slots with each; prefill against token-by-token
      decode at full width in f32, depth cut to 4 layers (moonshot at a
      capacity factor of 16, where neither side drops);
-  5e. the training slice's backward kernels (``flash_attention_bwd``,
-     ``selective_scan_bwd``) against autograd of their plain versions on
-     edge shapes and at the training path's shapes (f32 atol 1e-4, bf16
-     flash 0.02 x max|ref|, the scan 1e-3 x max|ref|), each run twice with
-     equal bits, the forward's output equal with and without its
-     log-sum-exp; timed beside the plain version's backward and SDPA's;
+  5e. the training slice's backward kernels (``flash_attention_bwd``:
+     bf16 on tensor cores, ``wgmma-bf16``, f32 on ``fma-tiles``;
+     ``selective_scan_bwd``: ``staged-recompute``) against autograd of
+     their plain versions on edge shapes and at the training path's shapes
+     (f32 atol 1e-4, bf16 flash 0.02 x max|ref|, the scan 1e-3 x
+     max|ref|), each run twice with equal bits, the forward's output equal
+     with and without its log-sum-exp; timed beside the plain version's
+     backward and SDPA's; the scan's 4 blocks an SM checked;
   5f. three training steps of the smoke configs of 5b, card == CPU
      (losses and parameters within 1e-4);
   5g. ``launch.train.train`` with launch/train.py's defaults at full width:
      qwen3-0.6b at full size (4 x 2048, 10 steps) and falcon-mamba-7b at 8
      of its 64 layers (2 x 2048, 5 steps): finite and falling loss, finite
      grad norms, a non-zero gradient in every leaf, launches as the shape
-     predicts; step time, tokens/s, peak memory, device busy share;
+     predicts; step time, tokens/s, peak memory, device busy share and each
+     backward kernel's share of a step;
   5h. the supervisor: qwen3-0.6b's smoke config with a checkpoint
      directory and a failure at step 6 equals an uninterrupted run bit for
      bit.
@@ -188,10 +191,13 @@ SCAN_TOL = 2e-4                                     # tests/test_kernels.py:103
 F32_GRAD_ATOL = 1e-4            # f32 gradients, backward kernel vs plain
 FLASH_BWD_TOL = 0.02            # bf16 flash gradients: x max|ref|
 SCAN_BWD_TOL = 1e-3             # scan gradients: x max|ref|
-SCAN_BWD_DESIGN = "lane-split-recompute"
 SMALL_ARCHS = ("qwen3-0.6b", "h2o-danube-1.8b", "falcon-mamba-7b",
                "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b",
                "jamba-1.5-large-398b")
+# the backward kernels' device functions, by the names the profiler shows
+BWD_KERNELS = {"flash_attention_bwd": ("delta_kernel", "dkdv_wgmma_kernel",
+                                       "dq_wgmma_kernel"),
+               "selective_scan_bwd": ("scan_bwd_kernel", "sum_leading")}
 # (arch, layers or None for full depth, batch, steps) at PREFILL_LEN
 TRAIN_CELLS = (("qwen3-0.6b", None, 4, 10), ("falcon-mamba-7b", 8, 2, 5))
 LM_CELLS = (("qwen3-0.6b", 4), ("falcon-mamba-7b", 2),   # (arch, batch)
@@ -3285,10 +3291,12 @@ def phase_lm_agreement(device):
               f"equal ({runs[1].steps} steps)")
 
 
-def profile_top(fn, label, card):
+def profile_top(fn, label, card, shares=None):
     """Device busy share of ``fn`` under the profiler, and its top device
     ops.  Kernels and copies only: the CPU ops that launched them carry
-    the same device time again."""
+    the same device time again.  ``shares`` maps a name to substrings of
+    kernel names: each name's summed device time and share of the wall
+    are printed too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3315,6 +3323,12 @@ def profile_top(fn, label, card):
           f"{sum(e.count for e in events)} device ops; top: "
           + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
                       for e in top) + f" ({card})")
+    for name, keys in (shares or {}).items():
+        mine = [e for e in events if any(k in e.key for k in keys)]
+        t = sum(dev_us(e) for e in mine) / 1e6
+        print(f"[profile] {label}: {name} {t * 1e3!r} ms in "
+              f"{sum(e.count for e in mine)} launches, {t / wall:.4f} of "
+              f"the wall, {t / busy:.4f} of device busy ({card})")
 
 
 def phase_lm_main(device, card, launched):
@@ -3508,35 +3522,47 @@ def backward_ms(out, inputs, dout, reps):
 
 def phase_train_kernels(device):
     """Phase 5e: the two backward kernels against autograd of their plain
-    versions on the card (every head dim and both dtypes, a window, Sq <
-    Skv, an f32 shape, qwen3-0.6b's and moonshot-v1-16b-a3b's training
-    shapes in bf16; N 4, 8 and 16, S not a multiple of the 16-step chunk,
-    falcon-mamba-7b's shape), each run twice with equal bits, and the
-    forward's output equal with and without its log-sum-exp; then timed
-    at the training path's shapes.  Returns their records (without the
-    launch counts)."""
+    versions on the card (every head dim and both dtypes, causal and not,
+    a window, G = 1, 2, 4 and 8, S not a multiple of the 64- or 128-row
+    tiles, Sq < Skv, an f32 shape, qwen3-0.6b's and moonshot-v1-16b-a3b's
+    training shapes in bf16; N 4, 8 and 16, S = 1 and S not a multiple of
+    the 32-step chunk or the 8-step round, di not a multiple of the
+    32-channel block, falcon-mamba-7b's shape), each run twice with equal
+    bits, and the forward's output equal with and without its
+    log-sum-exp; then timed at the training path's shapes.  Returns their
+    records (without the launch counts)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (BWD_DESIGN, HEAD_DIMS,
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                      attention_ref,
+                                                     bwd_design,
                                                      flash_attention,
                                                      flash_attention_bwd)
-    from repro_torch.kernels.selective_scan import (selective_scan_bwd,
+    from repro_torch.kernels.selective_scan import (BWD_DESIGN,
+                                                    bwd_blocks_per_sm,
+                                                    selective_scan_bwd,
                                                     selective_scan_ref)
 
     gen = torch.Generator(device=device).manual_seed(5)
 
-    def flash_case(b, s, h, kh, hd, dtype, window=None, skv=None):
+    def flash_case(b, s, h, kh, hd, dtype, window=None, skv=None,
+                   causal=True):
         q, k, v = flash_inputs(gen, b, s, h, kh, hd, dtype, device, skv)
         do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
-        out, lse = flash_attention(q, k, v, window=window, return_lse=True)
-        tag = f"[{b},{s},{h}/{kh},{hd}] {dtype} window {window} skv {skv}"
-        check(torch.equal(out, flash_attention(q, k, v, window=window)),
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+        tag = (f"[{b},{s},{h}/{kh},{hd}] {dtype} causal {causal} window "
+               f"{window} skv {skv} on {bwd_design(dtype, hd)}")
+        check(torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                               window=window)),
               f"flash forward {tag}: output differs with its lse")
-        got = flash_attention_bwd(q, k, v, out, do, lse, window=window)
-        again = flash_attention_bwd(q, k, v, out, do, lse, window=window)
-        want = plain_grads(lambda *t: attention_ref(*t, window=window),
-                           (q, k, v), do)
+        got = flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                  window=window)
+        again = flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                    window=window)
+        want = plain_grads(
+            lambda *t: attention_ref(*t, causal=causal, window=window),
+            (q, k, v), do)
         torch.cuda.synchronize()
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"flash_attention_bwd {tag}: two runs differ")
@@ -3554,12 +3580,19 @@ def phase_train_kernels(device):
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
     worst_rel = 0.0
-    cases = [(1, 130, 4, 2, hd, None, None) for hd in HEAD_DIMS] + [
-        (2, 200, 4, 1, 64, 48, None), (1, 96, 2, 2, 64, None, 160),
-        (1, 300, 2, 1, 32, 7, None)]
+    # (B, Sq, H, KH, hd, window, Skv, causal)
+    cases = [(1, 130, 4, 2, hd, None, None, True) for hd in HEAD_DIMS] + [
+        (2, 200, 4, 1, 64, 48, None, True), (1, 96, 2, 2, 64, None, 160, True),
+        (1, 300, 2, 1, 32, 7, None, True),
+        (1, 190, 16, 2, 80, None, None, True),          # G = 8
+        (1, 100, 4, 2, 128, None, 230, True),           # Sq < Skv, ragged
+        (2, 130, 4, 4, 16, None, None, False),          # MHA, not causal
+        (1, 70, 8, 1, 128, None, 200, False),           # G = 8, not causal
+        (1, 257, 4, 2, 64, 100, None, False)]           # window, not causal
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s, h, kh, hd, window, skv in cases:
-            err, rel, _ = flash_case(b, s, h, kh, hd, dtype, window, skv)
+        for b, s, h, kh, hd, window, skv, causal in cases:
+            err, rel, _ = flash_case(b, s, h, kh, hd, dtype, window, skv,
+                                     causal)
             name = str(dtype).split(".")[1]
             worst[name] = max(worst[name], err)
             if dtype == torch.bfloat16:
@@ -3576,12 +3609,14 @@ def phase_train_kernels(device):
     worst["bfloat16"] = max(worst["bfloat16"], err)
     worst_rel = max(worst_rel, rel)
     print(f"[train-kernels] flash_attention_bwd vs autograd of the plain "
-          f"version: {2 * len(cases) + 3} shapes, f32 atol {F32_GRAD_ATOL}, "
+          f"version: {2 * len(cases) + 3} shapes, bf16 on "
+          f"{bwd_design(torch.bfloat16, hd)}, f32 on "
+          f"{bwd_design(torch.float32, hd)}; f32 atol {F32_GRAD_ATOL}, "
           f"bf16 {FLASH_BWD_TOL} x max|ref|: max_abs_err {worst}, bf16 "
           f"max err / max|ref| {worst_rel!r}; every shape twice, bitwise "
           f"equal; forward output equal with and without lse")
     ms = device_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse),
-                   reps=10)
+                   reps=50)
     ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     plain_ms = backward_ms(attention_ref(*ts), ts, do, reps=2)
     del ts
@@ -3598,13 +3633,15 @@ def phase_train_kernels(device):
     bound_by = ("operations" if flops / BF16_OPS_PER_S
                 >= moved / HBM_BYTES_PER_S else "bytes")
     print(f"[train-kernels] flash_attention_bwd [{b},{s},{h}/{kh},{hd}] "
-          f"bf16 causal on the {BWD_DESIGN} design: kernel {ms!r} ms "
+          f"bf16 causal on the {bwd_design(q.dtype, hd)} design: kernel "
+          f"{ms!r} ms "
           f"(device, graph replay), autograd of the plain version "
           f"{plain_ms!r} ms, SDPA's backward (yardstick) {library_ms!r} ms "
           f"(CUDA events, eager), bound {bound_ms!r} ms ({flops:.4g} FLOP "
           f"at bf16 peak, {moved} bytes; {bound_by})")
     flash = {"name": "flash_attention_bwd", "route": "cuda",
-             "design": BWD_DESIGN,
+             "design": bwd_design(q.dtype, hd),
+             "f32_design": bwd_design(torch.float32, hd),
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention_bwd.cu",
              "replaces": "no TPU counterpart: the gradient of "
@@ -3616,10 +3653,11 @@ def phase_train_kernels(device):
     del q, k, v, out, do, lse
     torch.cuda.empty_cache()
 
-    # (B, S, di, N): N 4/8/16, S not a multiple of the 16-step chunk, di
-    # not a multiple of the 32-channel block, S = 1
+    # (B, S, di, N): N 4/8/16, S not a multiple of the 32-step chunk or
+    # the 8-step round, di not a multiple of the 32-channel block, S = 1
     scases = [(2, 100, 96, 4), (1, 257, 256, 8), (2, 130, 200, 16),
-              (1, 45, 30, 16), (3, 1, 32, 4),
+              (1, 45, 30, 16), (3, 1, 32, 4), (2, 1, 40, 16),
+              (1, 67, 33, 8), (2, 75, 70, 16),
               (2, PREFILL_LEN, 8192, 16)]               # falcon-mamba-7b
     sworst = srel = 0.0
     for bb, ss, di, n in scases:
@@ -3641,11 +3679,16 @@ def phase_train_kernels(device):
             sworst = max(sworst, err)
             srel = max(srel, err / top if top else 0.0)
         del got, again, want
-    print(f"[train-kernels] selective_scan_bwd vs autograd of the plain "
-          f"version: {len(scases)} shapes, tol {SCAN_BWD_TOL} x max|ref|: "
+    print(f"[train-kernels] selective_scan_bwd ({BWD_DESIGN}) vs autograd of "
+          f"the plain version: {len(scases)} shapes, tol {SCAN_BWD_TOL} x "
+          f"max|ref|: "
           f"max_abs_err {sworst!r}, max err / max|ref| {srel!r}; every "
           f"shape twice, bitwise equal")
-    ms = device_ms(lambda: selective_scan_bwd(*args, dy), reps=5)
+    ms = device_ms(lambda: selective_scan_bwd(*args, dy), reps=20)
+    # the design's rule: 4 blocks an SM, so falcon's 512 run in one wave
+    per_sm = bwd_blocks_per_sm(n)
+    check(per_sm >= 4, f"selective_scan_bwd: {per_sm} blocks fit an SM at "
+          f"N={n}, fewer than 4")
     ts = [t.detach().clone().requires_grad_(True) for t in args]
     plain_ms = backward_ms(selective_scan_ref(*ts), ts, dy, reps=1)
     del ts
@@ -3654,18 +3697,21 @@ def phase_train_kernels(device):
     bound_ms = max(moved / HBM_BYTES_PER_S, exps / SFU_OPS_PER_S) * 1e3
     bound_by = ("bytes" if moved / HBM_BYTES_PER_S >= exps / SFU_OPS_PER_S
                 else "operations")
-    print(f"[train-kernels] selective_scan_bwd [{bb},{ss},{di}] N={n}: "
+    print(f"[train-kernels] selective_scan_bwd [{bb},{ss},{di}] N={n} on "
+          f"the {BWD_DESIGN} design: "
           f"kernel {ms!r} ms (device, graph replay), autograd of the plain "
           f"version {plain_ms!r} ms (CUDA events, eager), bound {bound_ms!r}"
           f" ms ({moved} bytes at 3.35 TB/s; {exps} exps at "
-          f"{SFU_OPS_PER_S:.4g}/s SFU; {bound_by}), library call: none")
+          f"{SFU_OPS_PER_S:.4g}/s SFU; {bound_by}), library call: none; "
+          f"{per_sm} blocks an SM")
     scan = {"name": "selective_scan_bwd", "route": "cuda",
-            "design": SCAN_BWD_DESIGN,
+            "design": BWD_DESIGN,
             "source": "src/repro_torch/kernels/selective_scan/csrc/"
                       "selective_scan_bwd.cu",
             "replaces": "no TPU counterpart: the gradient of "
                         "src/repro/kernels/selective_scan/scan.py:50",
             "max_abs_err": sworst, "max_rel_err": srel, "ms": ms,
+            "blocks_per_sm": per_sm,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
     del args, dy
@@ -3721,8 +3767,9 @@ def phase_train_main(device, card, launched):
     what the shape predicts (remat runs each forward twice).  Checks:
     finite losses, the last below the first, finite grad norms, and a
     non-zero gradient in every parameter leaf (one more loss_and_grads,
-    not counted); prints step time, tokens/s, peak memory and the device's
-    busy share of one step under the profiler."""
+    not counted); prints step time, tokens/s, peak memory, the device's
+    busy share of one step under the profiler and each backward kernel's
+    share of it."""
     import dataclasses
     import gc
 
@@ -3796,7 +3843,7 @@ def phase_train_main(device, card, launched):
                                            total_steps=steps))
         step_fn = make_train_step(cfg, tcfg)
         profile_top(lambda: step_fn(rep.state, one),
-                    f"{arch} one training step", card)
+                    f"{arch} one training step", card, BWD_KERNELS)
         del rep, one, step_fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -3859,20 +3906,23 @@ def main():
         for line in _build.ptxas_report(name):
             print(f"[header] {name}: {line}")
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    # the tensor-core kernel must neither spill nor have its wgmma
-    # serialized by ptxas (which it does, e.g., for a call in the kernel);
-    # read from the log saved beside the library, built now or before
-    tc = [line for line in _build.ptxas_report("flash_attention")
-          if "flash_wgmma_kernel" in line]
-    serial = [line.strip() for line in
-              _build.build_log("flash_attention").splitlines()
-              if "wgmma" in line and "serializ" in line]
-    for line in serial:
-        print(f"[header] flash_attention: {line}")
-    check(len(tc) == len(HEAD_DIMS) and not serial and all(
-        " 0 bytes spill stores" in line for line in tc),
-        f"the tensor-core flash kernel spills, is serialized or is "
-        f"missing: {tc} {serial}")
+    # the tensor-core kernels (the forward, and the backward's dK/dV and
+    # dQ) must neither spill nor have their wgmma serialized by ptxas
+    # (which it does, e.g., for a call in the kernel); read from the log
+    # saved beside each library, built now or before
+    for lib, kernels in (("flash_attention", ("flash_wgmma_kernel",)),
+                         ("flash_attention_bwd", ("dkdv_wgmma_kernel",
+                                                  "dq_wgmma_kernel"))):
+        tc = [line for line in _build.ptxas_report(lib)
+              if any(kn in line for kn in kernels)]
+        serial = [line.strip() for line in _build.build_log(lib).splitlines()
+                  if "wgmma" in line and "serializ" in line]
+        for line in serial:
+            print(f"[header] {lib}: {line}")
+        check(len(tc) == len(kernels) * len(HEAD_DIMS) and not serial and all(
+            " 0 bytes spill stores" in line for line in tc),
+            f"a tensor-core kernel of {lib} spills, is serialized or is "
+            f"missing: {tc} {serial}")
 
     record = phase_kernels(device)
     phase_agreement(device)

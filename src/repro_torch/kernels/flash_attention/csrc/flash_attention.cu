@@ -303,37 +303,13 @@ struct Tile {
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
 };
 
-// Stage rows [row0, row0 + R) of one head into a swizzled [R][HDP] tile:
-// atom a (hd columns 64a..64a+63) at dst + a*R*128.  Rows at or past `rows`
-// and columns past HD are zero filled.
 template <int HD, int R>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           int64_t row_stride, int row0,
                                           int rows, int tid) {
-  constexpr int CPR = Tile<HD>::HDP / 8;            // 16-byte chunks a row
-  static_assert(R * CPR % THREADS == 0, "chunks divide over the threads");
-#pragma unroll
-  for (int it = 0; it < R * CPR / THREADS; ++it) {
-    const int i = tid + it * THREADS;
-    const int r = i / CPR, j = i % CPR;
-    const bool ok = row0 + r < rows && j < HD / 8;
-    const __nv_bfloat16* g =
-        ok ? src + (int64_t)(row0 + r) * row_stride + j * 8 : src;
-    hopper::cp_async16(dst + (j / 8) * R * 128 + hopper::swizzle128(r, j % 8),
-                       g, ok ? 16 : 0);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  hopper::load_tile<HD, Tile<HD>::HDP, R, THREADS>(dst, src, row_stride,
+                                                   row0, rows, tid);
 }
 
 template <int HD>
@@ -397,7 +373,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int r0 = wq0 + 16 * warp + lane / 4;        // and r0 + 8
   const int c0 = 2 * (lane % 4);
   float acc[HDP / 2];
-  zero(acc);
+  hopper::zero(acc);
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // l: this thread's
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
@@ -419,7 +395,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       // S = Q K^T: K-major A (this warpgroup's Q rows) and B (the K rows),
       // 16 hd columns (32 bytes) a step
       float s[BK / 2];
-      zero(s);
+      hopper::zero(s);
       hopper::fence_regs(s);
       hopper::wgmma_fence();
 #pragma unroll
@@ -483,13 +459,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
       // P in bf16 as wgmma's register A operand, keys 16kk..16kk+15
       uint32_t p[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
+      hopper::to_a_frags(s, p);
       // O += P V: V [keys][hd] is MN-major; 1024 bytes between groups of 8
       // keys, BK*128 bytes between 64-column atoms
       hopper::fence_regs(acc);

@@ -15,31 +15,68 @@
 // bf16, causal) the four products of the backward and the recomputed
 // scores are 2.5x the forward's 68.7 GFLOP, 172 GFLOP: 0.17 ms at the 989
 // TFLOP/s bf16 tensor-core peak, against 67 MB of q/k/v/o/dO/dq/dk/dv,
-// 0.02 ms at 3.35 TB/s: bound by operations.
+// 0.02 ms at 3.35 TB/s: bound by operations.  The deterministic structure
+// below (no float atomics) recomputes S and dP in both passes: seven
+// 64x64xhd products per visible pair of tiles, 240 GFLOP at that shape.
 //
-// The design is the simple one that is deterministic (no float atomics):
+// Both designs share the structure, which is deterministic:
 // - delta_kernel: delta = rowsum(dO * O) in f32, one warp a row;
-// - dkdv_kernel: one block of 256 threads per (64-key tile, KV head,
-//   batch).  It keeps its K and V tile in shared memory and loops over the
-//   G query heads of its group, then over the 64-row query tiles that see
-//   any of its keys; for each it recomputes S = Q K^T (scaled),
-//   P = exp(S - lse) (0 where masked), dP = dO V^T and dS = P (dP - delta),
-//   and adds P^T dO into dv and dS^T Q into dk, both in registers.  The
-//   sums over the group's heads and the query tiles run in one fixed
-//   order;
-// - dq_kernel: one block per (64-row query tile, head, batch) loops over the
-//   key tiles its rows see, recomputes P and dS the same way and adds dS K
-//   into dq in registers.
-// P is recomputed twice and nothing is summed across blocks, so two runs
-// give the same bits.  Every product is an f32 FMA on tiles staged in
-// shared memory (bf16 widens exactly), as in the forward's f32 design:
-// bound by the FMA pipes (67 TFLOP/s), far from the tensor-core bound.
-// Tensor cores for the bf16 case (wgmma) are the next lever.  expf, not
-// __expf; no fast math.
+// - dK/dV: one block per (key tile, KV head, batch) keeps its K and V
+//   tiles and loops over the G query heads of its group, then over the
+//   query tiles that see any of its keys, in that fixed order; for each it
+//   recomputes S^T = K Q^T (scaled), P^T = exp(S^T - lse) (0 where masked),
+//   dP^T = V dO^T and dS^T = P^T (dP^T - delta), and adds P^T dO into dv
+//   and dS^T Q into dk, both in registers;
+// - dQ: one block per (query tile, head, batch) loops over the key tiles
+//   its rows see, recomputes P and dS the same way and adds dS K into dq
+//   in registers.
+// Nothing is summed across blocks, so two runs give the same bits.
+//
+// wgmma-bf16, bf16 (dkdv_wgmma_kernel, dq_wgmma_kernel): tensor cores.
+// - a dK/dV block is two warpgroups, each owning 64 keys (wgmma's M) of a
+//   128-key tile, with dK and dV [64 x hd] as f32 accumulators; Q and dO
+//   tiles of 64 queries (and their 64 lse and delta values) run through a
+//   2-stage cp.async ring that both warpgroups read, so the next tiles'
+//   loads are in flight while one is computed;
+// - a dQ block is two warpgroups of 64 query rows with dQ in registers;
+//   Q and dO are staged once, K and V tiles of 64 keys run through the
+//   ring, and the grid runs the query tiles heaviest first (the last tile
+//   of a causal sequence sees the most keys), as the forward does; the
+//   dK/dV grid runs key tile 0, which the most queries see, first;
+// - every tile is 128-byte swizzled bf16 (hd zero padded to 64 or 128), as
+//   the forward stages them (hopper::load_tile).  One staged tile serves
+//   two products: S^T = K Q^T reads Q K-major (its rows are the N of the
+//   product, hd the K), dK += dS^T Q reads the same tile MN-major through
+//   the transpose bit (queries the K, hd the N): two descriptors of one
+//   tile.  Likewise dO for dP^T and dV, and K for S and dQ;
+// - S^T and dP^T are wgmma m64n64k16 with both operands in shared memory,
+//   issued as two commit groups: the exponentials of P^T run while dP^T is
+//   still in the tensor cores.  In this transposed orientation lse and
+//   delta are per column, read from the ring at the accumulator's columns;
+// - P^T and dS^T are rounded to bf16 in registers and are the register A
+//   operands of wgmma m64n{64,128}k16 for dV and dK, as the forward rounds
+//   P for P.V (FlashAttention's rounding); the dQ kernel does the same
+//   with dS for dS.K;
+// - tiles that hold no visible pair are skipped: per block in dK/dV (a
+//   warpgroup whose 64 keys see none of a tile runs it masked, as a branch
+//   on the warpgroup makes ptxas serialize that kernel's wgmma), per
+//   warpgroup in dQ; masks run only on tiles that straddle the diagonal,
+//   the window or an edge;
+// - dQ and dK are scaled by 1/sqrt(hd) in f32 before the store, and only
+//   the first hd columns are stored;
+// - the kernels make no call (expf is inline; there is no division): ptxas
+//   serializes every wgmma of a kernel that does.
+// fma-tiles, f32 (dkdv_kernel, dq_kernel): one block of 256 threads per
+// 64-key or 64-query tile, every product an f32 FMA on tiles staged in
+// shared memory, bound by the FMA pipes (67 TFLOP/s); f32 products keep
+// the 1e-4 atol that TF32 tensor cores would not.
+// expf, not __expf; no fast math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -53,9 +90,6 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // rows [row0, row0 + R) of one head, [R][HD] at `row_stride` elements apart,
 // into f32 shared memory [R][LD]; rows past `rows` are zeros
@@ -438,12 +472,458 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores
+
+namespace tc {
+
+constexpr int BT = 64;          // rows of a ring tile (queries or keys)
+constexpr int BB = 128;         // rows a block owns: two warpgroups of 64
+constexpr int STAGES = 2;       // ring: tile it+1 in flight
+constexpr int THREADS = 256;
+
+template <int HD>
+struct Tile {
+  static constexpr int HDP = HD <= 64 ? 64 : 128;   // hd padded to atoms
+  static constexpr int BIG = BB * HDP * 2;          // a block's own tile
+  static constexpr int SMALL = BT * HDP * 2;        // one ring tile
+  static constexpr int KSTEPS = (HD + 15) / 16;     // hd steps holding data
+  // two own tiles, two rings of tiles, (dK/dV) the lse and delta rings,
+  // and slack to align to 1024 bytes
+  static constexpr int SMEM = 2 * BIG + 2 * STAGES * SMALL +
+                              2 * STAGES * BT * 4 + 1024;
+};
+
+template <int HD, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t row_stride, int row0,
+                                          int rows, int tid) {
+  hopper::load_tile<HD, Tile<HD>::HDP, R, THREADS>(dst, src, row_stride,
+                                                   row0, rows, tid);
+}
+
+// D[64 x 64] = A B^T over the first KSTEPS*16 hd columns: A is this
+// warpgroup's 64 rows of a swizzled tile of `a_rows` rows, B a 64-row ring
+// tile, both K-major (hd contiguous), so nothing is transposed.  One
+// commit group.
+template <int HD>
+__device__ __forceinline__ void product_kmajor(float (&d)[32], uint32_t a,
+                                               int a_rows, int wg,
+                                               uint32_t b) {
+  hopper::zero(d);
+  hopper::fence_regs(d);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < Tile<HD>::KSTEPS; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    hopper::wgmma_ss_m64n64k16(
+        d, hopper::desc128(a + (kk / 4) * a_rows * 128 + wg * 64 * 128 + off,
+                           16, 1024),
+        hopper::desc128(b + (kk / 4) * BT * 128 + off, 16, 1024));
+  }
+  hopper::wgmma_commit();
+}
+
+// D[64 x HDP] += A B: A the bf16 register fragments of a 64-column
+// accumulator (the product's K), B a 64-row ring tile read MN-major (its
+// rows the K, hd the N; the transpose bit).  Issued, not committed.
+template <int HDP>
+__device__ __forceinline__ void product_mnmajor(float (&d)[HDP / 2],
+                                                const uint32_t (&a)[4][4],
+                                                uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk) {
+    const uint64_t db = hopper::desc128(b + kk * 16 * 128, BT * 128, 1024);
+    if constexpr (HDP == 64) hopper::wgmma_rs_m64n64k16(d, a[kk], db);
+    else hopper::wgmma_rs_m64n128k16(d, a[kk], db);
+  }
+}
+
+// rows r0 and r0 + 8 of a [rows, heads, HD] bf16 tensor from an f32
+// accumulator (wgmma's D layout: d[4j + e] is row r0 + 8*(e >> 1), column
+// 8j + c0 + (e & 1)), times `mul`; rows at or past `rows` and columns past
+// HD are not stored
+template <int HD, int HDP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
+                                           int64_t row_stride, int r0,
+                                           int c0, int rows,
+                                           const float (&d)[HDP / 2],
+                                           float mul) {
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int col = 8 * j + c0;
+    if (col >= HD) continue;
+    if (r0 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(&base[(int64_t)r0 * row_stride +
+                                               col]) =
+          __floats2bfloat162_rn(d[4 * j] * mul, d[4 * j + 1] * mul);
+    if (r0 + 8 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(
+          &base[(int64_t)(r0 + 8) * row_stride + col]) =
+          __floats2bfloat162_rn(d[4 * j + 2] * mul, d[4 * j + 3] * mul);
+  }
+}
+
+// dK/dV's item `it` (head head0 + it/nq, query tile qt_lo + it%nq) into
+// ring stage st: its Q and dO tiles and its 64 lse and delta values (lse
+// ring [STAGES][64] at `lring`, then the delta ring; zeros past Sq)
+template <int HD>
+__device__ __forceinline__ void stage_item(
+    uint32_t qs, uint32_t dos, uint32_t lring, const __nv_bfloat16* q,
+    const __nv_bfloat16* dout, const float* lse, const float* delta, int it,
+    int st, int head0, int nq, int qt_lo, int b, int sq, int h, int tid) {
+  const int head = head0 + it / nq;
+  const int q0 = (qt_lo + it % nq) * BT;
+  const int64_t q_stride = (int64_t)h * HD;
+  const int64_t q_off = ((int64_t)b * sq * h + head) * HD;
+  load_tile<HD, BT>(qs + st * Tile<HD>::SMALL, q + q_off, q_stride, q0, sq,
+                    tid);
+  load_tile<HD, BT>(dos + st * Tile<HD>::SMALL, dout + q_off, q_stride, q0,
+                    sq, tid);
+  if (tid < 2 * BT) {
+    const int r = tid % BT;
+    const float* src = (tid < BT ? lse : delta) + ((int64_t)b * h + head) * sq;
+    const bool ok = q0 + r < sq;
+    hopper::cp_async4(lring + ((tid / BT) * STAGES + st) * BT * 4 + r * 4,
+                      ok ? src + q0 + r : src, ok ? 4 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+dkdv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int bsz, int sq, int skv,
+                  int h, int kh, int causal, int window, float scale) {
+  using T = Tile<HD>;
+  constexpr int HDP = T::HDP;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t ks = (raw + 1023) & ~1023u;        // K [128 keys]
+  const uint32_t vs = ks + T::BIG;                  // V [128 keys]
+  const uint32_t qs = vs + T::BIG;                  // Q ring
+  const uint32_t dos = qs + STAGES * T::SMALL;      // dO ring
+  // lse ring [STAGES][64], then the delta ring
+  float* lring = reinterpret_cast<float*>(
+      smem_raw + (dos + STAGES * T::SMALL - raw));
+  const uint32_t lring_s = dos + STAGES * T::SMALL;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;                         // keys 64*wg of the tile
+  const int warp = (tid % 128) / 32;                // rows 16*warp of those
+  const int lane = tid % 32;
+  // key tile 0, which the most queries see, first
+  const int kt = (int)(blockIdx.x / (bsz * kh));
+  const int kvh = blockIdx.x % kh;
+  const int b = (blockIdx.x / kh) % bsz;
+  const int k0 = kt * BB;
+  const int g = h / kh;
+
+  const int64_t kv_stride = (int64_t)kh * HD;       // between key rows
+  const int64_t kv_off = ((int64_t)b * skv * kh + kvh) * HD;
+
+  // the query tiles that see a key of this block, for each of the G heads
+  const int k_last = min(k0 + BB, skv) - 1;
+  const int qt_lo = causal ? k0 / BT : 0;
+  const int q_hi = window > 0 ? min(sq, k_last + window) : sq;
+  const int nq = max((q_hi + BT - 1) / BT - qt_lo, 0);
+  const int n_items = g * nq;
+  const int wk0 = k0 + 64 * wg;                     // this warpgroup's keys
+
+  // K and V with the first item, then one commit group an item
+  load_tile<HD, BB>(ks, k + kv_off, kv_stride, k0, skv, tid);
+  load_tile<HD, BB>(vs, v + kv_off, kv_stride, k0, skv, tid);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_items)
+      stage_item<HD>(qs, dos, lring_s, q, dout, lse, delta, i, i, kvh * g,
+                     nq, qt_lo, b, sq, h, tid);
+    hopper::cp_async_commit();
+  }
+
+  // this thread's accumulator rows (keys) and first column
+  const int r0 = wk0 + 16 * warp + lane / 4;        // and r0 + 8
+  const int c0 = 2 * (lane % 4);
+  float dka[HDP / 2], dva[HDP / 2];
+  hopper::zero(dka);
+  hopper::zero(dva);
+
+  for (int it = 0; it < n_items; ++it) {
+    const int st = it % STAGES;
+    if (it + STAGES - 1 < n_items)
+      stage_item<HD>(qs, dos, lring_s, q, dout, lse, delta, it + STAGES - 1,
+                     (it + STAGES - 1) % STAGES, kvh * g, nq, qt_lo, b, sq, h,
+                     tid);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<STAGES - 1>();  // item it (and K, V) has landed
+    hopper::fence_proxy_async();
+    __syncthreads();
+
+    // every item has a visible pair for some key of the block; a
+    // warpgroup whose keys see none of it runs it masked to zeros (a
+    // branch on the warpgroup would make ptxas serialize the wgmma)
+    const int q0 = (qt_lo + it % nq) * BT;
+    {
+      const uint32_t qt = qs + st * T::SMALL, dot = dos + st * T::SMALL;
+      // S^T = K Q^T, then dP^T = V dO^T: two commit groups
+      float s[32], dp[32];
+      product_kmajor<HD>(s, ks, BB, wg, qt);
+      product_kmajor<HD>(dp, vs, BB, wg, dot);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+
+      // P^T; s[4j + e] is key r0 + 8*(e >> 1), query q0 + 8j + c0 + (e & 1)
+      const float* ls = lring + st * BT;
+      const float* dl = lring + (STAGES + st) * BT;
+      const bool edge = q0 + BT > sq || wk0 + 64 > skv ||
+                        (causal && wk0 + 63 > q0) ||
+                        (window > 0 && wk0 <= q0 + BT - 1 - window);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + c0 + (i & 1);
+        float p = expf(s[i] * scale - ls[col]);
+        if (edge && !visible(q0 + col, r0 + 8 * ((i >> 1) & 1), sq, skv,
+                             causal, window))
+          p = 0.f;
+        s[i] = p;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + c0 + (i & 1);
+        dp[i] = s[i] * (dp[i] - dl[col]);
+      }
+
+      // dV += P^T dO, dK += dS^T Q: P^T and dS^T in bf16 as register A
+      // operands, dO and Q read MN-major from the ring
+      uint32_t pa[4][4], da[4][4];
+      hopper::to_a_frags(s, pa);
+      hopper::to_a_frags(dp, da);
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+      hopper::wgmma_fence();
+      product_mnmajor<HDP>(dva, pa, dot);
+      product_mnmajor<HDP>(dka, da, qt);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(da);
+    }
+    __syncthreads();    // stage st is consumed before it is loaded again
+  }
+  hopper::cp_async_wait<0>();     // no copy outlives the block (no items)
+
+  if (wk0 >= skv) return;
+  store_rows<HD, HDP>(dk + kv_off, kv_stride, r0, c0, skv, dka, scale);
+  store_rows<HD, HDP>(dv + kv_off, kv_stride, r0, c0, skv, dva, 1.f);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int bsz, int sq, int skv,
+                int h, int kh, int causal, int window, float scale) {
+  using T = Tile<HD>;
+  constexpr int HDP = T::HDP;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t qs = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t dos = qs + T::BIG;                 // dO [128 rows]
+  const uint32_t ks = dos + T::BIG;                 // K ring
+  const uint32_t vs = ks + STAGES * T::SMALL;       // V ring
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;                         // rows 64*wg
+  const int warp = (tid % 128) / 32;                // rows 16*warp of those
+  const int lane = tid % 32;
+  // heaviest query tile first: the tile index runs down as blockIdx.x runs up
+  const int n_qt = (sq + BB - 1) / BB;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (bsz * h));
+  const int head = blockIdx.x % h;
+  const int b = (blockIdx.x / h) % bsz;
+  const int kvh = head / (h / kh);
+  const int q0 = qt * BB;
+
+  const int64_t q_stride = (int64_t)h * HD;
+  const int64_t kv_stride = (int64_t)kh * HD;
+  const int64_t q_off = ((int64_t)b * sq * h + head) * HD;
+  const __nv_bfloat16* kb = k + ((int64_t)b * skv * kh + kvh) * HD;
+  const __nv_bfloat16* vb = v + ((int64_t)b * skv * kh + kvh) * HD;
+
+  // key tiles that hold a visible key for some row of the block ...
+  const int q_last = min(q0 + BB, sq) - 1;
+  const int kt_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / BT;
+  const int kt_hi = ((causal ? min(skv, q_last + 1) : skv) + BT - 1) / BT;
+  // ... and for some row of this warpgroup (none if its rows are past Sq)
+  const int wq0 = q0 + 64 * wg;
+  const int wq_last = min(wq0 + 64, sq) - 1;
+  const int wk_lo = window > 0 ? max(0, wq0 - window + 1) : 0;
+  const int wk_hi = causal ? min(skv, wq_last + 1) : skv;
+
+  // Q and dO with the first tile, then one commit group a tile
+  load_tile<HD, BB>(qs, q + q_off, q_stride, q0, sq, tid);
+  load_tile<HD, BB>(dos, dout + q_off, q_stride, q0, sq, tid);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (kt_lo + i < kt_hi) {
+      load_tile<HD, BT>(ks + i * T::SMALL, kb, kv_stride, (kt_lo + i) * BT,
+                        skv, tid);
+      load_tile<HD, BT>(vs + i * T::SMALL, vb, kv_stride, (kt_lo + i) * BT,
+                        skv, tid);
+    }
+    hopper::cp_async_commit();
+  }
+
+  // this thread's accumulator rows (queries), their lse and delta
+  const int r0 = wq0 + 16 * warp + lane / 4;        // and r0 + 8
+  const int c0 = 2 * (lane % 4);
+  const float* lb = lse + ((int64_t)b * h + head) * sq;
+  const float* db = delta + ((int64_t)b * h + head) * sq;
+  const float l0 = r0 < sq ? lb[r0] : 0.f, l1 = r0 + 8 < sq ? lb[r0 + 8] : 0.f;
+  const float e0 = r0 < sq ? db[r0] : 0.f, e1 = r0 + 8 < sq ? db[r0 + 8] : 0.f;
+  float dqa[HDP / 2];
+  hopper::zero(dqa);
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int st = (kt - kt_lo) % STAGES;
+    if (kt + STAGES - 1 < kt_hi) {  // into the stage freed last pass
+      const int nx = (st + STAGES - 1) % STAGES;
+      load_tile<HD, BT>(ks + nx * T::SMALL, kb, kv_stride,
+                        (kt + STAGES - 1) * BT, skv, tid);
+      load_tile<HD, BT>(vs + nx * T::SMALL, vb, kv_stride,
+                        (kt + STAGES - 1) * BT, skv, tid);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<STAGES - 1>();  // tile kt (and Q, dO) has landed
+    hopper::fence_proxy_async();
+    __syncthreads();
+
+    const int k0 = kt * BT;
+    if (wq0 < sq && k0 < wk_hi && k0 + BT > wk_lo) {
+      const uint32_t kt_s = ks + st * T::SMALL;
+      // S = Q K^T, then dP = dO V^T: two commit groups
+      float s[32], dp[32];
+      product_kmajor<HD>(s, qs, BB, wg, kt_s);
+      product_kmajor<HD>(dp, dos, BB, wg, vs + st * T::SMALL);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(s);
+
+      // P; s[4j + e] is query r0 + 8*(e >> 1), key k0 + 8j + c0 + (e & 1)
+      const bool edge = k0 + BT > skv || (causal && k0 + BT - 1 > wq0) ||
+                        (window > 0 && k0 <= wq_last - window);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hi = (i >> 1) & 1;
+        float p = expf(s[i] * scale - (hi ? l1 : l0));
+        if (edge && !visible(r0 + 8 * hi, k0 + 8 * (i >> 2) + c0 + (i & 1),
+                             sq, skv, causal, window))
+          p = 0.f;
+        s[i] = p;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        dp[i] = s[i] * (dp[i] - (((i >> 1) & 1) ? e1 : e0));
+
+      // dQ += dS K: dS in bf16 as the register A operand, K read MN-major
+      uint32_t da[4][4];
+      hopper::to_a_frags(dp, da);
+      hopper::fence_regs(dqa);
+      hopper::wgmma_fence();
+      product_mnmajor<HDP>(dqa, da, kt_s);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dqa);
+      hopper::fence_regs(da);
+    }
+    __syncthreads();    // stage st is consumed before it is loaded again
+  }
+  hopper::cp_async_wait<0>();     // no copy outlives the block (no tiles)
+
+  if (wq0 >= sq) return;
+  store_rows<HD, HDP>(dq + q_off, q_stride, r0, c0, sq, dqa, scale);
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int b, int sq,
+                   int skv, int h, int kh, int causal, int window,
+                   cudaStream_t stream) {
+  constexpr int smem = Tile<HD>::SMEM;
+  static bool opted_in = false;   // set once, before any graph capture
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dkdv_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(dq_wgmma_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  using bf = __nv_bfloat16;
+  const bf* qt = static_cast<const bf*>(q);
+  const bf* kt = static_cast<const bf*>(k);
+  const bf* vt = static_cast<const bf*>(v);
+  const bf* dot = static_cast<const bf*>(dout);
+  const int64_t rows = (int64_t)b * sq * h;
+  delta_kernel<bf><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf*>(o), dot, delta, rows, sq, h, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float scale = 1.0f / sqrtf((float)HD);
+  const unsigned kv_blocks = (unsigned)((skv + BB - 1) / BB) * kh * b;
+  dkdv_wgmma_kernel<HD><<<kv_blocks, THREADS, smem, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv),
+      b, sq, skv, h, kh, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const unsigned q_blocks = (unsigned)((sq + BB - 1) / BB) * h * b;
+  dq_wgmma_kernel<HD><<<q_blocks, THREADS, smem, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<bf*>(dq), b, sq, skv, h, kh,
+      causal, window, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      float* delta, void* dq, void* dk, void* dv, int b,
+                      int sq, int skv, int h, int kh, int causal, int window,
+                      cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, h, kh, causal, window, s);
+    case 32: return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, h, kh, causal, window, s);
+    case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, h, kh, causal, window, s);
+    case 80: return launch<80>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, h, kh, causal, window, s);
+    case 128: return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, h, kh, causal, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v, o, dout, dq, dk, dv); lse and
-// delta f32 [B, H, Sq] (delta is scratch the caller allocates).  window <= 0
-// means none.  Three launches on the caller's stream, not synced; returns
-// the first CUDA error (0 on success).
+// dtype: 0 float32 (fma-tiles), 1 bfloat16 (wgmma-bf16): q, k, v, o, dout,
+// dq, dk, dv; lse and delta f32 [B, H, Sq] (delta is scratch the caller
+// allocates).  window <= 0 means none.  Three launches on the caller's
+// stream, not synced; returns the first CUDA error (0 on success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -455,9 +935,8 @@ extern "C" int flash_attention_bwd_launch(
                                  dk, dv, (int)b, (int)sq, (int)skv, (int)h,
                                  (int)kh, causal, (int)window, s);
   if (dtype == 1)
-    return (int)launch_hd<__nv_bfloat16>((int)hd, q, k, v, o, dout, lse,
-                                         delta, dq, dk, dv, (int)b, (int)sq,
-                                         (int)skv, (int)h, (int)kh, causal,
-                                         (int)window, s);
+    return (int)tc::launch_hd((int)hd, q, k, v, o, dout, lse, delta, dq, dk,
+                              dv, (int)b, (int)sq, (int)skv, (int)h, (int)kh,
+                              causal, (int)window, s);
   return (int)cudaErrorInvalidValue;
 }

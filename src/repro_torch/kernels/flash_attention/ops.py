@@ -11,7 +11,9 @@ Gradients: ``attention`` on CUDA tensors that need one is a
 ``torch.autograd.Function``: its forward is the forward kernel, which
 then also writes each row's log-sum-exp, and its backward is the
 hand-written ``flash_attention_bwd`` kernel (``csrc/flash_attention_bwd.cu``;
-no plain version or library attention runs).  On CPU tensors the
+no plain version or library attention runs).  Its two designs are named
+by ``bwd_design(dtype, hd)``: bf16 on the tensor cores (wgmma), f32 on
+FMA tiles.  On CPU tensors the
 gradient is autograd through ``attention_ref``.  Without a gradient
 (``no_grad``, serving) the call is the forward launch alone, as before.
 
@@ -28,24 +30,33 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["attention", "attention_ref", "flash_attention",
-           "flash_attention_bwd", "design", "HEAD_DIMS", "BWD_DESIGN"]
+           "flash_attention_bwd", "design", "bwd_design", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 80, 128)       # the kernels' instantiations
-BWD_DESIGN = "fma-tiles"                # the backward's one design
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _pick(what, dtype, hd, f32, bf16):
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {hd} not in {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return f32
+    if dtype == torch.bfloat16:
+        return bf16
+    raise TypeError(f"{what}: dtype {dtype} not supported "
+                    f"(float32, bfloat16)")
 
 
 def design(dtype: torch.dtype, hd: int) -> str:
     """The kernel design that runs (dtype, hd) on the card: bf16 on the
     tensor cores at every head dim, f32 on the FMA kernel."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
-    if dtype == torch.float32:
-        return "fma-f32"
-    if dtype == torch.bfloat16:
-        return "wgmma-bf16"
-    raise TypeError(f"flash_attention: dtype {dtype} not supported "
-                    f"(float32, bfloat16)")
+    return _pick("flash_attention", dtype, hd, "fma-f32", "wgmma-bf16")
+
+
+def bwd_design(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernel's design for (dtype, hd) on the card: bf16 on
+    the tensor cores (wgmma) at every head dim, f32 on FMA tiles."""
+    return _pick("flash_attention_bwd", dtype, hd, "fma-tiles", "wgmma-bf16")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -206,6 +217,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if sq == 0 or b == 0 or h == 0:
         return dq, dk.zero_(), dv.zero_()
+    if (bwd_design(q.dtype, hd) == "wgmma-bf16"
+            and any(t.data_ptr() % 16 for t in (q, k, v, dout))):
+        raise ValueError("flash_attention_bwd: the tensor-core kernels copy "
+                         "16-byte chunks: q, k, v, dout must be 16-byte "
+                         "aligned")
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
     with torch.cuda.device(q.device):

@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int CPB = 32;         // channels per block
@@ -50,25 +52,8 @@ constexpr int TCHUNK = 32;      // timesteps staged per chunk
 constexpr int SPL = 4;          // states per lane
 constexpr int ROUND = 8;        // timesteps a lane takes together
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 or 4 bytes global -> shared; when !ok, zeros are written and nothing
-// is read (the source address must still be valid)
-__device__ __forceinline__ void cp_async16(void* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
+using scan::cp_async16;
+using scan::cp_async4;
 
 template <int N>
 struct Stage {
@@ -189,14 +174,14 @@ scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
         }
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    scan::cp_async_commit();
   };
 
   const int n_chunks = (s + TCHUNK - 1) / TCHUNK;
   load(0, 0);
   load(1, 1);
   for (int c = 0; c < n_chunks; ++c) {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // chunk c landed
+    scan::cp_async_wait<1>();                       // chunk c landed
     __syncthreads();
     const Stage<N>& sg = stage[c & 1];
     const int tn = min(TCHUNK, s - c * TCHUNK);

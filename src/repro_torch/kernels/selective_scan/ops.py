@@ -4,8 +4,10 @@ kernel for CUDA tensors, the plain PyTorch version for CPU tensors.
 Gradients: ``selective_scan`` on CUDA tensors that need one is a
 ``torch.autograd.Function`` whose forward is the forward kernel and whose
 backward is the hand-written ``selective_scan_bwd`` kernel
-(``csrc/selective_scan_bwd.cu``; it recomputes the forward's states
-itself, so the forward saves only its inputs).  On CPU tensors the
+(``csrc/selective_scan_bwd.cu``, design ``BWD_DESIGN``: cp.async-staged
+32-step chunks, h saved every chunk in a first pass and each chunk's
+states recomputed in registers in the reverse pass, so the forward
+saves only its inputs).  On CPU tensors the
 gradient is autograd through ``selective_scan_ref``.  Without a gradient
 the call is the forward launch alone, as before.
 
@@ -22,10 +24,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 __all__ = ["selective_scan", "selective_scan_ref", "selective_scan_cuda",
-           "selective_scan_bwd", "STATE_SIZES"]
+           "selective_scan_bwd", "bwd_blocks_per_sm", "STATE_SIZES",
+           "BWD_DESIGN"]
 
 STATE_SIZES = (4, 8, 16)                # the kernels' instantiations of N
-_BWD_CHUNK = 16                         # csrc/selective_scan_bwd.cu's TCH
+BWD_DESIGN = "staged-recompute"         # the backward kernel's design
+_BWD_CHUNK = 32                         # csrc/selective_scan_bwd.cu's TCH
 _BWD_CHANNELS = 32                      # ... and its CPB
 
 
@@ -78,7 +82,22 @@ def _bwd_library() -> ctypes.CDLL:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         fn.argtypes = [p] * 18 + [i64, i64, i64, i64, p]
         fn.restype = ctypes.c_int
+        occ = lib.selective_scan_bwd_blocks_per_sm
+        occ.argtypes, occ.restype = [i64], ctypes.c_int
     return lib
+
+
+def bwd_blocks_per_sm(n: int) -> int:
+    """Blocks of the backward kernel at state size ``n`` that fit on one SM
+    of the current CUDA device (by its shared memory, registers and
+    threads)."""
+    if n not in STATE_SIZES:
+        raise ValueError(f"selective_scan_bwd: state size {n} not in "
+                         f"{STATE_SIZES}")
+    blocks = _bwd_library().selective_scan_bwd_blocks_per_sm(n)
+    if blocks < 0:
+        raise RuntimeError("selective_scan_bwd: occupancy query failed")
+    return blocks
 
 
 def _check(tensors: dict, what: str):

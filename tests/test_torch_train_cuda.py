@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch import configs as CFG
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, attention,
-                                                 attention_ref,
+                                                 attention_ref, bwd_design,
                                                  flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.selective_scan import (STATE_SIZES, selective_scan,
@@ -65,27 +65,61 @@ def _close(got, want, dtype):
             assert err <= 0.02 * float(w.float().abs().max())
 
 
+# (B, Sq, Skv, H, KH, hd, window), causal: every head dim (16, 32 and 80
+# pad to the tensor-core kernel's 64 or 128 columns), G = 1, 2, 4 and 8, S
+# not a multiple of the 64- or 128-row tiles, Sq < Skv
 CASES = [(1, 130, 130, 4, 2, hd, None) for hd in HEAD_DIMS] + [
     (2, 200, 200, 4, 1, 64, 48), (1, 96, 160, 2, 2, 64, None),
-    (2, 256, 256, 8, 2, 128, None), (1, 300, 300, 2, 1, 32, 7)]
+    (2, 256, 256, 8, 2, 128, None), (1, 300, 300, 2, 1, 32, 7),
+    (1, 190, 190, 16, 2, 80, None), (1, 100, 230, 4, 2, 128, None),
+    (2, 70, 70, 2, 2, 16, None), (1, 129, 200, 8, 1, 32, 40)]
+NON_CAUSAL = [(2, 130, 130, 4, 4, 16, None), (1, 70, 200, 8, 1, 128, None),
+              (1, 257, 257, 4, 2, 64, 100), (1, 64, 64, 2, 1, 80, None)]
+
+
+def _check_flash_backward(cuda, dtype, b, sq, skv, h, kh, hd, window,
+                          causal):
+    """The kernel twice (equal bits, two launches) against autograd of the
+    plain version; the forward's output equal with and without its lse."""
+    q, k, v, do = _flash(cuda, b, sq, skv, h, kh, hd, dtype)
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = _plain_grads(lambda *t: attention_ref(*t, **kw), (q, k, v), do)
+    _close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,skv,h,kh,hd,window", CASES)
 def test_flash_backward_matches_plain_version(cuda, dtype, b, sq, skv, h, kh,
                                               hd, window):
-    q, k, v, do = _flash(cuda, b, sq, skv, h, kh, hd, dtype)
-    out, lse = flash_attention(q, k, v, window=window, return_lse=True)
-    assert torch.equal(out, flash_attention(q, k, v, window=window))
-    before = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, out, do, lse, window=window)
-    again = flash_attention_bwd(q, k, v, out, do, lse, window=window)
-    torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == before + 2
-    assert all(torch.equal(x, y) for x, y in zip(got, again))
-    want = _plain_grads(lambda *t: attention_ref(*t, window=window),
-                        (q, k, v), do)
-    _close(got, want, dtype)
+    _check_flash_backward(cuda, dtype, b, sq, skv, h, kh, hd, window, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kh,hd,window", NON_CAUSAL)
+def test_flash_backward_non_causal_matches_plain_version(
+        cuda, dtype, b, sq, skv, h, kh, hd, window):
+    _check_flash_backward(cuda, dtype, b, sq, skv, h, kh, hd, window, False)
+
+
+def test_flash_backward_bf16_runs_on_tensor_cores(cuda):
+    """bf16 names the wgmma design at every head dim and raises on a
+    tensor the 16-byte copies cannot take (no fallback to the f32 tiles)."""
+    assert {bwd_design(torch.bfloat16, hd) for hd in HEAD_DIMS} == {
+        "wgmma-bf16"}
+    q, k, v, do = _flash(cuda, 1, 64, 64, 2, 1, 64, torch.bfloat16)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    odd = odd.view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bwd(odd, k, v, out, do, lse)
 
 
 def test_flash_lse_is_the_rows_logsumexp(cuda):
@@ -102,9 +136,12 @@ def test_flash_lse_is_the_rows_logsumexp(cuda):
     torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
 
 
+# S not a multiple of the 32-step chunk or the 8-step round, S = 1, di not
+# a multiple of the 32-channel block
 @pytest.mark.parametrize("n", STATE_SIZES)
 @pytest.mark.parametrize("bsz,s,di", [(2, 100, 96), (1, 257, 200),
-                                      (2, 16, 33)])
+                                      (2, 16, 33), (2, 1, 40), (1, 67, 64),
+                                      (2, 75, 70)])
 def test_scan_backward_matches_plain_version(cuda, n, bsz, s, di):
     gen = torch.Generator(device=cuda).manual_seed(n + s)
     r = lambda *sh: torch.randn(sh, generator=gen, device=cuda)  # noqa

@@ -8,6 +8,8 @@ Tolerances: flash atol 1e-5 / rtol 1e-4 (f32, the same softmax summed in
 another order); the scan atol 1e-4 / rtol 1e-3 (the port scans
 sequentially, JAX by a chunked associative scan: the forward's 1e-4).
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,12 +19,14 @@ import torch
 from repro.kernels.flash_attention.ref import attention_ref as j_kref
 from repro.models.attention import flash_attention_ref as j_flash
 from repro.models.ssm import selective_scan as j_scan
-from repro_torch.kernels.flash_attention import (attention, attention_ref,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, attention,
+                                                 attention_ref, bwd_design,
                                                  flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.selective_scan import (selective_scan,
                                                 selective_scan_bwd,
                                                 selective_scan_ref)
+from repro_torch.kernels.selective_scan import ops as scan_ops
 
 FLASH_TOL = dict(atol=1e-5, rtol=1e-4)
 SCAN_TOL = dict(atol=1e-4, rtol=1e-3)
@@ -137,3 +141,57 @@ def test_backward_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         selective_scan_bwd(*(torch.from_numpy(a) for a in args),
                            torch.from_numpy(dy))
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma-bf16"),
+                                        (torch.float32, "fma-tiles")])
+def test_bwd_design_names_the_backward_kernel(dtype, want, hd):
+    """bf16 runs the tensor-core backward at every head dim (16, 32 and 80
+    padded), f32 the FMA tiles."""
+    assert bwd_design(dtype, hd) == want
+
+
+def test_bwd_design_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="head dim 24"):
+        bwd_design(torch.bfloat16, 24)
+    with pytest.raises(TypeError, match="float16"):
+        bwd_design(torch.float16, 64)
+
+
+def test_scan_exports_its_backward_design():
+    scan_pkg = importlib.import_module("repro_torch.kernels.selective_scan")
+    assert scan_pkg.BWD_DESIGN == scan_ops.BWD_DESIGN == "staged-recompute"
+    assert "BWD_DESIGN" in scan_ops.__all__
+    # the scratch of saved states follows the kernel's 32-step chunk
+    assert (scan_ops._BWD_CHUNK, scan_ops._BWD_CHANNELS) == (32, 32)
+    # the occupancy query refuses a state size with no instantiation
+    # before it builds anything
+    with pytest.raises(ValueError, match="state size 5"):
+        scan_pkg.bwd_blocks_per_sm(5)
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None),
+                                           (False, 7)])
+def test_cpu_flash_gradient_is_autograd_of_the_plain_version(causal,
+                                                             window):
+    """Not causal, causal and windowed: on CPU tensors ``attention`` is
+    ``attention_ref`` under autograd, with no launch."""
+    q, k, v, do = _flash_inputs(3, 1, 24, 40, 4, 1, 16)
+    counts = (flash_attention.launches, flash_attention_bwd.launches)
+    kw = dict(causal=causal, window=window)
+    _, got = _port_grads(lambda *t: attention(*t, **kw), (q, k, v), do)
+    _, want = _port_grads(lambda *t: attention_ref(*t, **kw), (q, k, v),
+                          do)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert counts == (flash_attention.launches, flash_attention_bwd.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_refuses_cpu_tensors_of_either_dtype(dtype):
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in
+                   _flash_inputs(1, 1, 16, 16, 2, 1, 32))
+    lse = torch.zeros((1, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, v, q, do, lse)

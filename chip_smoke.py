@@ -57,7 +57,19 @@ script exits non-zero:
      backward kernel's share of a step;
   5h. the supervisor: qwen3-0.6b's smoke config with a checkpoint
      directory and a failure at step 6 equals an uninterrupted run bit for
-     bit.
+     bit;
+  5i. the multi-rank slice, on this process's one-rank NCCL group
+     (``launch.mesh.init_ranks``), each line with its world size, backend,
+     NCCL version and the card: ``[train-dp]``, qwen3-0.6b at full size
+     through ``train(..., mesh=make_local_mesh())``, 4 x 2048, 3 steps,
+     its losses equal to ``[train-main]``'s first three within 1e-5
+     relative; ``[allreduce-int8]``, ``allreduce_compressed`` on a tree
+     shaped like its gradients, bitwise its plain form, timed beside a
+     plain all-reduce; ``[moe-ep]`` (in 5c, on moonshot-v1-16b-a3b's
+     prefill while it is on the card), ``moe_block_ep`` on a (1, 1) mesh
+     against ``moe_block`` within 1e-6.  With more than one card each runs
+     again across all of them (``torch.multiprocessing.spawn``, one rank a
+     card; a rank that fails fails the script).
 
   6. the event-horizon leap: a staggered static scenario (512 hosts of
      2 PEs, 256 VMs, 3 waves) leap on and leap off, bitwise equal, with
@@ -167,8 +179,8 @@ selective-scan counts are set to 0 just before each and read just after,
 and the bf16 prefill's dtype must route its flash launches to the
 tensor-core kernel.  The full-width training runs of 5g are the training
 slice's: all four LM kernels' counts are set to 0 just before each run
-and read just after (``launches_by_path`` of the forward kernels holds
-both paths).
+and read just after, and so for the run of ``[train-dp]``
+(``launches_by_path`` of each LM kernel holds its paths).
 The next-to-last line is the kernels' JSON record, the last the
 device's.  Without a CUDA device, or outside a checkout, the script
 fails before printing either.
@@ -207,6 +219,12 @@ MOONSHOT_PARAM_BYTES = 56_128_573_440
 # the scan kernel's design: N/4 lanes a channel, dt/x/B/C staged by cp.async
 SCAN_DESIGN = "lane-split-cp.async"
 PREFILL_LEN = 2048
+DP_STEPS = 3                    # [train-dp]: qwen3-0.6b steps
+# [train-dp] losses against [train-main]'s: at world 1 the work is the
+# same; across cards each rank's bf16 gradients are rounded before the
+# sum, and the bf16 parameters after one update part by ~2e-4 (4 cards)
+DP_LOSS_RTOL = {"one": 1e-5, "cards": 1e-3}
+MOE_EP_TOL = 2e-2               # [moe-ep] across cards: bf16 outputs
 RTOL = ATOL = 1e-6              # tests/test_simstep_parity.py's tolerance
 SIMSTEP_DESIGN = "ragged-packed-warp"
 CL_DONE = 2                     # repro_torch.core.state.CL_DONE
@@ -3338,7 +3356,9 @@ def phase_lm_main(device, card, launched):
     requests on 8 slots (prompt 32, max-new 32, greedy).  The models run
     one at a time, each freed before the next is built; an MoE model
     reports its prefill's ``dropped_frac`` and the device time of one
-    decode step of 8 slots against the bytes of every expert."""
+    decode step of 8 slots against the bytes of every expert.  The MoE
+    model's ``[moe-ep]`` runs on its prefill: at world 1 while its
+    parameters are on the card, across cards after they are freed."""
     import gc
 
     import numpy as np
@@ -3349,6 +3369,7 @@ def phase_lm_main(device, card, launched):
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
 
+    ep_ref = None
     for arch, batch in LM_CELLS:
         cfg = CFG.get_config(arch)
         torch.cuda.empty_cache()
@@ -3409,6 +3430,9 @@ def phase_lm_main(device, card, launched):
               f"{tree_bytes(kvs)} bytes on the device, peak allocated "
               f"{torch.cuda.max_memory_allocated()} bytes; init "
               f"{init_s!r} s{moe} ({card})")
+        if cfg.num_experts:
+            ep_ref = moe_ep_one_rank(params, cfg, tokens, card)
+            ep_ref["logits"] = logits.float().cpu()
         del logits, kvs
         profile_top(lambda: M.prefill(params, cfg, tokens),
                     f"{arch} prefill {batch} x {PREFILL_LEN}", card)
@@ -3452,6 +3476,8 @@ def phase_lm_main(device, card, launched):
         del params, cache, report, tokens
         gc.collect()
         torch.cuda.empty_cache()
+    if ep_ref is not None:
+        phase_moe_ep_cards(ep_ref, card)
 
 
 def phase_lm_prefill_vs_decode(device):
@@ -3769,7 +3795,7 @@ def phase_train_main(device, card, launched):
     non-zero gradient in every parameter leaf (one more loss_and_grads,
     not counted); prints step time, tokens/s, peak memory, the device's
     busy share of one step under the profiler and each backward kernel's
-    share of it."""
+    share of it.  Returns each arch's losses."""
     import dataclasses
     import gc
 
@@ -3787,6 +3813,7 @@ def phase_train_main(device, card, launched):
     from repro_torch.train.step import loss_and_grads
     from repro_torch.tree import tree_flatten
 
+    losses = {}
     for arch, layers, batch, steps in TRAIN_CELLS:
         cfg = CFG.get_config(arch)
         if layers is not None:
@@ -3817,6 +3844,7 @@ def phase_train_main(device, card, launched):
             f"finite: {rep.losses} {rep.grad_norms}")
         check(rep.losses[-1] < rep.losses[0], f"{arch} training: loss "
               f"{rep.losses[0]} -> {rep.losses[-1]} does not fall")
+        losses[arch] = rep.losses
         scfg = config_for(cfg, batch, PREFILL_LEN)
         one = make_batch(scfg, steps, device=device)
         _, _, grads = loss_and_grads(rep.state.params, cfg, one)
@@ -3847,6 +3875,7 @@ def phase_train_main(device, card, launched):
         del rep, one, step_fn
         gc.collect()
         torch.cuda.empty_cache()
+    return losses
 
 
 def phase_train_supervisor(device, card, steps=12):
@@ -3881,6 +3910,312 @@ def phase_train_supervisor(device, card, steps=12):
           f"{sup.steps_run} steps run, losses and final parameters equal "
           f"the uninterrupted run's bit for bit; loss {sup.losses[0]!r} -> "
           f"{sup.losses[-1]!r} ({card})")
+
+
+
+def ranks_line():
+    """World size, backend and NCCL version of this process's group."""
+    import torch
+    import torch.distributed as dist
+    return (f"world {dist.get_world_size()}, backend {dist.get_backend()}, "
+            f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}")
+
+
+def spawn_ranks(fn, world, *args):
+    """``fn(rank, world, tmp, *args)`` in ``world`` spawned processes, one
+    a card; each writes ``rank<r>.pt`` into ``tmp``, which is returned
+    read.  A rank that raises makes ``spawn`` raise, and the script
+    fails."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        mp.spawn(fn, args=(world, tmp, *args), nprocs=world)
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def rank_start(rank, world, tmp):
+    """A spawned rank: NCCL on cuda:rank (file store in ``tmp``), TF32 off
+    as in the parent."""
+    import torch
+    from repro_torch.launch.mesh import init_ranks
+    init_ranks(rank=rank, world_size=world, init_method=f"file://{tmp}/store")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def run_train_dp(device, mesh):
+    """``launch.train.train`` of qwen3-0.6b at full size on ``mesh``
+    (world, 1): DP_STEPS steps of a 4 x 2048 global batch.  All four LM
+    kernels' counts are set to 0 just before and read just after."""
+    from repro_torch import configs as CFG
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_bwd)
+    from repro_torch.launch.train import kernel_launches, train
+
+    for f in (flash_attention, flash_attention_bwd, selective_scan,
+              selective_scan_bwd):
+        f.launches = 0
+    rep = train(CFG.get_config("qwen3-0.6b"), steps=DP_STEPS, batch=4,
+                seq=PREFILL_LEN, device=device, mesh=mesh,
+                log=lambda line: None)
+    return {"losses": rep.losses, "launches": kernel_launches(),
+            "step_ms": [t * 1e3 for t in rep.step_seconds],
+            "state": rep.state}
+
+
+def run_allreduce_int8(mesh, like):
+    """``allreduce_compressed`` over "data" of a random f32 tree shaped
+    like ``like`` (this rank's block, seeded by its rank): against its
+    plain form (each rank's blocks quantized, dequantized, then the mean),
+    bitwise; timed (CUDA events, eager) beside one plain f32 all-reduce of
+    as many bytes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train.compression import (allreduce_compressed,
+                                               dequantize_int8,
+                                               quantize_int8)
+    from repro_torch.tree import tree_flatten, tree_map
+
+    dev = tree_flatten(like)[1][0].device
+    gen = torch.Generator(device=dev).manual_seed(100 + mesh.rank)
+    tree = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                          device=dev), like)
+    got = allreduce_compressed(mesh, "data", tree)
+    _, leaves, _ = tree_flatten(tree)
+    wire = torch.cat([dequantize_int8(*quantize_int8(x), x.shape).reshape(-1)
+                      for x in leaves])
+    group = mesh.group("data")
+    dist.all_reduce(wire, group=group)
+    want = wire / mesh.axis_size("data")
+    check(torch.equal(torch.cat([g.reshape(-1) for g in tree_flatten(
+        got)[1]]), want), "allreduce_compressed differs from its plain form")
+    flat = torch.cat([x.reshape(-1) for x in leaves])
+    del got, wire, want
+    comp_ms = eager_ms(lambda: allreduce_compressed(mesh, "data", tree),
+                       reps=5)
+    plain_ms = eager_ms(lambda: dist.all_reduce(flat, group=group), reps=5)
+    return {"leaves": len(leaves), "bytes": flat.numel() * 4,
+            "ms": comp_ms, "plain_ms": plain_ms}
+
+
+def train_dp_rank(rank, world, tmp):
+    """One spawned rank of ``[train-dp]`` and ``[allreduce-int8]``."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh, shutdown_ranks
+    rank_start(rank, world, tmp)
+    mesh = make_local_mesh()
+    res = run_train_dp("cuda", mesh)
+    res["allreduce"] = run_allreduce_int8(mesh, res.pop("state").params)
+    res["ranks"] = ranks_line()
+    shutdown_ranks()
+    torch.save(res, Path(tmp) / f"rank{rank}.pt")
+
+
+def phase_train_dp(device, card, main_losses, launched):
+    """Phases ``[train-dp]`` and ``[allreduce-int8]``: qwen3-0.6b at full
+    size (28 layers, vocab 151,936), global batch 4 x 2048, DP_STEPS steps
+    through ``train(..., mesh=make_local_mesh())`` on this process's
+    one-rank NCCL group: its losses equal ``[train-main]``'s first three
+    within DP_LOSS_RTOL["one"] (the same schedule through step 2: the
+    warmup);
+    the launches are the shape's and are added to ``launched``.  Then
+    ``allreduce_compressed`` on a tree shaped like its gradients.  With
+    more than one card, both again on every card (``spawn``), each rank's
+    losses within DP_LOSS_RTOL["cards"]."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+
+    from repro_torch import configs as CFG
+    layers = CFG.get_config("qwen3-0.6b").num_layers   # all attention
+    want = {"flash_attention": 2 * layers * DP_STEPS,
+            "flash_attention_bwd": layers * DP_STEPS,
+            "selective_scan": 0, "selective_scan_bwd": 0}
+
+    def agree(res, tag, tol):
+        check(res["launches"] == want, f"[train-dp] {tag} launches "
+              f"{res['launches']}, expected {want}")
+        err = max(abs(a - b) / abs(b) for a, b in zip(
+            res["losses"], main_losses[:DP_STEPS]))
+        check(err <= tol, f"[train-dp] {tag} losses "
+              f"{res['losses']} against [train-main]'s "
+              f"{main_losses[:DP_STEPS]}: {err}")
+        return err
+
+    mesh = make_local_mesh()
+    res = run_train_dp(device, mesh)
+    err = agree(res, "world 1", DP_LOSS_RTOL["one"])
+    for name, n in res["launches"].items():
+        launched[name] += n
+    print(f"[train-dp] qwen3-0.6b bf16, {layers} layers, global batch 4 x "
+          f"{PREFILL_LEN}, {DP_STEPS} steps through train(mesh="
+          f"make_local_mesh()), mesh {mesh.shape}, {ranks_line()}: losses "
+          f"{res['losses']!r}, largest difference from [train-main]'s "
+          f"first {DP_STEPS} {err!r} (relative); step ms "
+          f"{res['step_ms']!r} (host clock, synced); launches "
+          f"{res['launches']} (= the shape's prediction) ({card})")
+    ar = run_allreduce_int8(mesh, res["state"].params)
+    print(f"[allreduce-int8] {ar['leaves']} leaves shaped like qwen3-0.6b's "
+          f"gradients, {ar['bytes']} f32 bytes, over \"data\" of mesh "
+          f"{mesh.shape}, {ranks_line()}: equal to its plain form "
+          f"(quantize, dequantize, mean) bit for bit; {ar['ms']!r} ms a call "
+          f"against {ar['plain_ms']!r} ms for one f32 all-reduce of as many "
+          f"bytes (CUDA events, eager) ({card})")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    if world < 2:
+        print(f"[train-dp] the machine shows {world} card: no run across "
+              f"cards ({card})")
+        return
+    for rank, res in enumerate(spawn_ranks(train_dp_rank, world)):
+        err = agree(res, f"rank {rank} of {world}", DP_LOSS_RTOL["cards"])
+        ar = res["allreduce"]
+        print(f"[train-dp] rank {rank} of {world} ({res['ranks']}): losses "
+              f"{res['losses']!r}, largest difference {err!r}; step ms "
+              f"{res['step_ms']!r}; launches {res['launches']} ({card})")
+        print(f"[allreduce-int8] rank {rank} of {world}: {ar['bytes']} f32 "
+              f"bytes, {ar['ms']!r} ms a call against {ar['plain_ms']!r} ms "
+              f"plain ({card})")
+
+
+def moe_ep_one_rank(params, cfg, tokens, card):
+    """``[moe-ep]`` at world 1: on the final hidden state of the prefill's
+    tokens, the first MoE sub-layer's block through ``moe_block_ep`` on a
+    (1, 1) mesh of this process's one-rank group against ``moe_block``:
+    output and aux within 1e-6 (on one rank the two paths are the same).
+    Returns the hidden state and ``moe_block``'s output and aux, on the
+    host, for the run across cards."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import moe_block, moe_block_ep
+    from repro_torch.models.transformer import block_slice
+    from repro_torch.sharding.rules import ShardingRules, make_constrain
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    constrain = make_constrain(mesh, ShardingRules(), tokens.shape[0])
+    with torch.no_grad():
+        hidden, _, _ = M.forward(params, cfg, tokens)
+        mlp = block_slice(params["blocks"], 0)["sub0"]["mlp"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_ep, aux_ep = moe_block_ep(mlp, cfg, hidden, constrain)
+        torch.cuda.synchronize()
+        ep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y, aux = moe_block(mlp, cfg, hidden)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    err = float((y_ep.float() - y.float()).abs().max())
+    aux_err = max(abs(float(aux_ep[k]) - float(aux[k])) for k in aux)
+    check(err <= 1e-6 and aux_err <= 1e-6, f"[moe-ep] moe_block_ep against "
+          f"moe_block: {err}, aux {aux_err}")
+    print(f"[moe-ep] {cfg.name} bf16 ({cfg.num_experts} experts, top-"
+          f"{cfg.num_experts_per_tok}, d {cfg.d_model}), layer 0's MoE on "
+          f"the prefill's final hidden state {list(hidden.shape)}: "
+          f"moe_block_ep on mesh {mesh.shape} ({ranks_line()}) against "
+          f"moe_block: max |dy| {err!r}, aux max diff {aux_err!r} "
+          f"(dropped_frac {float(aux_ep['dropped_frac'])!r}, load-balance "
+          f"loss {float(aux_ep['load_balance_loss'])!r}); {ep_s * 1e3!r} ms "
+          f"against {plain_s * 1e3!r} ms (host clock, synced, first call) "
+          f"({card})")
+    return {"hidden": hidden.cpu(), "y": y.cpu(),
+            "aux": {k: float(v) for k, v in aux.items()}}
+
+
+def moe_ep_rank(rank, world, tmp, ref):
+    """One spawned rank of ``[moe-ep]`` across cards: moonshot-v1-16b-a3b
+    built from the same seed as ``phase_lm_main``'s, its MoE leaves cut to
+    this rank's blocks of a (1, world) mesh (``param_pspecs``); layer 0's
+    MoE through ``moe_block``'s EP path on the one-card hidden state
+    ``ref["hidden"]``, then the whole prefill through it."""
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.launch.mesh import make_mesh, shutdown_ranks
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.transformer import block_slice
+    from repro_torch.sharding.rules import (ShardingRules, make_constrain,
+                                            param_pspecs, shard_leaf)
+
+    rank_start(rank, world, tmp)
+    cfg = CFG.get_config("moonshot-v1-16b-a3b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen)
+    batch = ref["hidden"].shape[0]
+    tokens = torch.randint(2, cfg.vocab_size, (batch, PREFILL_LEN),
+                           generator=gen, device="cuda")
+    mesh = make_mesh((1, world), ("data", "model"))
+    rules = ShardingRules()
+    for sub, p in params["blocks"].items():
+        if "router" in p.get("mlp", {}):
+            specs = param_pspecs({"blocks": {sub: {"mlp": p["mlp"]}}}, mesh,
+                                 rules)["blocks"][sub]["mlp"]
+            p["mlp"] = {k: shard_leaf(v, specs[k], mesh)
+                        for k, v in p["mlp"].items()}
+    torch.cuda.empty_cache()
+    constrain = make_constrain(mesh, rules, batch)
+    with torch.no_grad():
+        y, aux = moe_block(block_slice(params["blocks"], 0)["sub0"]["mlp"],
+                           cfg, ref["hidden"].cuda(), constrain=constrain)
+    moe_metrics = []
+    logits, _ = M.prefill(params, cfg, tokens, metrics=moe_metrics,
+                          constrain=constrain)
+    torch.save({"y": y.cpu(), "aux": {k: float(v) for k, v in aux.items()},
+                "logits": logits.float().cpu(), "ranks": ranks_line(),
+                "dropped": [float(m["dropped_frac"]) for m in moe_metrics],
+                "bytes": tree_bytes(params)}, Path(tmp) / f"rank{rank}.pt")
+    shutdown_ranks()
+
+
+def phase_moe_ep_cards(ref, card):
+    """``[moe-ep]`` across cards (more than one): on a (1, m) mesh of
+    every card, layer 0's MoE on the one-card hidden state against
+    ``moe_block`` on one card: the same pairs dropped (``dropped_frac``
+    and the load-balance loss equal: routing is the same f32 work), the
+    output within MOE_EP_TOL of max |ref| (bf16: the model axis's psum
+    adds the experts' shares in another order).  Then the whole prefill
+    through the EP path: finite logits, printed against one card's (over
+    48 layers a near-tie routes differently and changes which pairs
+    drop)."""
+    import torch
+    world = torch.cuda.device_count()
+    if world < 2:
+        print(f"[moe-ep] the machine shows {world} card: no run across "
+              f"cards ({card})")
+        return
+    want = ref["y"].float()
+    ref_logits = ref["logits"]
+    for rank, res in enumerate(spawn_ranks(moe_ep_rank, world, ref)):
+        err = float((res["y"].float() - want).abs().max()
+                    / want.abs().max())
+        check(err <= MOE_EP_TOL and res["aux"] == ref["aux"],
+              f"[moe-ep] rank {rank} of {world}: layer 0 error {err}, aux "
+              f"{res['aux']} against {ref['aux']}")
+        got = res["logits"]
+        check(got.shape == ref_logits.shape and bool(
+            torch.isfinite(got).all()), f"[moe-ep] rank {rank} of {world}: "
+            f"logits {tuple(got.shape)} not finite")
+        top = int((got.argmax(-1) == ref_logits.argmax(-1)).sum())
+        lerr = float((got - ref_logits).abs().max()
+                     / ref_logits.abs().max())
+        print(f"[moe-ep] moonshot-v1-16b-a3b on a (1, {world}) mesh, rank "
+              f"{rank} ({res['ranks']}, {res['bytes']} parameter bytes on "
+              f"its card): layer 0's MoE error {err!r} of max |ref|, aux "
+              f"equal ({res['aux']}); prefill {tuple(ref['hidden'].shape[:2])}"
+              f" top-1 equal on {top} of {got.shape[0]} rows, logits error "
+              f"{lerr!r} of max |ref|, dropped_frac mean "
+              f"{statistics.fmean(res['dropped'])!r} ({card})")
 
 
 def main():
@@ -3965,6 +4300,9 @@ def main():
     # the LM slice compares f32 results: no TF32 in products or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # this process is a one-rank NCCL group for [moe-ep] and [train-dp]
+    from repro_torch.launch.mesh import init_ranks, shutdown_ranks
+    init_ranks()
     lm_records = phase_lm_kernels(device)
     phase_lm_agreement(device)
     launched = {r["name"]: 0 for r in lm_records}
@@ -3981,16 +4319,28 @@ def main():
     phase_train_small(device)
     from repro_torch.launch.train import kernel_launches
     trained = dict.fromkeys(kernel_launches(), 0)
-    phase_train_main(device, card, trained)
+    main_losses = phase_train_main(device, card, trained)
     phase_train_supervisor(device, card)
+    # the multi-rank slice: [train-dp] (counts set to 0 just before the run
+    # on this process's group, read just after) and [allreduce-int8]
+    dp = dict.fromkeys(trained, 0)
+    phase_train_dp(device, card, main_losses["qwen3-0.6b"], dp)
+    shutdown_ranks()
     for r in lm_records:
         r["launches_by_path"] = {"prefill": r["launches"],
-                                 "train": trained[r["name"]]}
-        r["launches"] += trained[r["name"]]
+                                 "train": trained[r["name"]],
+                                 "train-dp": dp[r["name"]]}
+        r["launches"] += trained[r["name"]] + dp[r["name"]]
+    check(dp["flash_attention"] > 0, "flash_attention never launched on the "
+          "train-dp path")
     for r in train_records:
-        r["launches"] = trained[r["name"]]
+        r["launches_by_path"] = {"train": trained[r["name"]],
+                                 "train-dp": dp[r["name"]]}
+        r["launches"] = trained[r["name"]] + dp[r["name"]]
         check(r["launches"] > 0, f"{r['name']} never launched on the "
               f"training path")
+    check(dp["flash_attention_bwd"] > 0, "flash_attention_bwd never launched "
+          "on the train-dp path")
 
     print(json.dumps({"kernels": [record, *lm_records, *train_records]}))
     print(json.dumps({"ok": True, "device": {

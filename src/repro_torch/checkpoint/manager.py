@@ -1,6 +1,6 @@
 """Fault-tolerant checkpointing: atomic, chunked, async.
 
-Port of ``repro.checkpoint.manager`` for one device.  Layout:
+Port of ``repro.checkpoint.manager``.  Layout:
 
     <dir>/step_<N>/
         manifest.json      leaf paths, dtypes, shapes, extra metadata
@@ -13,8 +13,16 @@ snapshots every leaf to host memory before it returns, then writes on a
 daemon thread.  NumPy has no bfloat16: a bf16 leaf is stored as its
 uint16 bits with ``"bfloat16"`` in the manifest, and restored bit for
 bit.  ``restore`` puts each leaf on the device (and in the dtype) of the
-matching leaf of ``like``.  JAX's ``mesh``/``specs`` (an elastic restore
-onto a new sharding) have no one-card counterpart.
+matching leaf of ``like``.
+
+Across ranks (a started ``torch.distributed`` group of more than one):
+``save`` writes from rank 0 only, of a tree that rank 0 holds whole (the
+parameters and optimizer state of data parallelism), and every rank
+waits at a barrier until the step is on disk; such a save is always
+blocking.  ``restore`` with ``mesh`` and ``specs`` gives each rank its
+block of each leaf (``sharding.rules.shard_leaf``), as JAX's elastic
+restore puts each leaf on a new sharding: a checkpoint taken at one
+world size restores at any other.
 """
 from __future__ import annotations
 
@@ -27,8 +35,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import tree_flatten
+from repro_torch.sharding.rules import shard_leaf
+from repro_torch.tree import tree_flatten, tree_leaves
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager"]
 
@@ -44,9 +54,26 @@ def _host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _rank_world() -> tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def save(directory: str, step: int, tree, *, blocking: bool = True,
          extra_meta: Optional[dict] = None) -> threading.Thread | None:
-    """Write ``tree`` at ``<directory>/step_<step>`` (atomic rename)."""
+    """Write ``tree`` at ``<directory>/step_<step>`` (atomic rename); across
+    ranks, from rank 0, blocking, then a barrier."""
+    rank, world = _rank_world()
+    if world > 1:
+        if rank == 0:
+            _save(directory, step, tree, True, extra_meta)
+        dist.barrier()
+        return None
+    return _save(directory, step, tree, blocking, extra_meta)
+
+
+def _save(directory, step, tree, blocking, extra_meta):
     os.makedirs(directory, exist_ok=True)
     paths, leaves, _ = tree_flatten(tree)
     # snapshot to host BEFORE going async: the caller may go on and change
@@ -113,19 +140,25 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _leaf(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
+def _leaf(arr: np.ndarray, dtype: str, like, spec=None,
+          mesh=None) -> torch.Tensor:
     if dtype == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
+    if spec is not None:
+        t = shard_leaf(t, spec, mesh)
     if isinstance(like, torch.Tensor):
         t = t.to(device=like.device, dtype=like.dtype)
     return t
 
 
-def restore(directory: str, step: int, like):
+def restore(directory: str, step: int, like, *, mesh=None, specs=None):
     """Load ``step`` into the structure of ``like`` (a tree of tensors):
-    each leaf on the device and in the dtype of ``like``'s."""
+    each leaf on the device and in the dtype of ``like``'s.  With
+    ``mesh`` and ``specs`` (a tree of ``PartitionSpec`` like ``like``),
+    each leaf is this rank's block under its spec: an elastic restore
+    onto a new mesh."""
     folder = os.path.join(directory, f"step_{step}")
     with open(os.path.join(folder, "manifest.json")) as f:
         manifest = json.load(f)
@@ -139,8 +172,16 @@ def restore(directory: str, step: int, like):
                 data[leaf["path"]] = (z[leaf["key"]], leaf["dtype"])
 
     paths, like_leaves, unflatten = tree_flatten(like)
-    return unflatten([_leaf(*data[p], ref)
-                      for p, ref in zip(paths, like_leaves)])
+    if mesh is None or specs is None:
+        return unflatten([_leaf(*data[p], ref)
+                          for p, ref in zip(paths, like_leaves)])
+    spec_leaves = tree_leaves(specs)
+    if len(spec_leaves) != len(like_leaves):
+        raise ValueError(f"{len(spec_leaves)} specs for "
+                         f"{len(like_leaves)} leaves")
+    return unflatten([
+        _leaf(*data[p], ref, s, mesh)
+        for p, ref, s in zip(paths, like_leaves, spec_leaves)])
 
 
 @dataclasses.dataclass
@@ -165,13 +206,16 @@ class CheckpointManager:
             t.join()
         self._pending.clear()
 
-    def restore_latest(self, like):
+    def restore_latest(self, like, *, mesh=None, specs=None):
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return step, restore(self.directory, step, like)
+        return step, restore(self.directory, step, like, mesh=mesh,
+                             specs=specs)
 
     def _gc(self):
+        if _rank_world()[0] != 0:
+            return
         steps = sorted(s for s in (
             int(n.split("_", 1)[1]) for n in os.listdir(self.directory)
             if n.startswith("step_") and not n.endswith(".tmp")))

@@ -9,7 +9,9 @@ few training steps show a falling loss.  The draws come from a
 ``torch.Generator`` on the CPU seeded by (seed, step), not from
 ``jax.random``: the structure is JAX's, the numbers are not (tests that
 compare with JAX feed JAX's batches in).  The batch is then moved to the
-caller's device, so the card and the CPU see the same tokens.
+caller's device, so the card and the CPU see the same tokens.  Across
+ranks every rank makes the global batch and ``shard_batch`` keeps its
+rows, so a run's batches are the same at any world size.
 
 Arrival times: pure NumPy on a caller's ``np.random.Generator``: the same
 generator state gives the same times as the JAX package's copies.  The
@@ -23,9 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.rules import P, batch_pspec, shard_leaf
 
 __all__ = ["SyntheticConfig", "make_batch", "batch_iterator", "config_for",
-           "thinned_arrivals", "mmpp_segments"]
+           "shard_batch", "thinned_arrivals", "mmpp_segments"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +82,25 @@ def make_batch(scfg: SyntheticConfig, step: int, *, seed: int = 0,
             (scfg.batch, scfg.vision_tokens, scfg.d_model), generator=gen,
             dtype=torch.float32)
     return {k: v.contiguous().to(dev) for k, v in batch.items()}
+
+
+def shard_batch(batch: dict, mesh, rules, microbatches: int = 1) -> dict:
+    """This rank's rows of a global batch.  JAX's step cuts the global
+    batch into ``microbatches`` runs of B/n rows; each run's rows are
+    split over the batch axes by ``batch_pspec`` (at B/n rows), and the
+    rank's rows of every run are kept, runs in order, so the step's own
+    cut of the result gives the rank's rows of each microbatch."""
+    out = {}
+    for key, x in batch.items():
+        b = x.shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} not divisible by microbatches "
+                             f"{microbatches}")
+        spec = batch_pspec(mesh, rules, x.ndim, b // microbatches)
+        runs = x.reshape(microbatches, b // microbatches, *x.shape[1:])
+        mine = shard_leaf(runs, P(None, *spec), mesh)
+        out[key] = mine.reshape(-1, *x.shape[1:])
+    return out
 
 
 def batch_iterator(scfg: SyntheticConfig, *, start_step: int = 0,

@@ -8,6 +8,12 @@ latest complete checkpoint, and resumes.  Because checkpoints are atomic
 and the data pipeline is a pure function of the step counter
 (``data/synthetic.py``), a restart lands on a consistent state and the
 trajectory is exactly the one an uninterrupted run takes.
+
+Across ranks each rank runs its own supervisor with the same injector
+steps, so a failure strikes every rank at the same step; checkpoints are
+written by rank 0 behind a barrier (``checkpoint.manager.save``), so all
+ranks roll back to the same latest step, and the run equals the
+uninterrupted one bit for bit.
 """
 from __future__ import annotations
 

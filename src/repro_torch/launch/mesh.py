@@ -1,0 +1,281 @@
+"""Meshes of ranks: the port's counterpart of JAX's device meshes
+(``repro.launch.mesh`` and ``repro.compat``'s ``make_mesh``/
+``abstract_mesh``).
+
+A ``Mesh`` names its axes and their sizes, as a JAX mesh does
+(``mesh.shape[name]``, ``mesh.axis_names``), and places this process at
+one coordinate on each.  Ranks are laid out row-major over the axes, as
+``jax.make_mesh`` lays out devices, so the ranks that share every
+coordinate but those of some axes form those axes' group.
+
+- An abstract mesh (``abstract_mesh``, ``make_production_mesh``) has no
+  process group.  ``sharding.rules`` reads it to work out specs, and
+  ``sharding.rules.shard_leaf`` reads this process's coordinates from it.
+- A live mesh (``make_mesh``, ``make_local_mesh``) also holds one
+  ``torch.distributed`` process group for every non-empty set of its
+  axes, built at once on every rank.  It runs the collectives that JAX
+  names by axis (``psum``, ``all_gather``), with gradients.
+
+The gradients follow one convention: every rank holds the same global
+loss and differentiates it through the part of the graph it holds.
+``psum`` sums in the forward and passes the gradient through (its
+output feeds that common loss); ``fan_out`` is the identity in the
+forward and sums the gradient over the axes (its input is replicated
+over them, its consumers hold different parts); ``all_gather`` gives a
+block's gradient back to the rank that owns it.  Gradients of leaves a
+rank holds whole are then this rank's share, summed over the batch axes
+by the train step.
+
+``init_ranks`` starts the process group: NCCL on ``cuda:LOCAL_RANK`` by
+default, gloo when ``device="cpu"``.  Under ``torchrun`` it reads
+``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``; with none set the process is
+a world of one.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+from repro_torch.sharding.rules import ShardingRules
+
+__all__ = ["Mesh", "abstract_mesh", "make_mesh", "make_local_mesh",
+           "make_production_mesh", "rules_for_mesh", "init_ranks",
+           "shutdown_ranks"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """Named axes over ranks; ``rank`` is this process's place on them.
+    ``groups`` maps each non-empty tuple of axes (in mesh order) to the
+    process group of this rank's ranks along them (empty: abstract)."""
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+    rank: int = 0
+    groups: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"{self.axis_names} against {self.axis_sizes}")
+        if not 0 <= self.rank < self.size:
+            raise ValueError(f"rank {self.rank} outside a mesh of "
+                             f"{self.size}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    @property
+    def coords(self) -> dict[str, int]:
+        """This rank's coordinate on each axis (row-major layout)."""
+        out, rest = {}, self.rank
+        for name, n in reversed(tuple(zip(self.axis_names,
+                                          self.axis_sizes))):
+            out[name] = rest % n
+            rest //= n
+        return {name: out[name] for name in self.axis_names}
+
+    def _axes(self, axes) -> tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        where = [self.axis_names.index(a) for a in axes]
+        if where != sorted(set(where)):
+            raise ValueError(f"axes {axes} are not distinct axes of "
+                             f"{self.axis_names} in the mesh's order")
+        return axes
+
+    def axis_size(self, axes) -> int:
+        """The number of blocks along ``axes`` (a name or a tuple)."""
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def axis_index(self, axes) -> int:
+        """This rank's block along ``axes``, row-major over them: its
+        place in the axes' group and in an ``all_gather`` over it."""
+        idx, coords = 0, self.coords
+        for a in self._axes(axes):
+            idx = idx * self.shape[a] + coords[a]
+        return idx
+
+    def group(self, axes):
+        axes = self._axes(axes)
+        if not self.groups:
+            raise RuntimeError("an abstract mesh has no process groups; "
+                               "build a live one with make_mesh")
+        return self.groups[axes]
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Sum over the ranks of ``axes`` (JAX's ``lax.psum``); the
+        gradient passes through."""
+        return _Psum.apply(x, self.group(axes))
+
+    def fan_out(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``x``, replicated over ``axes``, as the input of computations
+        that differ along them: its gradient is summed over ``axes``."""
+        return _FanOut.apply(x, self.group(axes))
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """The blocks of ``axes`` concatenated along ``dim`` in block
+        order (JAX's tiled ``lax.all_gather``); the gradient's own block
+        comes back."""
+        return _AllGather.apply(x, self.group(axes), dim,
+                                self.axis_size(axes), self.axis_index(axes))
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FanOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, n, index):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        ctx.dim, ctx.index, ctx.block = dim, index, x.shape[dim]
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block),
+                None, None, None, None)
+
+
+def abstract_mesh(axis_sizes, axis_names, rank: int = 0) -> Mesh:
+    """A mesh without process groups (``repro.compat.abstract_mesh``),
+    seen from ``rank``."""
+    return Mesh(tuple(axis_names), tuple(int(n) for n in axis_sizes), rank)
+
+
+def make_mesh(axis_sizes, axis_names) -> Mesh:
+    """A live mesh over the ranks of the started process group (see
+    ``init_ranks``): one group for every non-empty tuple of axes, made
+    in the same order on every rank, as ``new_group`` needs."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call init_ranks first")
+    mesh = abstract_mesh(axis_sizes, axis_names, dist.get_rank())
+    if mesh.size != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size} ranks in a world of "
+                         f"{dist.get_world_size()}")
+    ranks = list(range(mesh.size))
+    everyone = [abstract_mesh(axis_sizes, axis_names, r).coords
+                for r in ranks]
+    for n_axes in range(1, len(mesh.axis_names) + 1):
+        for axes in itertools.combinations(mesh.axis_names, n_axes):
+            if len(axes) == len(mesh.axis_names):
+                mesh.groups[axes] = dist.group.WORLD
+                continue
+            rest = [a for a in mesh.axis_names if a not in axes]
+            parts: dict[tuple, list] = {}
+            for r, c in zip(ranks, everyone):
+                parts.setdefault(tuple(c[a] for a in rest), []).append(r)
+            for members in parts.values():
+                g = dist.new_group(members)
+                if mesh.rank in members:
+                    mesh.groups[axes] = g
+    return mesh
+
+
+def make_local_mesh() -> Mesh:
+    """Every rank on ("data", "model") = (world, 1), as JAX's over all
+    local devices."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call init_ranks first")
+    return make_mesh((dist.get_world_size(), 1), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The TPU pods' (16, 16) ("data", "model") grid, or (2, 16, 16) with
+    a leading "pod" axis: abstract, for working out specs."""
+    if multi_pod:
+        return abstract_mesh((2, 16, 16), ("pod", "data", "model"))
+    return abstract_mesh((16, 16), ("data", "model"))
+
+
+def rules_for_mesh(mesh: Mesh, *, sp: bool = False, fsdp: bool = True,
+                   kv_seq: tuple[str, ...] = ()) -> ShardingRules:
+    batch = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    # FSDP stays inside a pod (over "data"): cross-pod traffic is then only
+    # the gradient all-reduce
+    return ShardingRules(batch=batch, model="model", sp=sp,
+                         fsdp=("data",) if fsdp else (), kv_seq=kv_seq)
+
+
+def init_ranks(device=None, *, rank: Optional[int] = None,
+               world_size: Optional[int] = None,
+               init_method: Optional[str] = None) -> torch.device:
+    """Start this process's process group and return its device.
+
+    ``device`` None (or "cuda") is the card ``cuda:LOCAL_RANK`` with
+    NCCL, and raises without one; "cpu" is gloo.  Without ``rank``, the
+    rank, world size and local rank come from ``torchrun``'s variables
+    (``init_method`` "env://"), or the process is a world of one with an
+    in-process store.  Processes started otherwise (``spawn``) pass
+    ``rank``, ``world_size`` and an ``init_method``; their local rank is
+    their rank."""
+    if rank is None:
+        env = os.environ
+        if "RANK" in env:
+            rank, world_size = int(env["RANK"]), int(env["WORLD_SIZE"])
+            local = int(env.get("LOCAL_RANK", rank))
+            init_method = init_method or "env://"
+        else:
+            rank, world_size, local = 0, 1, 0
+    else:
+        local = rank
+        if world_size is None or init_method is None:
+            raise ValueError("a given rank needs world_size and "
+                             "init_method")
+    if device is not None and str(device) not in ("cuda", "cpu"):
+        raise ValueError(f"device {device!r}: ranks run on 'cuda' (NCCL) "
+                         f"or 'cpu' (gloo)")
+    dev = resolve_device(device)
+    kw = {}
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        backend, kw["device_id"] = "nccl", dev
+    else:
+        backend = "gloo"
+    if init_method is None:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+    else:
+        dist.init_process_group(backend, init_method=init_method,
+                                rank=rank, world_size=world_size, **kw)
+    return dev
+
+
+def shutdown_ranks():
+    """Destroy the process group ``init_ranks`` started, if any."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -3,15 +3,21 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
         --smoke --steps 300 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
         --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-0.6b --batch 8 --seq 2048
 
-Port of ``repro.launch.train`` for one device (no mesh, no sharding
-rules): the synthetic data pipeline, the train step, and with
-``--ckpt-dir`` the supervisor with its checkpoint manager and optional
-failure injection (``--fail-at``) to show a supervised restart.  Prints
-the JAX driver's ``[train]`` lines, and the launches of the attention and
-scan kernels, forward and backward.  ``--smoke`` selects the reduced
-config; without it the full assigned config is used.  Runs on the CUDA
-device unless ``--device cpu`` is given.
+Port of ``repro.launch.train``: on every rank it builds the local mesh,
+(world, 1) over ("data", "model"), with ``rules_for_mesh(mesh,
+fsdp=False)`` and ``make_constrain``, so each rank trains on its rows of
+every global batch (data parallelism; one rank when run plainly).  Then
+the synthetic data pipeline, the train step, and with ``--ckpt-dir`` the
+supervisor with its checkpoint manager and optional failure injection
+(``--fail-at``) to show a supervised restart.  Rank 0 prints JAX's
+``[train]`` lines and the launches of the attention and scan
+kernels, forward and backward, and writes the checkpoints.  ``--smoke``
+selects the reduced config; without it the full assigned config is
+used.  Runs on the CUDA device ``LOCAL_RANK`` with NCCL unless
+``--device cpu`` (gloo) is given.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ class TrainReport:
     grad_norms: list              # each step's grad_norm (plain loop only)
     steps_run: int
     restarts: int
-    launches: dict                # kernel launches during the run
+    launches: dict                # this rank's kernel launches in the run
     state: object                 # the final TrainState
 
 
@@ -52,16 +58,21 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
           fail_at=(), log_every: int = 10, device=None,
           params: Optional[dict] = None,
           batch_fn: Optional[Callable[[int], dict]] = None,
-          log: Callable[[str], None] = print) -> TrainReport:
+          log: Callable[[str], None] = print, mesh=None) -> TrainReport:
     """Train ``cfg`` for ``steps`` steps with the JAX driver's optimizer
     settings (``lr`` peak, warmup max(steps // 20, 2), cosine to
     ``steps``).  ``params`` (default: ``init_params`` seeded 0) and
-    ``batch_fn(step) -> batch`` (default: the synthetic batches) let a
-    caller feed in its own."""
+    ``batch_fn(step) -> global batch`` (default: the synthetic batches)
+    let a caller feed in its own.  ``mesh`` (a live ``launch.mesh`` mesh,
+    model axis 1) makes this rank's part of a data-parallel run: its rows
+    of each batch, the global loss; only rank 0 logs."""
     import torch
 
-    from repro_torch.data.synthetic import config_for, make_batch
+    from repro_torch.data.synthetic import config_for, make_batch, \
+        shard_batch
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import rules_for_mesh
+    from repro_torch.sharding.rules import make_constrain
     from repro_torch.train import (AdamWConfig, TrainConfig,
                                    init_train_state, make_train_step)
 
@@ -73,12 +84,22 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     if batch_fn is None:
         scfg = config_for(cfg, batch, seq)
         batch_fn = lambda s: make_batch(scfg, s, device=dev)  # noqa: E731
+    constrain, world = None, 1
+    if mesh is not None:
+        rules = rules_for_mesh(mesh, fsdp=False)
+        constrain = make_constrain(mesh, rules, batch // microbatches)
+        world = mesh.size
+        global_fn = batch_fn
+        batch_fn = lambda s: shard_batch(  # noqa: E731
+            global_fn(s), mesh, rules, microbatches)
+        if mesh.rank != 0:
+            log = lambda line: None  # noqa: E731
     log(f"[train] arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
-        f"devices=1 ({dev}) steps={steps}")
+        f"devices={world} ({dev}) steps={steps}")
     gen = (torch.Generator(device=dev).manual_seed(0) if params is None
            else None)
     state = init_train_state(cfg, tcfg, gen, device=dev, params=params)
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, constrain=constrain)
     before = kernel_launches()
 
     if ckpt_dir:
@@ -142,17 +163,25 @@ def main(argv=None) -> TrainReport:
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA device)")
+                    help="'cpu' (gloo) or the CUDA device LOCAL_RANK "
+                         "(NCCL, the default)")
     args = ap.parse_args(argv)
 
     from repro_torch import configs as CFG
+    from repro_torch.launch.mesh import (init_ranks, make_local_mesh,
+                                         shutdown_ranks)
     cfg = CFG.get_smoke_config(args.arch) if args.smoke \
         else CFG.get_config(args.arch)
-    return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                 lr=args.lr, microbatches=args.microbatches,
-                 remat=args.remat, ckpt_dir=args.ckpt_dir,
-                 ckpt_every=args.ckpt_every, fail_at=args.fail_at,
-                 log_every=args.log_every, device=args.device)
+    dev = init_ranks(args.device)
+    try:
+        return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                     lr=args.lr, microbatches=args.microbatches,
+                     remat=args.remat, ckpt_dir=args.ckpt_dir,
+                     ckpt_every=args.ckpt_every, fail_at=args.fail_at,
+                     log_every=args.log_every, device=dev.type,
+                     mesh=make_local_mesh())
+    finally:
+        shutdown_ranks()
 
 
 if __name__ == "__main__":

@@ -8,8 +8,12 @@ autograd: on CUDA tensors the attention and Mamba sub-layers' gradients
 come from the hand-written backward kernels (``kernels.flash_attention``,
 ``kernels.selective_scan``), on CPU tensors from their plain versions.
 Parameters are a nested dict of tensors with the JAX package's keys and
-layouts.  Entry points run where the parameters live: ``init_params``
-puts them on the CUDA device unless the caller passes ``device="cpu"``.
+layouts.  ``constrain`` (``sharding.rules.make_constrain`` on a live
+mesh) makes a call one rank's part of a run across ranks: its tokens are
+the rank's rows, MoE routes as JAX's program does over the whole batch,
+and ``loss_fn`` returns the global loss.  Entry points run where the
+parameters live: ``init_params`` puts them on the CUDA device unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -95,45 +99,56 @@ def compute_logits(params, cfg: ModelConfig, hidden: torch.Tensor
 
 def forward(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
             remat: str = "none", collect_kv: bool = False,
-            metrics: list | None = None):
+            metrics: list | None = None, constrain=None):
     """Returns (hidden [B,Stot,D], kv stacks | (), moe_aux): ``moe_aux``
     is the f32 load-balance loss summed over the MoE sub-layers (0
     without MoE).  ``metrics``, if given, collects every MoE sub-layer's
     ``{"load_balance_loss", "dropped_frac"}`` in order.  ``remat`` as in
     ``transformer.apply_blocks``; it defaults to "none" here (JAX's
     ``forward`` defaults to "nothing"), so a call keeps its launches, and
-    ``loss_fn`` defaults to "nothing" as JAX's does."""
+    ``loss_fn`` defaults to "nothing" as JAX's does.  ``constrain`` goes
+    to every MoE sub-layer."""
     x = embed_tokens(params, cfg, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, kvs, aux, moe = tfm.apply_blocks(params["blocks"], cfg, x, positions,
-                                        remat=remat, collect_kv=collect_kv)
+                                        remat=remat, collect_kv=collect_kv,
+                                        constrain=constrain)
     if metrics is not None:
         metrics.extend(moe)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, kvs, aux
 
 
-def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor):
-    """Mean masked cross-entropy in f32; logits [..., V], targets [...]."""
+def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+          constrain=None):
+    """Mean masked cross-entropy in f32; logits [..., V], targets [...].
+    With ``constrain``'s batch axes, the mean over every rank's rows: the
+    sums of nll and mask are summed over the ranks before the divide."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
     nll = (lse - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    if constrain is None or not constrain.batch_axes:
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    sums = constrain.mesh.psum(torch.stack([nll.sum(), mask.sum()]),
+                               constrain.batch_axes)
+    return sums[0] / torch.clamp(sums[1], min=1.0)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *,
-            remat: str = "nothing"):
+            remat: str = "nothing", constrain=None):
     """batch: tokens [B,S]/[B,S,CB], targets (same shape), optional
     vision_embeds [B,P,D], optional loss_mask.  Returns (loss, metrics):
-    ``{"xent", "moe_aux", "perplexity"}``, f32 scalars.
+    ``{"xent", "moe_aux", "perplexity"}``, f32 scalars.  With
+    ``constrain``, the batch is this rank's rows and the loss is the
+    global one, the same on every rank.
 
-    JAX's ``constrain`` and ``unroll`` (sharding and XLA knobs) have no
-    one-card meaning and are not taken."""
+    JAX's ``unroll`` (an XLA scan knob) has no meaning here and is not
+    taken."""
     tokens = batch["tokens"]
     vision = batch.get("vision_embeds")
     hidden, _, aux = forward(params, cfg, tokens, vision_embeds=vision,
-                             remat=remat)
+                             remat=remat, constrain=constrain)
     if cfg.vision_tokens and vision is not None:
         hidden = hidden[:, vision.shape[1]:]
     logits = compute_logits(params, cfg, hidden)
@@ -142,7 +157,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *,
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
-    xent = _xent(logits, targets, mask.float())
+    xent = _xent(logits, targets, mask.float(), constrain)
     loss = xent + MOE_AUX_COEF * aux
     return loss, {"xent": xent, "moe_aux": aux,
                   "perplexity": torch.exp(xent)}
@@ -156,15 +171,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
-            metrics: list | None = None):
+            metrics: list | None = None, constrain=None):
     """Full forward collecting KV; returns (last-token logits, kv stacks).
 
     kv stacks: tuple per attn sub-layer of (k, v) [num_blocks, B, S, K, hd].
-    ``metrics`` as in ``forward``.
+    ``metrics`` and ``constrain`` as in ``forward``.
     """
     hidden, kvs, _ = forward(params, cfg, tokens,
                              vision_embeds=vision_embeds, collect_kv=True,
-                             metrics=metrics)
+                             metrics=metrics, constrain=constrain)
     return compute_logits(params, cfg, hidden[:, -1:]), kvs
 
 

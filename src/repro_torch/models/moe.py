@@ -17,8 +17,21 @@ Two choices keep the port deterministic and equal to JAX:
   scatter meets them.
 
 Dropped pairs (capacity overflow) contribute zero; the token's other
-top-k weights still apply, as in GShard/Switch.  JAX's expert-parallel
-``moe_block_ep`` needs a device mesh and has no counterpart on one card.
+top-k weights still apply, as in GShard/Switch.
+
+Across ranks (``constrain`` from ``sharding.rules.make_constrain`` on a
+live mesh), a rank holds its rows of the batch:
+- with a model axis of 1 (data parallelism), ``moe_block`` routes the
+  global batch, as JAX's program does under GSPMD: capacity from the
+  global token count, and a pair's place in its expert's queue counts
+  the earlier pairs to that expert on every rank (the ranks' counts are
+  all-gathered once a layer; rank r holds the rows before rank r+1's);
+- with a model axis larger than 1 that divides the experts,
+  ``moe_block_ep`` runs JAX's ``shard_map`` expert parallelism.
+
+In both, the load-balance terms ``me`` and ``ce`` are averaged over the
+batch axes before their product, and ``dropped_frac`` counts every
+rank's pairs.
 """
 from __future__ import annotations
 
@@ -28,7 +41,8 @@ from repro_torch.core.segments import segment_rank
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu
 
-__all__ = ["init_moe", "moe_block", "moe_capacity", "top_k"]
+__all__ = ["init_moe", "moe_block", "moe_block_ep", "moe_capacity",
+           "top_k"]
 
 
 def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -59,62 +73,181 @@ def top_k(probs: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
-              capacity: int | None = None
-              ) -> tuple[torch.Tensor, dict]:
-    """x [B,S,D] -> ([B,S,D], {"load_balance_loss", "dropped_frac"})."""
-    b, s, d = x.shape
-    t = b * s
-    k, e = cfg.num_experts_per_tok, cfg.num_experts
-    cap = capacity or moe_capacity(cfg, t)
-    xf = x.reshape(t, d)
+def _route(xf: torch.Tensor, router: torch.Tensor, k: int):
+    """(probs [T,E], normalised top-k weights [T,k], experts [T,k]), in
+    f32 for numerics."""
+    probs = torch.softmax(xf.float() @ router, dim=-1)
+    w, idx = top_k(probs, k)
+    return probs, w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
 
-    # --- routing (f32 for numerics) ---------------------------------------
-    logits = xf.float() @ params["router"]                     # [T, E]
-    probs = torch.softmax(logits, dim=-1)
-    w, idx = top_k(probs, k)                                   # [T, k]
-    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
 
-    # --- sort-based dispatch ----------------------------------------------
-    e_flat = idx.reshape(-1).to(torch.int32)                   # [T*k]
-    order = torch.argsort(e_flat, stable=True)
-    e_sorted = e_flat[order]
+def _slots(e_key: torch.Tensor, n: int, cap: int,
+           offset: torch.Tensor | None = None):
+    """The stable sort of pairs by expert (``e_key``; ``n`` and above are
+    no expert of this rank) and each pair's dispatch slot: its rank in
+    its expert's run, kept below ``cap`` once the run's ``offset`` earlier
+    pairs (on lower ranks) are counted; dropped pairs go to row n*cap.
+    Returns (order, keep, slot)."""
+    order = torch.argsort(e_key, stable=True)
+    e_sorted = e_key[order]
     pos = segment_rank(e_sorted)
-    keep = pos < cap
-    slot = torch.where(keep, e_sorted * cap + pos, e * cap).long()
-    token_of = order // k
+    queued = pos if offset is None else pos + offset[e_sorted]
+    keep = (e_sorted < n) & (queued < cap)
+    slot = torch.where(keep, e_sorted * cap + pos, n * cap).long()
+    return order, keep, slot
 
+
+def _experts(xf, order, slot, k: int, n: int, cap: int, gate, up, down):
+    """Dispatch the kept pairs' tokens into [n, cap, D], run the batched
+    expert SwiGLU, and return its output rows [n*cap + 1, D] (the last
+    row zero, for the dropped pairs)."""
+    d = xf.shape[1]
     # kept pairs write distinct rows; the dropped ones all land on the
     # overflow row, which no expert reads
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = xf[token_of]
-    expert_in = buf[:e * cap].reshape(e, cap, d)
+    buf = torch.zeros((n * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf[slot] = xf[order // k]
+    expert_in = buf[:n * cap].reshape(n, cap, d)
+    g = torch.bmm(expert_in, gate)
+    u = torch.bmm(expert_in, up)
+    out = torch.bmm(swiglu(g, u), down).reshape(n * cap, d)
+    return torch.cat([out, torch.zeros((1, d), dtype=out.dtype,
+                                       device=out.device)])
 
-    # --- batched expert SwiGLU --------------------------------------------
-    g = torch.bmm(expert_in, params["gate"])
-    u = torch.bmm(expert_in, params["up"])
-    expert_out = torch.bmm(swiglu(g, u), params["down"])
 
-    # --- combine: each token's k outputs, summed in expert order ----------
-    flat_out = torch.cat([expert_out.reshape(e * cap, d),
-                          torch.zeros((1, d), dtype=x.dtype,
-                                      device=x.device)])
+def _combine(flat_out, order, keep, slot, w, t: int, k: int):
+    """Each token's k weighted outputs, summed in ascending expert order
+    (a gather, not a scatter-add)."""
     # sorted position of pair p (token p // k, choice p % k); the stable
     # sort puts a token's pairs in ascending expert order
     inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.shape[0], device=x.device)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
     at = torch.sort(inv.reshape(t, k), dim=-1).values          # [T, k]
     contrib = flat_out[slot[at]] * torch.where(
-        keep[at], w.reshape(-1)[order[at]].to(x.dtype), 0.0)[..., None]
+        keep[at], w.reshape(-1)[order[at]].to(flat_out.dtype),
+        0.0)[..., None]
     y = contrib[:, 0]
     for j in range(1, k):
         y = y + contrib[:, j]
+    return y
+
+
+def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
+              capacity: int | None = None, constrain=None
+              ) -> tuple[torch.Tensor, dict]:
+    """x [B,S,D] -> ([B,S,D], {"load_balance_loss", "dropped_frac"}).
+
+    ``constrain`` (a ``sharding.rules.Constrainer``) with a model axis
+    larger than 1 that divides the experts runs ``moe_block_ep``; with
+    batch axes, x is this rank's rows and routing is global (see the
+    module's docstring)."""
+    ep = constrain.ep_context() if constrain is not None else None
+    if ep is not None and cfg.num_experts % ep[2] == 0:
+        return moe_block_ep(params, cfg, x, constrain)
+    b, s, d = x.shape
+    t = b * s
+    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    mesh = constrain.mesh if constrain is not None else None
+    dp = constrain.batch_axes if constrain is not None else ()
+    n_dp = mesh.axis_size(dp) if dp else 1
+    cap = capacity or moe_capacity(cfg, t * n_dp)
+    xf = x.reshape(t, d)
+
+    probs, w, idx = _route(xf, params["router"], k)
+    e_flat = idx.reshape(-1).to(torch.int32)                   # [T*k]
+    offset = None
+    if dp:
+        # pairs to each expert on the ranks before this one
+        counts = torch.bincount(e_flat, minlength=e)
+        every = mesh.all_gather(counts[None], dp, dim=0)       # [n_dp, E]
+        offset = every[:mesh.axis_index(dp)].sum(0)
+    order, keep, slot = _slots(e_flat, e, cap, offset)
+    flat_out = _experts(xf, order, slot, k, e, cap, params["gate"],
+                        params["up"], params["down"])
+    y = _combine(flat_out, order, keep, slot, w, t, k)
 
     # --- aux: load-balance loss terms (Switch aux loss) --------------------
-    me = probs.mean(0)                                         # [E]
-    ce = torch.bincount(e_flat, minlength=e).float() / (t * k)
-    aux = {
-        "load_balance_loss": e * torch.sum(me * ce),
-        "dropped_frac": 1.0 - keep.float().mean(),
-    }
+    if dp:
+        sums = mesh.psum(torch.cat([probs.sum(0), keep.float().sum()[None]]),
+                         dp)
+        me, kept = sums[:e] / (t * n_dp), sums[e]
+        ce = every.sum(0).float() / (t * k * n_dp)
+    else:
+        me, kept = probs.mean(0), keep.float().sum()
+        ce = torch.bincount(e_flat, minlength=e).float() / (t * k)
+    aux = {"load_balance_loss": e * torch.sum(me * ce),
+           "dropped_frac": 1.0 - kept / (t * k * n_dp)}
     return y.reshape(b, s, d), aux
+
+
+def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 constrain) -> tuple[torch.Tensor, dict]:
+    """Expert parallelism (JAX's ``shard_map`` EP): experts
+    ``[shard*e_loc, (shard+1)*e_loc)`` live on model rank ``shard``,
+    tokens on the batch axes (the same on every model rank).  Each rank
+    routes its tokens, keeps the pairs to its experts with a capacity per
+    (rank, local expert) of ``moe_capacity(cfg, t_loc)``, runs their
+    SwiGLU, combines each token's share, and one ``psum`` over the model
+    axis sums the shares.
+
+    Leaves are this rank's blocks under ``param_pspecs``: the expert
+    weights [e_loc, ...]; the router and the expert weights' FSDP dim
+    (with ``expert_fsdp``) either whole or a block, which is all-gathered
+    (a gathered FSDP dim's gradient comes back summed over its axes).  On
+    a mesh of one rank this is ``moe_block`` exactly."""
+    mesh, rules = constrain.mesh, constrain.rules
+    model = (rules.model,)
+    m = mesh.shape[rules.model]
+    fsdp = rules.fsdp if rules.expert_fsdp else ()
+    b, s, d = x.shape
+    t = b * s
+    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    e_loc = e // m
+    # JAX splits the tokens over every batch axis of the mesh when they
+    # divide, else every device routes all of them
+    dp = tuple(a for a in rules.batch if mesh.shape.get(a, 1) > 1)
+    if constrain.batch_axes != dp:
+        if constrain.batch_axes or t % mesh.axis_size(dp) == 0:
+            raise NotImplementedError(
+                f"tokens split over {dp} while the rows are split over "
+                f"{constrain.batch_axes}")
+        dp = ()
+    cap = moe_capacity(cfg, t)
+
+    router, gate, up, down = (params[n] for n in ("router", "gate", "up",
+                                                  "down"))
+    if router.shape[1] != e:
+        router = mesh.all_gather(router, model, dim=1)
+    if gate.shape[0] != e_loc:
+        raise ValueError(f"expert leaves hold {gate.shape[0]} experts, "
+                         f"rank's block is {e_loc}")
+    if fsdp and gate.shape[1] != d:
+        gate, up = (mesh.fan_out(mesh.all_gather(w, fsdp, dim=1), fsdp)
+                    for w in (gate, up))
+        down = mesh.fan_out(mesh.all_gather(down, fsdp, dim=2), fsdp)
+
+    xf = x.reshape(t, d)
+    probs, w, idx = _route(xf, router, k)
+    e0 = mesh.axis_index(model) * e_loc
+    e_flat = idx.reshape(-1).to(torch.int32)
+    local = (e_flat >= e0) & (e_flat < e0 + e_loc)
+    e_local = torch.where(local, e_flat - e0, e_loc)           # park others
+    order, keep, slot = _slots(e_local, e_loc, cap)
+    # the tokens and weights are the same on every model rank; each rank's
+    # experts see only their pairs
+    flat_out = _experts(mesh.fan_out(xf, model), order, slot, k, e_loc,
+                        cap, gate, up, down)
+    y = _combine(flat_out, order, keep, slot, mesh.fan_out(w, model), t, k)
+    y = mesh.psum(y, model)
+
+    # aux, as JAX reduces it: me and ce averaged over the batch axes before
+    # their product; kept summed over the model axis
+    n_pairs = t * k
+    me = probs.mean(0)
+    ce = torch.bincount(e_flat, minlength=e).float() / n_pairs
+    dropped = 1.0 - mesh.psum(keep.float().sum(), model) / n_pairs
+    if dp:
+        both = mesh.psum(torch.cat([me, ce, dropped[None]]), dp) \
+            / mesh.axis_size(dp)
+        me, ce, dropped = both[:e], both[e:2 * e], both[2 * e]
+    return y.reshape(b, s, d), {"load_balance_loss": e * torch.sum(me * ce),
+                                "dropped_frac": dropped}

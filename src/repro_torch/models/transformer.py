@@ -130,7 +130,8 @@ def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
-def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                  constrain=None):
     """One sub-layer; an MoE sub-layer returns its aux dict
     (``{"load_balance_loss", "dropped_frac"}``) as the third value
     (``None`` otherwise)."""
@@ -144,7 +145,8 @@ def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
     if _has_mlp(cfg, spec):
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
         if spec.moe:
-            y, aux = moe_mod.moe_block(params["mlp"], cfg, h2)
+            y, aux = moe_mod.moe_block(params["mlp"], cfg, h2,
+                                       constrain=constrain)
         else:
             y = mlp(params["mlp"], h2)
         x = x + y
@@ -153,13 +155,14 @@ def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions):
 
 def apply_blocks(blocks: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, *, remat: str = "nothing",
-                 collect_kv: bool = False):
+                 collect_kv: bool = False, constrain=None):
     """Run all layers.  Returns (x, kv, aux, moe): kv is a tuple, one entry
     per attention sub-layer of the pattern, of (k, v) stacked over blocks
     [num_blocks, B, S, K, hd] (``()`` unless ``collect_kv``); aux the
     f32 load-balance loss summed over the MoE sub-layers (per block, then
     over blocks, as JAX's scan sums it; 0 without MoE); moe every MoE
-    sub-layer's aux dict, in order.
+    sub-layer's aux dict, in order.  ``constrain`` goes to every
+    ``moe.moe_block`` (the ranks' mesh; see ``sharding.rules``).
 
     ``remat`` ("none", "nothing", "dots", "dots_no_batch", JAX's names)
     checkpoints each block when a gradient is wanted; under ``no_grad``
@@ -170,7 +173,7 @@ def apply_blocks(blocks: dict, cfg: ModelConfig, x: torch.Tensor,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, spec in enumerate(cfg.pattern):
             x, kv, m = _sublayer_fwd(block[f"sub{i}"], cfg, spec, x,
-                                     positions)
+                                     positions, constrain)
             if kv is not None and collect_kv:
                 kvs.append(kv)
             if m is not None:

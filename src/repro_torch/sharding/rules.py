@@ -1,0 +1,290 @@
+"""Logical-axis -> mesh-axis sharding rules (``repro.sharding.rules``).
+
+Every parameter leaf is assigned *logical* axes by name (vocab / heads /
+kv / ffn / expert / inner); logical axes map to mesh axes through the
+rule table; an assignment whose dimension the mesh axis does not divide
+falls back to replication, and when two logical axes map to one mesh
+axis the first listed wins.  The tables are JAX's, copied.
+
+A spec is a ``PartitionSpec``: one entry per dim, a mesh axis name, a
+tuple of names, or None.  ``shard_leaf`` cuts this rank's block of a
+global tensor by its spec (JAX's ``named_shardings`` and ``device_put``).
+
+The ``Constrainer`` is JAX's activation constrainer seen from one rank:
+each rank already holds only its rows, so its constraints are
+identities.  It carries what the port's code needs instead: the mesh,
+the rules, the batch axes the rows are split over (``batch_axes``, by
+``batch_pspec``), and ``ep_context`` for MoE's expert parallelism.
+Nothing here imports ``torch.distributed``: meshes may be abstract.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+__all__ = ["ShardingRules", "PartitionSpec", "P", "param_pspecs",
+           "batch_pspec", "cache_pspecs", "Constrainer", "make_constrain",
+           "shard_leaf"]
+
+
+class PartitionSpec:
+    """One entry per dim: a mesh axis name, a tuple of names, or None.
+    A one-name tuple is kept as the name, as JAX normalises it.  Not a
+    tuple, so a tree of specs flattens to one leaf a spec."""
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __eq__(self, other):
+        return isinstance(other, PartitionSpec) and \
+            self.entries == other.entries
+
+    def __hash__(self):
+        return hash(self.entries)
+
+    def __repr__(self):
+        return f"P{self.entries!r}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    batch: tuple[str, ...] = ("data",)       # ("pod","data") multi-pod
+    model: str = "model"
+    # FSDP/ZeRO-3: the non-TP dim of every 2-D weight shards over these
+    # axes (gathered per layer at use time).  () disables.
+    fsdp: tuple[str, ...] = ("data",)
+    # FSDP on the expert-stacked MoE weights too
+    expert_fsdp: bool = True
+    # sequence-parallel residual stream (train/prefill activations)
+    sp: bool = False
+    # shard the decode KV cache's sequence dim over these axes
+    kv_seq: tuple[str, ...] = ()
+
+    def axis_size(self, mesh, name) -> int:
+        if isinstance(name, tuple):
+            out = 1
+            for n in name:
+                out *= mesh.shape[n]
+            return out
+        return mesh.shape[name]
+
+
+# logical axis name -> rule field providing the mesh axis
+_LOGICAL = {
+    "vocab": "model",
+    "heads": "model",
+    "kv": "model",
+    "ffn": "model",
+    "expert": "model",
+    "inner": "model",
+    "fsdp": "fsdp",
+}
+
+# parameter leaf name -> logical axes per dim (trailing dims; leading
+# stacked-block dims are padded with None); the first listed logical axis
+# wins when two map to the same mesh axis
+_PARAM_AXES = {
+    "embed": {2: ("vocab", "fsdp"), 3: (None, "vocab", "fsdp")},
+    "head": {2: ("fsdp", "vocab"), 3: (None, "fsdp", "vocab")},
+    "wq": {2: ("fsdp", "heads")},
+    "wk": {2: ("fsdp", "kv")},
+    "wv": {2: ("fsdp", "kv")},
+    "wo": {2: ("heads", "fsdp")},
+    "bq": {1: ("heads",)},
+    "bk": {1: ("kv",)},
+    "bv": {1: ("kv",)},
+    "router": {2: (None, "expert")},
+    # MoE expert-stacked weights: EP over the expert dim + FSDP inside
+    "gate": {3: ("expert", "fsdp", "ffn"), 2: ("fsdp", "ffn")},
+    "up": {3: ("expert", "fsdp", "ffn"), 2: ("fsdp", "ffn")},
+    "down": {3: ("expert", "ffn", "fsdp"), 2: ("ffn", "fsdp")},
+    # Mamba
+    "in_proj": {2: ("fsdp", "inner")},
+    "conv_w": {2: ("inner", None)},
+    "conv_b": {1: ("inner",)},
+    "x_proj": {2: ("inner", "fsdp")},
+    "dt_proj": {2: ("fsdp", "inner")},
+    "dt_bias": {1: ("inner",)},
+    "A_log": {2: ("inner", None)},
+    "D": {1: ("inner",)},
+    "out_proj": {2: ("inner", "fsdp")},
+}
+
+
+def _map_with_keys(fn, tree, keys=()):
+    """``fn(keys, leaf)`` over a tree of dicts, lists and tuples; ``keys``
+    holds the dict keys from the root (list and tuple indices are not
+    keys, as JAX's ``DictKey`` entries are not)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_keys(fn, v, keys + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_keys(fn, v, keys) for v in tree)
+    if tree is None:
+        return None
+    return fn(keys, tree)
+
+
+def _mesh_axis_for(rules: ShardingRules, logical: Optional[str]):
+    if logical is None:
+        return None
+    axis = getattr(rules, _LOGICAL[logical])
+    if isinstance(axis, tuple):
+        return axis if axis else None
+    return axis
+
+
+def _spec_for_leaf(keys, leaf, mesh, rules: ShardingRules) -> P:
+    name = keys[-1] if keys else ""
+    ndim = len(leaf.shape)
+    lead = 1 if "blocks" in keys else 0     # stacked num_blocks axis
+    table = _PARAM_AXES.get(name)
+    if table is None or (ndim - lead) not in table:
+        return P()
+    axes = table[ndim - lead]
+    if (not rules.expert_fsdp and ndim - lead == 3
+            and name in ("gate", "up", "down")):
+        axes = tuple(a if a != "fsdp" else None for a in axes)
+    spec = [None] * lead
+    used: set = set()                       # a mesh axis shards ONE dim
+    for dim, logical in zip(leaf.shape[lead:], axes):
+        mesh_axis = _mesh_axis_for(rules, logical)
+        flat = mesh_axis if isinstance(mesh_axis, tuple) else (mesh_axis,)
+        if (mesh_axis is not None and not (set(flat) & used)
+                and dim % rules.axis_size(mesh, mesh_axis) == 0):
+            spec.append(mesh_axis)
+            used.update(flat)
+        else:
+            spec.append(None)               # divisibility / conflict
+    return P(*spec)
+
+
+def param_pspecs(params_shape, mesh, rules: ShardingRules):
+    """A tree of ``PartitionSpec`` matching a params tree (leaves need
+    only ``.shape``)."""
+    return _map_with_keys(
+        lambda keys, leaf: _spec_for_leaf(keys, leaf, mesh, rules),
+        params_shape)
+
+
+def batch_pspec(mesh, rules: ShardingRules, ndim: int,
+                batch_size: int) -> P:
+    """Input batch arrays [B, S, ...]: B over the batch axes (those of
+    size > 1 that divide what is left of it, in order), rest replicated."""
+    axes = []
+    for a in rules.batch:
+        size = mesh.shape[a]
+        if batch_size % size == 0 and size > 1:
+            axes.append(a)
+            batch_size //= size
+    lead = tuple(axes) if axes else None
+    return P(lead, *([None] * (ndim - 1)))
+
+
+def cache_pspecs(cfg, mesh, rules: ShardingRules, batch: int,
+                 cache_shapes) -> dict:
+    """Specs for decode caches (``transformer.init_block_caches``'s
+    layout): attention KV [nb, B, Smax, K, hd] with batch over the batch
+    axes that divide it, sequence over ``rules.kv_seq``, kv heads over the
+    model axis when divisible; Mamba conv/h with batch and inner over the
+    model axis."""
+    def spec(keys, leaf):
+        name = keys[-1] if keys else ""
+        ndim = len(leaf.shape)
+        b_axes = [a for a in rules.batch
+                  if batch % mesh.shape[a] == 0 and mesh.shape[a] > 1]
+        b_spec = tuple(b_axes) if b_axes else None
+        if name in ("k", "v") and ndim == 5:
+            smax = leaf.shape[2]
+            seq_ok = rules.kv_seq and \
+                smax % rules.axis_size(mesh, tuple(rules.kv_seq)) == 0
+            seq_spec = tuple(rules.kv_seq) if seq_ok else None
+            kv = leaf.shape[3]
+            kv_spec = rules.model if (
+                kv % mesh.shape[rules.model] == 0
+                and rules.model not in (seq_spec or ())
+                and not seq_ok) else None
+            return P(None, b_spec, seq_spec, kv_spec, None)
+        if name == "conv" and ndim == 4:
+            di = leaf.shape[3]
+            m = rules.model if di % mesh.shape[rules.model] == 0 else None
+            return P(None, b_spec, None, m)
+        if name == "h" and ndim == 4:
+            di = leaf.shape[2]
+            m = rules.model if di % mesh.shape[rules.model] == 0 else None
+            return P(None, b_spec, m, None)
+        return P()
+
+    return _map_with_keys(spec, cache_shapes)
+
+
+class Constrainer:
+    """JAX's activation constrainer on one rank: ``__call__``,
+    ``moe_buf``, ``moe_tok`` and ``logits`` are identities, since a rank
+    holds only its rows already.  ``batch_axes`` names the axes the
+    batch's rows are split over (``batch_pspec`` at ``batch_size``, the
+    rows of one forward; () when every rank holds them all)."""
+
+    def __init__(self, mesh, rules: ShardingRules, batch_size: int):
+        self.mesh = mesh
+        self.rules = rules
+        lead = batch_pspec(mesh, rules, 1, batch_size)[0]
+        self.batch_axes = () if lead is None else (
+            lead if isinstance(lead, tuple) else (lead,))
+
+    def __call__(self, x):
+        return x
+
+    def moe_buf(self, x):
+        return x
+
+    def moe_tok(self, x):
+        return x
+
+    def logits(self, x):
+        return x
+
+    def ep_context(self):
+        """(mesh, batch_axes, model_axis_size) when expert parallelism
+        applies (model axis > 1); None on trivial meshes."""
+        m = self.mesh.shape[self.rules.model]
+        if m <= 1:
+            return None
+        return self.mesh, self.rules.batch, m
+
+
+def make_constrain(mesh, rules: ShardingRules, batch_size: int):
+    return Constrainer(mesh, rules, batch_size)
+
+
+def shard_leaf(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """This rank's block of the global tensor ``x`` under ``spec``: each
+    dim named in the spec is cut into equal blocks along its axes and the
+    rank's (``mesh.axis_index``) is kept, as a tensor of its own."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n, i = mesh.axis_size(entry), mesh.axis_index(entry)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"split into {n} blocks")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, i * size, size)
+    return x.clone(memory_format=torch.contiguous_format)

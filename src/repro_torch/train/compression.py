@@ -4,17 +4,22 @@ Port of ``repro.train.compression``'s ``quantize_int8``,
 ``dequantize_int8`` and ``ef_compress_tree``.  Each gradient leaf is
 scaled per 256-element block to int8 (round half to even, clipped to
 +-127); the quantization residual is carried in an f32 error buffer and
-added back before the next round (EF-SGD).  JAX's
-``allreduce_compressed`` is a ``shard_map`` collective over a pod axis and
-has no one-card counterpart.
+added back before the next round (EF-SGD).
+
+``allreduce_compressed`` is the collective across ranks: each rank
+quantizes its block to the int8 wire format and back, and one f32
+all-reduce over a mesh axis sums the dequantized blocks (JAX's ``psum``
+of the wire in ``shard_map``).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import tree_flatten, tree_leaves
 
-__all__ = ["quantize_int8", "dequantize_int8", "ef_compress_tree"]
+__all__ = ["quantize_int8", "dequantize_int8", "ef_compress_tree",
+           "allreduce_compressed"]
 
 _BLOCK = 256
 
@@ -56,3 +61,20 @@ def ef_compress_tree(grads, error_buf):
     flat_e = tree_leaves(error_buf)
     outs = [leaf(g, e) for g, e in zip(flat_g, flat_e)]
     return unflatten([o[0] for o in outs]), unflatten([o[1] for o in outs])
+
+
+def allreduce_compressed(mesh, axis: str, tree):
+    """Mean over ``axis`` with the int8 wire format: each rank passes its
+    own block (a tree), and every rank gets back the same mean, in f32.
+    Each leaf is quantized to int8 and dequantized; one f32 all-reduce
+    (SUM) over the axis's group sums the dequantized leaves, which are
+    then divided by the axis's size."""
+    _, leaves, unflatten = tree_flatten(tree)
+    wires = [dequantize_int8(*quantize_int8(x), x.shape) for x in leaves]
+    flat = torch.cat([w.reshape(-1) for w in wires])
+    dist.all_reduce(flat, group=mesh.group(axis))
+    n, out, at = mesh.axis_size(axis), [], 0
+    for w in wires:
+        out.append(flat[at:at + w.numel()].view(w.shape) / n)
+        at += w.numel()
+    return unflatten(out)

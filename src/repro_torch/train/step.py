@@ -5,10 +5,19 @@ compression of the gradients.
 Port of ``repro.train.step``.  Gradients come from autograd, which on
 CUDA tensors runs the attention and Mamba sub-layers' hand-written
 backward kernels.  Microbatches accumulate their gradients into f32
-buffers, as JAX's ``acc_body`` does.  JAX's ``constrain`` (sharding
-constraints) and ``unroll`` (an XLA scan knob) have no one-card meaning
-and are not taken.  A step is functional: it returns a new state and
-leaves the one it was given untouched.
+buffers, as JAX's ``acc_body`` does.  JAX's ``unroll`` (an XLA scan
+knob) has no meaning here and is not taken.  A step is functional: it
+returns a new state and leaves the one it was given untouched.
+
+Data parallelism (``constrain`` from ``sharding.rules.make_constrain``
+on a live mesh whose model axis is 1, as JAX's ``launch/train.py``
+builds it): every rank holds the whole parameters, initialised alike,
+and its rows of each microbatch (``data.synthetic.shard_batch``).  It
+differentiates the global loss through its rows; the gradients are
+summed over the batch axes in f32, in one all-reduce a step, before
+error feedback, the gradient norm, clipping and AdamW, so every rank
+makes the same update.  A model axis larger than 1 (tensor or expert
+parallelism at run time) is not ported for training.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -60,14 +70,16 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig,
 
 
 def loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
-                   remat: str = "nothing"):
+                   remat: str = "nothing", constrain=None):
     """(loss, metrics, grads) of ``M.loss_fn`` at ``params``: grads a tree
     like params, each leaf in its parameter's dtype (zeros where the loss
-    does not reach it, as ``jax.grad`` gives)."""
+    does not reach it, as ``jax.grad`` gives).  With ``constrain``, this
+    rank's share of the global loss's gradients."""
     _, leaves, unflatten = tree_flatten(params)
     live = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss, metrics = M.loss_fn(unflatten(live), cfg, batch, remat=remat)
+        loss, metrics = M.loss_fn(unflatten(live), cfg, batch, remat=remat,
+                                  constrain=constrain)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -85,17 +97,38 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def _sum_over_ranks(grads, constrain):
+    """The gradients summed over the batch axes: one f32 all-reduce of
+    every leaf, each then cast back to its dtype."""
+    _, leaves, unflatten = tree_flatten(grads)
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in leaves])
+    dist.all_reduce(flat, group=constrain.mesh.group(constrain.batch_axes))
+    out, at = [], 0
+    for g in leaves:
+        out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+        at += g.numel()
+    return unflatten(out)
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, constrain=None):
     """Returns step(state, batch) -> (state, metrics): ``loss``, ``lr``,
     ``grad_norm`` (f32 scalars), and ``xent``, ``moe_aux``,
-    ``perplexity`` when ``tcfg.microbatches == 1``."""
+    ``perplexity`` when ``tcfg.microbatches == 1``.  With ``constrain``,
+    ``batch`` is this rank's rows and the metrics are global."""
+    if constrain is not None and \
+            constrain.mesh.shape[constrain.rules.model] > 1:
+        raise NotImplementedError(
+            "training with a model axis larger than 1 (tensor or expert "
+            "parallelism at run time) is not ported")
+    across = constrain is not None and bool(constrain.batch_axes)
 
     def step(state: TrainState, batch: dict):
         if tcfg.microbatches > 1:
             gsum, lsum = None, None
             for mb in _split_microbatches(batch, tcfg.microbatches):
                 loss, _, g = loss_and_grads(state.params, cfg, mb,
-                                            remat=tcfg.remat)
+                                            remat=tcfg.remat,
+                                            constrain=constrain)
                 if gsum is None:
                     gsum = tree_map(lambda p: torch.zeros(
                         p.shape, dtype=torch.float32, device=p.device),
@@ -105,12 +138,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                 gsum = tree_map(lambda a, b: a + b.to(torch.float32), gsum,
                                 g)
                 lsum = lsum + loss
+            if across:
+                gsum = _sum_over_ranks(gsum, constrain)
             grads = tree_map(lambda g: g / tcfg.microbatches, gsum)
             loss = lsum / tcfg.microbatches
             metrics = {}
         else:
             loss, metrics, grads = loss_and_grads(state.params, cfg, batch,
-                                                  remat=tcfg.remat)
+                                                  remat=tcfg.remat,
+                                                  constrain=constrain)
+            if across:
+                grads = _sum_over_ranks(grads, constrain)
 
         ef = state.ef_error
         if tcfg.pod_compression and ef is not None:

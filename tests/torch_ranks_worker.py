@@ -1,0 +1,196 @@
+"""Rank bodies for the port's multi-rank CPU tests (gloo), started by
+``torch.multiprocessing.spawn`` from ``test_torch_dp.py`` and
+``test_torch_moe_ep.py``.  Imports no JAX: each rank reads its inputs from
+a file the test wrote and writes its results to ``out{world}_{rank}.pt``
+beside it; the test compares them with the single process and with JAX.
+"""
+import dataclasses
+import os
+
+import torch
+
+
+def _start(rank, world, tmp):
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import init_ranks
+    init_ranks("cpu", rank=rank, world_size=world,
+               init_method=f"file://{os.path.join(tmp, f'store{world}')}")
+
+
+def _tcfg(kw):
+    from repro_torch.train import AdamWConfig, TrainConfig
+    return TrainConfig(opt=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                       total_steps=10), **kw)
+
+
+def _cfg(arch, kw):
+    from repro_torch import configs as CFG
+    return dataclasses.replace(CFG.get_smoke_config(arch), **kw)
+
+
+def dp(rank, world, tmp):
+    """Data parallelism on a (world, 1) mesh: the train step on every
+    case, the MoE block's global routing, allreduce_compressed; at world
+    2 a supervised restart and a checkpoint, at world 4 its elastic
+    restore."""
+    from repro_torch.checkpoint import CheckpointManager, restore
+    from repro_torch.data.synthetic import shard_batch
+    from repro_torch.launch.mesh import (make_local_mesh, rules_for_mesh,
+                                         shutdown_ranks)
+    from repro_torch.launch.train import train
+    from repro_torch.models.moe import moe_block
+    from repro_torch.sharding.rules import P, make_constrain, param_pspecs
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.compression import allreduce_compressed
+    from repro_torch.train.optimizer import OptState
+
+    _start(rank, world, tmp)
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_local_mesh()
+    rules = rules_for_mesh(mesh, fsdp=False)
+    out = {"cases": {}, "moe": {}}
+    for name, case in spec["cases"].items():
+        cfg, tcfg = _cfg(case["arch"], case["cfg"]), _tcfg(case["tcfg"])
+        state = init_train_state(cfg, tcfg, params=case["params"])
+        rows = case["batches"][0]["tokens"].shape[0] // tcfg.microbatches
+        step = make_train_step(cfg, tcfg,
+                               constrain=make_constrain(mesh, rules, rows))
+        losses = []
+        for batch in case["batches"]:
+            state, m = step(state, shard_batch(batch, mesh, rules,
+                                               tcfg.microbatches))
+            losses.append(m["loss"])
+        out["cases"][name] = {"losses": losses, "params": state.params}
+        if name == spec["ckpt_case"]:
+            last = state
+
+    x = spec["moe"]["x"]
+    constrain = make_constrain(mesh, rules, x.shape[0])
+    mine = shard_batch({"x": x}, mesh, rules)["x"]
+    for factor in spec["moe"]["factors"]:
+        cfg = _cfg(spec["moe"]["arch"], {"capacity_factor": factor})
+        y, aux = moe_block(spec["moe"]["params"], cfg, mine,
+                           constrain=constrain)
+        out["moe"][factor] = {"y": y, **aux}
+
+    tree = spec["allreduce"]
+    out["allreduce"] = allreduce_compressed(
+        mesh, "data", {k: v[rank] for k, v in tree.items()})
+
+    sup_dir = os.path.join(tmp, "sup")
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    if world == 2:
+        cfg = _cfg("qwen3-0.6b", {})
+        quiet = lambda line: None  # noqa: E731
+        plain = train(cfg, steps=8, batch=8, seq=16, device="cpu",
+                      mesh=mesh, log=quiet)
+        sup = train(cfg, steps=8, batch=8, seq=16, device="cpu", mesh=mesh,
+                    ckpt_dir=sup_dir, ckpt_every=3, fail_at=(5,), log=quiet)
+        out["supervisor"] = {"plain": plain.losses, "sup": sup.losses,
+                             "restarts": sup.restarts,
+                             "plain_params": plain.state.params,
+                             "sup_params": sup.state.params}
+        CheckpointManager(ckpt_dir).save(3, last, blocking=True)
+    else:
+        # elastic: world 2's checkpoint onto (world, 1) with FSDP specs
+        fsdp = rules_for_mesh(mesh, fsdp=True)
+        ps = param_pspecs(last.params, mesh, fsdp)
+        specs = dataclasses.replace(last, params=ps, opt=OptState(
+            step=P(), m=ps, v=ps))
+        got = restore(ckpt_dir, 3, last, mesh=mesh, specs=specs)
+        out["elastic"] = {"got": got, "specs": specs}
+    shutdown_ranks()
+    torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))
+
+
+def ep(rank, world, tmp):
+    """Expert parallelism on a (2, world // 2) mesh: ``moe_block`` (the EP
+    path) per variant, and per gradient variant this rank's gradients of
+    the global loss sum(y * r) + 0.01 * load_balance_loss, summed over
+    the data axis where the leaf is this rank's share."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, shutdown_ranks
+    from repro_torch.models.config import ModelConfig, uniform_pattern
+    from repro_torch.models.moe import moe_block
+    from repro_torch.sharding.rules import (ShardingRules, make_constrain,
+                                            param_pspecs, shard_leaf)
+    from repro_torch.tree import tree_map
+
+    _start(rank, world, tmp)
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_mesh((2, world // 2), ("data", "model"))
+    x, r = spec["x"], spec["r"]
+    rows = x.shape[0] // 2
+    d = mesh.axis_index("data")
+    mine, r_mine = (t[d * rows:(d + 1) * rows] for t in (x, r))
+    out = {"fwd": {}, "grad": {}}
+    for key, v in spec["variants"].items():
+        cfg = ModelConfig(pattern=uniform_pattern(moe=True),
+                          **dict(spec["cfg"], capacity_factor=v["factor"]))
+        rules = ShardingRules(batch=("data",), fsdp=("data",),
+                              expert_fsdp=v["expert_fsdp"])
+        constrain = make_constrain(mesh, rules, x.shape[0])
+        specs = param_pspecs(spec["params"], mesh, rules)
+        params = tree_map(lambda p, s: shard_leaf(p, s, mesh),
+                          spec["params"], specs)
+        if not v["grad"]:
+            with torch.no_grad():
+                y, aux = moe_block(params, cfg, mine, constrain=constrain)
+            out["fwd"][key] = {"y": y, **aux}
+            continue
+        live = {k: p.requires_grad_(True) for k, p in params.items()}
+        xg = mine.clone().requires_grad_(True)
+        y, aux = moe_block(live, cfg, xg, constrain=constrain)
+        loss = mesh.psum((y * r_mine).sum(), "data") \
+            + 0.01 * aux["load_balance_loss"]
+        loss.backward()
+        grads = {}
+        for k, p in live.items():
+            g = p.grad
+            gathered = v["expert_fsdp"] and k != "router" and \
+                "data" in tuple(specs[k])
+            if not gathered:
+                dist.all_reduce(g, group=mesh.group("data"))
+            grads[k] = g
+        out["grad"][key] = {"params": grads, "x": xg.grad,
+                            "specs": specs}
+    shutdown_ranks()
+    torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))
+
+
+def cards(rank, world, tmp):
+    """On ``world`` cards with NCCL: qwen3-0.6b's smoke config trained 3
+    steps on a (world, 1) mesh, and moonshot's smoke MoE block on a
+    (1, world) mesh (the EP path) at capacity factor 64."""
+    from repro_torch import configs as CFG
+    from repro_torch.launch.mesh import (init_ranks, make_local_mesh,
+                                         make_mesh, shutdown_ranks)
+    from repro_torch.launch.train import train
+    from repro_torch.models.moe import moe_block
+    from repro_torch.sharding.rules import (ShardingRules, make_constrain,
+                                            param_pspecs, shard_leaf)
+    from repro_torch.tree import tree_map
+
+    dev = init_ranks(rank=rank, world_size=world,
+                     init_method=f"file://{os.path.join(tmp, 'store')}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    rep = train(CFG.get_smoke_config("qwen3-0.6b"), steps=3, batch=8,
+                seq=64, device="cuda", mesh=make_local_mesh(),
+                log=lambda line: None)
+    mesh = make_mesh((1, world), ("data", "model"))
+    cfg = _cfg("moonshot-v1-16b-a3b", {"capacity_factor": 64.0})
+    rules = ShardingRules()
+    moe = {k: v.to(dev) for k, v in spec["moe"].items()}
+    moe = tree_map(lambda p, s: shard_leaf(p, s, mesh), moe,
+                   param_pspecs(moe, mesh, rules))
+    with torch.no_grad():
+        y, aux = moe_block(moe, cfg, spec["x"].to(dev),
+                           constrain=make_constrain(mesh, rules,
+                                                    spec["x"].shape[0]))
+    out = {"losses": rep.losses,
+           "params": tree_map(lambda t: t.cpu(), rep.state.params),
+           "y": y.cpu(), "aux": {k: v.cpu() for k, v in aux.items()}}
+    shutdown_ranks()
+    torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))

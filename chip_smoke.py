@@ -69,7 +69,21 @@ script exits non-zero:
      prefill while it is on the card), ``moe_block_ep`` on a (1, 1) mesh
      against ``moe_block`` within 1e-6.  With more than one card each runs
      again across all of them (``torch.multiprocessing.spawn``, one rank a
-     card; a rank that fails fails the script).
+     card; a rank that fails fails the script);
+  5j. the sharded parameter specs at run time, on the same one-rank
+     group: ``[train-sharded]``, qwen3-0.6b at full size through
+     ``train(..., mesh=make_local_mesh(), rules=rules_for_mesh(mesh))``
+     (FSDP on), 4 x 2048, 3 steps, its losses equal to ``[train-main]``'s
+     first three bit for bit (every axis has size 1), with step times,
+     peak memory and launches; ``[tp-shapes]``, the four LM kernels at the
+     shapes a rank runs under tensor parallelism over m = 2 and 4 model
+     ranks (flash at [4, 2048, 16/m, 8/m, 128] bf16, the scan at
+     [2, 2048, 8192/m]) against their plain versions, timed.
+
+``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py
+--sharded`` (N >= 2 cards) runs the sharded paths across cards instead:
+``[fsdp-cards]``, falcon-mamba-7b at all 64 layers with FSDP over (N, 1),
+and ``[tp-cards]``, qwen3-0.6b on (1, N) against one card.
 
   6. the event-horizon leap: a staggered static scenario (512 hosts of
      2 PEs, 256 VMs, 3 waves) leap on and leap off, bitwise equal, with
@@ -179,8 +193,9 @@ selective-scan counts are set to 0 just before each and read just after,
 and the bf16 prefill's dtype must route its flash launches to the
 tensor-core kernel.  The full-width training runs of 5g are the training
 slice's: all four LM kernels' counts are set to 0 just before each run
-and read just after, and so for the run of ``[train-dp]``
-(``launches_by_path`` of each LM kernel holds its paths).
+and read just after, and so for the runs of ``[train-dp]`` and
+``[train-sharded]`` (``launches_by_path`` of each LM kernel holds its
+paths).
 The next-to-last line is the kernels' JSON record, the last the
 device's.  Without a CUDA device, or outside a checkout, the script
 fails before printing either.
@@ -225,6 +240,12 @@ DP_STEPS = 3                    # [train-dp]: qwen3-0.6b steps
 # sum, and the bf16 parameters after one update part by ~2e-4 (4 cards)
 DP_LOSS_RTOL = {"one": 1e-5, "cards": 1e-3}
 MOE_EP_TOL = 2e-2               # [moe-ep] across cards: bf16 outputs
+SHARDED_STEPS = 3               # [train-sharded]: qwen3-0.6b steps
+TP_SIZES = (2, 4)               # [tp-shapes]: model axes a rank's shapes
+# the runs across cards (``--sharded`` under torchrun): falcon-mamba-7b
+# at all 64 layers with FSDP over (n, 1), max(2, n) x 2048 (a row a card
+# from n = 2 on), and qwen3-0.6b on (1, n), 4 x 2048, against one card
+FSDP_ARCH, TP_ARCH, CARD_STEPS = "falcon-mamba-7b", "qwen3-0.6b", 3
 RTOL = ATOL = 1e-6              # tests/test_simstep_parity.py's tolerance
 SIMSTEP_DESIGN = "ragged-packed-warp"
 CL_DONE = 2                     # repro_torch.core.state.CL_DONE
@@ -4088,6 +4109,287 @@ def phase_train_dp(device, card, main_losses, launched):
               f"plain ({card})")
 
 
+def run_train_sharded(device, mesh, rules, arch, batch, steps):
+    """``launch.train.train`` of ``arch`` at full size on ``mesh`` with
+    ``rules`` (the state built as this rank's blocks): ``steps`` steps of
+    a ``batch`` x PREFILL_LEN global batch.  All four LM kernels' counts
+    are set to 0 just before and read just after; the peak memory is
+    this rank's."""
+    import gc
+
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_bwd)
+    from repro_torch.launch.train import kernel_launches, train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in (flash_attention, flash_attention_bwd, selective_scan,
+              selective_scan_bwd):
+        f.launches = 0
+    rep = train(CFG.get_config(arch), steps=steps, batch=batch,
+                seq=PREFILL_LEN, device=device, mesh=mesh, rules=rules,
+                log=lambda line: None)
+    out = {"losses": rep.losses, "grad_norms": rep.grad_norms,
+           "launches": kernel_launches(),
+           "step_ms": [t * 1e3 for t in rep.step_seconds],
+           "peak": torch.cuda.max_memory_allocated(),
+           "state_bytes": tree_bytes(rep.state.params)
+           + tree_bytes(rep.state.opt.m) + tree_bytes(rep.state.opt.v)}
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_launches(arch, steps):
+    """The four LM kernels' launches that ``steps`` training steps of
+    ``arch`` at full depth make (remat runs each forward twice)."""
+    from repro_torch import configs as CFG
+    cfg = CFG.get_config(arch)
+    attn = sum(sp.mixer == "attn" for sp in cfg.pattern) * cfg.num_blocks
+    ssm = cfg.num_layers - attn
+    return {"flash_attention": 2 * attn * steps,
+            "flash_attention_bwd": attn * steps,
+            "selective_scan": 2 * ssm * steps,
+            "selective_scan_bwd": ssm * steps}
+
+
+def phase_train_sharded(device, card, main_losses, launched, records):
+    """Phases ``[train-sharded]`` and ``[tp-shapes]``.  ``[train-sharded]``:
+    qwen3-0.6b at full size, global batch 4 x 2048, SHARDED_STEPS steps
+    through ``train(..., mesh=make_local_mesh(), rules=rules_for_mesh(
+    mesh))`` (FSDP on) on this process's one-rank NCCL group: every axis
+    has size 1, so its losses equal ``[train-main]``'s first three bit for
+    bit; the launches are the shape's and are added to ``launched``.
+    ``[tp-shapes]``: the four LM kernels at the shapes a rank runs under
+    tensor parallelism (``records``: the full shapes' records, for their
+    times)."""
+    from repro_torch.launch.mesh import make_local_mesh, rules_for_mesh
+
+    mesh = make_local_mesh()
+    rules = rules_for_mesh(mesh)
+    res = run_train_sharded(device, mesh, rules, "qwen3-0.6b", 4,
+                            SHARDED_STEPS)
+    want = lm_launches("qwen3-0.6b", SHARDED_STEPS)
+    check(res["launches"] == want, f"[train-sharded] launches "
+          f"{res['launches']}, expected {want}")
+    check(res["launches"]["flash_attention"] > 0
+          and res["launches"]["flash_attention_bwd"] > 0,
+          "flash_attention or its backward never launched on the "
+          "train-sharded path")
+    for name, n in res["launches"].items():
+        launched[name] += n
+    same = res["losses"] == main_losses[:SHARDED_STEPS]
+    print(f"[train-sharded] qwen3-0.6b bf16, global batch 4 x "
+          f"{PREFILL_LEN}, {SHARDED_STEPS} steps through train(mesh="
+          f"make_local_mesh(), rules=rules_for_mesh(mesh)) (FSDP over "
+          f"{rules.fsdp}), mesh {mesh.shape}, {ranks_line()}: "
+          f"losses {res['losses']!r}, equal to [train-main]'s first "
+          f"{SHARDED_STEPS} bit for bit: {same}; step ms {res['step_ms']!r} "
+          f"(host clock, synced); peak allocated {res['peak']} bytes, "
+          f"parameters and moments {res['state_bytes']} bytes; launches "
+          f"{res['launches']} (= the shape's prediction) ({card})")
+    check(same, f"[train-sharded] losses {res['losses']} against "
+          f"[train-main]'s {main_losses[:SHARDED_STEPS]}")
+    phase_tp_shapes(device, card, records)
+
+
+def phase_tp_shapes(device, card, records):
+    """``[tp-shapes]``: under tensor parallelism over m model ranks a rank
+    runs attention on H/m query and K/m kv heads and the scan on d_inner/m
+    channels.  For m in TP_SIZES: flash's forward and backward at
+    qwen3-0.6b's [4, 2048, 16/m, 8/m, 128] in bf16, the scan's forward and
+    backward at falcon-mamba-7b's [2, 2048, 8192/m], N = 16, each against
+    its plain version (autograd of it for the backwards) at phase 5a's
+    and 5e's tolerances, and timed (device, graph replay) beside the full
+    shape's time from those phases."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.selective_scan import (selective_scan_bwd,
+                                                    selective_scan_cuda,
+                                                    selective_scan_ref)
+    full = {r["name"]: r["ms"] for r in records}
+    gen = torch.Generator(device=device).manual_seed(7)
+    tol = FLASH_TOL["bfloat16"]
+    for m in TP_SIZES:
+        b, s, h, kh, hd = 4, PREFILL_LEN, 16 // m, 8 // m, 128
+        q, k, v = flash_inputs(gen, b, s, h, kh, hd, torch.bfloat16, device)
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        want = attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        f_err = float((out.float() - want.float()).abs().max())
+        f_ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
+                         reps=20)
+        do = torch.randn(q.shape, generator=gen, device=device).to(q.dtype)
+        got = flash_attention_bwd(q, k, v, out, do, lse)
+        ref = plain_grads(lambda *t: attention_ref(*t, causal=True),
+                          (q, k, v), do)
+        torch.cuda.synchronize()
+        b_err = 0.0
+        for name, g, w in zip("qkv", got, ref):
+            err = float((g.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            check(err <= FLASH_BWD_TOL * top, f"[tp-shapes] m={m} "
+                  f"flash_attention_bwd d{name}: {err} > {FLASH_BWD_TOL} "
+                  f"x {top}")
+            b_err = max(b_err, err)
+        b_ms = device_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse),
+                         reps=20)
+        del q, k, v, out, lse, want, do, got, ref
+        print(f"[tp-shapes] m={m}: flash_attention [{b},{s},{h}/{kh},{hd}] "
+              f"bf16 causal: max_abs_err vs plain {f_err!r} (tol {tol}), "
+              f"{f_ms!r} ms (full shape {full['flash_attention']!r} ms); "
+              f"flash_attention_bwd: max_abs_err vs autograd of the plain "
+              f"version {b_err!r} (tol {FLASH_BWD_TOL} x max|ref|), "
+              f"{b_ms!r} ms (full shape {full['flash_attention_bwd']!r} "
+              f"ms) (device, graph replay) ({card})")
+
+        bb, ss, di, n = 2, PREFILL_LEN, 8192 // m, 16
+        args = scan_inputs(gen, bb, ss, di, n, device)
+        got = selective_scan_cuda(*args)
+        want = selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=SCAN_TOL, rtol=SCAN_TOL)
+        s_err = float((got - want).abs().max())
+        s_ms = device_ms(lambda: selective_scan_cuda(*args), reps=20)
+        dy = torch.randn(args[1].shape, generator=gen, device=device)
+        got = selective_scan_bwd(*args, dy)
+        ref = plain_grads(selective_scan_ref, args, dy)
+        torch.cuda.synchronize()
+        sb_err = 0.0
+        for name, g, w in zip(("dt", "x", "B", "C", "A", "D"), got, ref):
+            err = float((g - w).abs().max())
+            top = float(w.abs().max())
+            check(err <= SCAN_BWD_TOL * top, f"[tp-shapes] m={m} "
+                  f"selective_scan_bwd d{name}: {err} > {SCAN_BWD_TOL} x "
+                  f"{top}")
+            sb_err = max(sb_err, err)
+        sb_ms = device_ms(lambda: selective_scan_bwd(*args, dy), reps=20)
+        del args, dy, got, want, ref
+        torch.cuda.empty_cache()
+        print(f"[tp-shapes] m={m}: selective_scan [{bb},{ss},{di}] N={n}: "
+              f"max_abs_err vs plain {s_err!r} (tol {SCAN_TOL}), {s_ms!r} ms "
+              f"(full shape {full['selective_scan']!r} ms); "
+              f"selective_scan_bwd: max_abs_err vs autograd of the plain "
+              f"version {sb_err!r} (tol {SCAN_BWD_TOL} x max|ref|), "
+              f"{sb_ms!r} ms (full shape {full['selective_scan_bwd']!r} ms) "
+              f"(device, graph replay) ({card})")
+
+
+def main_sharded():
+    """``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py
+    --sharded`` on N >= 2 cards: the sharded paths across them, each rank
+    on ``cuda:LOCAL_RANK`` with NCCL.  falcon-mamba-7b at all 64 layers
+    (~87 GB of parameters and moments, more than one card holds) trained
+    CARD_STEPS steps with FSDP over (N, 1), max(2, N) x 2048: losses,
+    step time and peak memory per card; then qwen3-0.6b on (1, N)
+    (tensor parallelism), 4 x 2048, CARD_STEPS steps, against one card
+    (rank 0 alone): losses within DP_LOSS_RTOL["cards"].  Rank 0 prints;
+    the last line is a JSON summary."""
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
+    from repro_torch import configs as CFG
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import (init_ranks, make_mesh,
+                                         rules_for_mesh, shutdown_ranks)
+    from repro_torch.launch.train import train
+
+    device = init_ranks()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    check(world >= 2, f"--sharded runs across cards: a world of {world}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say = print if rank == 0 else (lambda *a, **k: None)
+    card = card_line()
+    say(card)
+    if rank == 0:
+        t0 = time.perf_counter()
+        built = _build.build()
+        say(f"[header] kernels built in {time.perf_counter() - t0!r} s: "
+            f"{built}")
+    dist.barrier()
+    summary = {}
+
+    def everyone(res):
+        got = [None] * world
+        dist.all_gather_object(got, {k: v for k, v in res.items()})
+        return got
+
+    mesh = make_mesh((world, 1), ("data", "model"))
+    batch = max(2, world)
+    fsdp = everyone(run_train_sharded(device, mesh, rules_for_mesh(mesh),
+                                      FSDP_ARCH, batch, CARD_STEPS))
+    cfg = CFG.get_config(FSDP_ARCH)
+    for r, res in enumerate(fsdp):
+        say(f"[fsdp-cards] {FSDP_ARCH} bf16, all {cfg.num_layers} layers "
+            f"({cfg.param_count() / 1e9:.4g}B parameters), FSDP over "
+            f"(\"data\", \"model\") = ({world}, 1), rank {r} of {world} "
+            f"({ranks_line()}): global batch {batch} x {PREFILL_LEN}, "
+            f"losses {res['losses']!r}, grad norms {res['grad_norms']!r}; "
+            f"step ms {res['step_ms']!r} (host clock, synced); parameters "
+            f"and moments {res['state_bytes']} bytes on its card, peak "
+            f"allocated {res['peak']} bytes; launches {res['launches']} "
+            f"({card})")
+    check(all(res["losses"] == fsdp[0]["losses"] for res in fsdp)
+          and np.isfinite(fsdp[0]["losses"]).all(),
+          f"[fsdp-cards] ranks' losses differ or are not finite")
+    check(fsdp[0]["launches"] == lm_launches(FSDP_ARCH, CARD_STEPS),
+          f"[fsdp-cards] launches {fsdp[0]['launches']}")
+    summary["fsdp"] = {"losses": fsdp[0]["losses"],
+                       "step_ms": [r["step_ms"] for r in fsdp],
+                       "peak": [r["peak"] for r in fsdp]}
+
+    mesh = make_mesh((1, world), ("data", "model"))
+    tp = everyone(run_train_sharded(device, mesh, rules_for_mesh(mesh),
+                                    TP_ARCH, 4, CARD_STEPS))
+    one = None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        rep = train(CFG.get_config(TP_ARCH), steps=CARD_STEPS, batch=4,
+                    seq=PREFILL_LEN, device=device, log=lambda line: None)
+        one = {"losses": rep.losses,
+               "step_ms": [t * 1e3 for t in rep.step_seconds],
+               "peak": torch.cuda.max_memory_allocated()}
+        del rep
+    dist.barrier()
+    if rank == 0:
+        for r, res in enumerate(tp):
+            err = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                          one["losses"]))
+            say(f"[tp-cards] {TP_ARCH} bf16 on (\"data\", \"model\") = "
+                f"(1, {world}), rank {r} of {world}: 4 x {PREFILL_LEN}, "
+                f"losses {res['losses']!r} against one card's "
+                f"{one['losses']!r}: largest difference {err!r} "
+                f"(relative); step ms {res['step_ms']!r} against "
+                f"{one['step_ms']!r}; peak allocated {res['peak']} bytes "
+                f"against {one['peak']}; launches {res['launches']} "
+                f"({card})")
+            check(err <= DP_LOSS_RTOL["cards"], f"[tp-cards] rank {r}: "
+                  f"losses part from one card's by {err}")
+        summary["tp"] = {"losses": tp[0]["losses"], "one": one["losses"],
+                         "step_ms": [r["step_ms"] for r in tp],
+                         "one_step_ms": one["step_ms"]}
+        print(json.dumps({"sharded": summary, "world": world,
+                          "kind": torch.cuda.get_device_name(0)}))
+    dist.barrier()
+    shutdown_ranks()
+    return 0
+
+
 def moe_ep_one_rank(params, cfg, tokens, card):
     """``[moe-ep]`` at world 1: on the final hidden state of the prefill's
     tokens, the first MoE sub-layer's block through ``moe_block_ep`` on a
@@ -4325,18 +4627,27 @@ def main():
     # on this process's group, read just after) and [allreduce-int8]
     dp = dict.fromkeys(trained, 0)
     phase_train_dp(device, card, main_losses["qwen3-0.6b"], dp)
+    # the sharded parameter specs at run time: [train-sharded] (counts set
+    # to 0 just before the run, read just after) and [tp-shapes]
+    sharded = dict.fromkeys(trained, 0)
+    phase_train_sharded(device, card, main_losses["qwen3-0.6b"], sharded,
+                        lm_records + train_records)
     shutdown_ranks()
     for r in lm_records:
         r["launches_by_path"] = {"prefill": r["launches"],
                                  "train": trained[r["name"]],
-                                 "train-dp": dp[r["name"]]}
-        r["launches"] += trained[r["name"]] + dp[r["name"]]
+                                 "train-dp": dp[r["name"]],
+                                 "train-sharded": sharded[r["name"]]}
+        r["launches"] += trained[r["name"]] + dp[r["name"]] + \
+            sharded[r["name"]]
     check(dp["flash_attention"] > 0, "flash_attention never launched on the "
           "train-dp path")
     for r in train_records:
         r["launches_by_path"] = {"train": trained[r["name"]],
-                                 "train-dp": dp[r["name"]]}
-        r["launches"] = trained[r["name"]] + dp[r["name"]]
+                                 "train-dp": dp[r["name"]],
+                                 "train-sharded": sharded[r["name"]]}
+        r["launches"] = trained[r["name"]] + dp[r["name"]] + \
+            sharded[r["name"]]
         check(r["launches"] > 0, f"{r['name']} never launched on the "
               f"training path")
     check(dp["flash_attention_bwd"] > 0, "flash_attention_bwd never launched "
@@ -4350,4 +4661,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_sharded() if sys.argv[1:] == ["--sharded"] else main())

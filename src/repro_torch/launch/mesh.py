@@ -22,9 +22,12 @@ loss and differentiates it through the part of the graph it holds.
 output feeds that common loss); ``fan_out`` is the identity in the
 forward and sums the gradient over the axes (its input is replicated
 over them, its consumers hold different parts); ``all_gather`` gives a
-block's gradient back to the rank that owns it.  Gradients of leaves a
-rank holds whole are then this rank's share, summed over the batch axes
-by the train step.
+block's gradient back to the rank that owns it (the gathered whole
+feeds the same computation on every rank of the axes); ``gather``
+(FSDP's) reduce-scatters it instead (the whole feeds computations that
+differ along the axes: other rows of the batch, other heads), in f32.
+Gradients of leaves a rank holds whole are then this rank's share,
+summed over the batch axes by the train step.
 
 ``init_ranks`` starts the process group: NCCL on ``cuda:LOCAL_RANK`` by
 default, gloo when ``device="cpu"``.  Under ``torchrun`` it reads
@@ -129,6 +132,20 @@ class Mesh:
         return _AllGather.apply(x, self.group(axes), dim,
                                 self.axis_size(axes), self.axis_index(axes))
 
+    def gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """The blocks of ``axes`` concatenated along ``dim``, as
+        ``all_gather``; the gradient is reduce-scattered: summed over
+        ``axes`` in f32 (one ``reduce_scatter``), this rank's block kept
+        and cast to ``x``'s dtype.  FSDP's gather at use."""
+        return _Gather.apply(x, self.group(axes), dim, self.axis_size(axes))
+
+    def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The elementwise maximum over the ranks of ``axes``, without a
+        gradient."""
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group(axes))
+        return y
+
 
 class _Psum(torch.autograd.Function):
     @staticmethod
@@ -168,6 +185,33 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         return (g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block),
                 None, None, None, None)
+
+
+# torch >= 2.13 names the tensor collectives *_single
+_gather_into = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, n):
+        ctx.group, ctx.dim, ctx.dtype = group, dim, x.dtype
+        xm = x.movedim(dim, 0).contiguous()
+        out = torch.empty((n * xm.shape[0], *xm.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        _gather_into(out, xm, group=group)
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        gm = g.movedim(ctx.dim, 0).to(torch.float32).contiguous()
+        n = dist.get_world_size(ctx.group)
+        out = torch.empty((gm.shape[0] // n, *gm.shape[1:]),
+                          dtype=torch.float32, device=g.device)
+        _reduce_scatter(out, gm, group=ctx.group)
+        return out.movedim(0, ctx.dim).to(ctx.dtype), None, None, None
 
 
 def abstract_mesh(axis_sizes, axis_names, rank: int = 0) -> Mesh:

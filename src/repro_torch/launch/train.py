@@ -9,7 +9,11 @@
 Port of ``repro.launch.train``: on every rank it builds the local mesh,
 (world, 1) over ("data", "model"), with ``rules_for_mesh(mesh,
 fsdp=False)`` and ``make_constrain``, so each rank trains on its rows of
-every global batch (data parallelism; one rank when run plainly).  Then
+every global batch (data parallelism; one rank when run plainly).
+``train(..., rules=)`` takes other rules (FSDP, and tensor and expert
+parallelism on a mesh whose model axis is larger than 1): the state is
+then built leaf by leaf as this rank's blocks under ``param_pspecs``
+and the step runs them at run time.  Then
 the synthetic data pipeline, the train step, and with ``--ckpt-dir`` the
 supervisor with its checkpoint manager and optional failure injection
 (``--fail-at``) to show a supervised restart.  Rank 0 prints JAX's
@@ -58,23 +62,36 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
           fail_at=(), log_every: int = 10, device=None,
           params: Optional[dict] = None,
           batch_fn: Optional[Callable[[int], dict]] = None,
-          log: Callable[[str], None] = print, mesh=None) -> TrainReport:
+          log: Callable[[str], None] = print, mesh=None,
+          rules=None) -> TrainReport:
     """Train ``cfg`` for ``steps`` steps with the JAX driver's optimizer
     settings (``lr`` peak, warmup max(steps // 20, 2), cosine to
-    ``steps``).  ``params`` (default: ``init_params`` seeded 0) and
-    ``batch_fn(step) -> global batch`` (default: the synthetic batches)
-    let a caller feed in its own.  ``mesh`` (a live ``launch.mesh`` mesh,
-    model axis 1) makes this rank's part of a data-parallel run: its rows
-    of each batch, the global loss; only rank 0 logs."""
+    ``steps``).  ``params`` (default: ``init_params`` seeded 0; global
+    leaves) and ``batch_fn(step) -> global batch`` (default: the
+    synthetic batches) let a caller feed in its own.  ``mesh`` (a live
+    ``launch.mesh`` mesh) makes this rank's part of a run across ranks:
+    its rows of each batch (split over the batch axes only, replicated
+    over "model"), the global loss; only rank 0 logs.  ``rules``
+    (default ``rules_for_mesh(mesh, fsdp=False)``, as JAX's launcher) says
+    how the parameters are cut: each rank draws every leaf from the
+    seeded generator and keeps its block (``sharding.rules.LeafCutter``),
+    so every mesh starts from the same global parameters, and the state
+    (parameters, moments) is blocks under ``param_pspecs``."""
     import torch
 
     from repro_torch.data.synthetic import config_for, make_batch, \
         shard_batch
     from repro_torch.device import resolve_device
     from repro_torch.launch.mesh import rules_for_mesh
-    from repro_torch.sharding.rules import make_constrain
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import (P, LeafCutter, make_constrain,
+                                            param_pspecs, shard_leaf,
+                                            spec_axes)
     from repro_torch.train import (AdamWConfig, TrainConfig,
                                    init_train_state, make_train_step)
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.step import TrainState
+    from repro_torch.tree import tree_map
 
     dev = resolve_device(device)
     tcfg = TrainConfig(
@@ -84,11 +101,25 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     if batch_fn is None:
         scfg = config_for(cfg, batch, seq)
         batch_fn = lambda s: make_batch(scfg, s, device=dev)  # noqa: E731
-    constrain, world = None, 1
+    constrain, world, state_specs = None, 1, None
+    gen = (torch.Generator(device=dev).manual_seed(0) if params is None
+           else None)
     if mesh is not None:
-        rules = rules_for_mesh(mesh, fsdp=False)
-        constrain = make_constrain(mesh, rules, batch // microbatches)
+        if rules is None:
+            rules = rules_for_mesh(mesh, fsdp=False)
         world = mesh.size
+        if params is None:
+            cutter = LeafCutter(mesh, rules)
+            params = M.init_params(cfg, gen, device=dev, shard=cutter)
+            specs = cutter.specs
+        else:
+            specs = param_pspecs(params, mesh, rules)
+            params = tree_map(lambda p, s: shard_leaf(p, s, mesh)
+                              if spec_axes(s, mesh) else p, params, specs)
+        constrain = make_constrain(mesh, rules, batch // microbatches,
+                                   param_specs=specs)
+        state_specs = TrainState(params=specs, opt=OptState(
+            step=P(), m=specs, v=specs))
         global_fn = batch_fn
         batch_fn = lambda s: shard_batch(  # noqa: E731
             global_fn(s), mesh, rules, microbatches)
@@ -96,16 +127,18 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
             log = lambda line: None  # noqa: E731
     log(f"[train] arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
         f"devices={world} ({dev}) steps={steps}")
-    gen = (torch.Generator(device=dev).manual_seed(0) if params is None
-           else None)
     state = init_train_state(cfg, tcfg, gen, device=dev, params=params)
+    # the state holds them now; the first step replaces them
+    del params
     step_fn = make_train_step(cfg, tcfg, constrain=constrain)
     before = kernel_launches()
 
     if ckpt_dir:
         from repro_torch.checkpoint import CheckpointManager
         from repro_torch.ft import FailureInjector, Supervisor
-        sup = Supervisor(ckpt=CheckpointManager(ckpt_dir, keep=3),
+        sup = Supervisor(ckpt=CheckpointManager(
+                             ckpt_dir, keep=3, specs=state_specs,
+                             mesh=mesh if state_specs else None),
                          step_fn=step_fn, batch_fn=batch_fn,
                          checkpoint_every=ckpt_every)
         injector = FailureInjector(tuple(fail_at)) if fail_at else None

@@ -45,20 +45,22 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _project(params, cfg: ModelConfig, x, name: str):
+    """x @ w{name} (+ b{name}), as heads [B,S,-1,hd]."""
+    y = x @ params[f"w{name}"]
+    if cfg.qkv_bias:
+        y = y + params[f"b{name}"]
+    return y.reshape(*x.shape[:2], -1, cfg.head_dim)
+
+
 def _project_qkv(params, cfg: ModelConfig, x, positions):
     """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,K,hd] with bias/qknorm/rope."""
-    b, s, _ = x.shape
-    h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
-    kk = x @ params["wk"]
-    v = x @ params["wv"]
-    if cfg.qkv_bias:
-        q = q + params["bq"]
-        kk = kk + params["bk"]
-        v = v + params["bv"]
-    q = q.reshape(b, s, h, hd)
-    kk = kk.reshape(b, s, k, hd)
-    v = v.reshape(b, s, k, hd)
+    q, kk, v = (_project(params, cfg, x, n) for n in "qkv")
+    return _norm_rope(params, cfg, q, kk, v, positions)
+
+
+def _norm_rope(params, cfg: ModelConfig, q, kk, v, positions):
+    hd = cfg.head_dim
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         kk = rms_norm(kk, params["k_norm"], cfg.norm_eps)
@@ -89,13 +91,59 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
-def attention_block(params, cfg: ModelConfig, x, positions):
+def _local_kv(params, cfg: ModelConfig, x, tp, hl: int):
+    """This model rank's k and v for its ``hl`` query heads.  With the kv
+    heads cut over the model axis and dividing it, its own; otherwise
+    every kv head from the whole ``wk``/``wv`` (their gradients summed
+    over the model ranks, each of which reads only some heads), then the
+    ones its query heads read: a run of them when the query groups
+    align with the rank's heads, else one a query head."""
+    h, k = cfg.num_heads, cfg.num_kv_heads
+    if k % tp.size == 0 and tp.cut("wk", 1):
+        return _project(params, cfg, x, "k"), _project(params, cfg, x, "v")
+    p = {n: tp.whole(params[n], n, differ=True) for n in
+         (("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv"))}
+    kk, v = _project(p, cfg, x, "k"), _project(p, cfg, x, "v")
+    g, first = h // k, tp.index * hl
+    if hl % g == 0 or g % hl == 0:
+        lo, hi = first // g, (first + hl - 1) // g + 1
+        return kk[:, :, lo:hi], v[:, :, lo:hi].contiguous()
+    idx = torch.arange(first, first + hl, device=x.device) // g
+    return kk[:, :, idx], v[:, :, idx]
+
+
+def attention_block(params, cfg: ModelConfig, x, positions, tp=None):
     """Prefill/forward attention sub-layer: [B,S,D] -> ([B,S,D], (k, v)),
-    the attention itself through the flash-attention kernel."""
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    the attention itself through the flash-attention kernel.
+
+    ``tp`` (a ``sharding.rules.TensorParallel``): with the query heads
+    cut over the model axis and dividing it, each rank projects its
+    H/m heads (``wq``/``bq`` its columns), its kv heads (see
+    ``_local_kv``), runs the kernel on them, and ``wo`` (its rows) ends
+    in a psum; the input and the whole ``q_norm``/``k_norm`` fan out
+    over the model ranks.  Otherwise every leaf is taken whole and
+    every model rank computes the whole sub-layer.  (k, v) are the
+    rank's heads."""
+    if tp is not None and not (tp.cut("wq", 1)
+                               and cfg.num_heads % tp.size == 0):
+        params = {n: tp.whole(w, n, differ=False) for n, w in params.items()}
+        tp = None
+    if tp is None:
+        q, k, v = _project_qkv(params, cfg, x, positions)
+    else:
+        x = tp.fan_out(x)
+        hl = cfg.num_heads // tp.size
+        params = dict(params)
+        for n in ("q_norm", "k_norm"):
+            if n in params:
+                params[n] = tp.fan_out(params[n])
+        q = _project(params, cfg, x, "q")
+        k, v = _local_kv(params, cfg, x, tp, hl)
+        q, k, v = _norm_rope(params, cfg, q, k, v, positions)
     out = attention(q, k, v, causal=True, window=cfg.sliding_window)
     b, s, _, _ = out.shape
-    return out.reshape(b, s, -1) @ params["wo"], (k, v)
+    y = out.reshape(b, s, -1) @ params["wo"]
+    return (y if tp is None else tp.psum(y)), (k, v)
 
 
 def attention_decode_block(params, cfg: ModelConfig, x, cache, position):

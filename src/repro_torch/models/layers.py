@@ -74,8 +74,20 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU feed-forward: x [.., D] -> [.., D]."""
+def mlp(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU feed-forward: x [.., D] -> [.., D].
+
+    ``tp`` (a ``sharding.rules.TensorParallel``): with ``ffn`` cut over
+    the model axis, ``gate``/``up`` are this rank's columns and ``down``
+    its rows; the input fans out over the model ranks and the output is
+    their psum.  A leaf that fell back to replication is whole, and
+    every model rank computes the whole MLP."""
+    if tp is not None and tp.cut("gate", 1):
+        x = tp.fan_out(x)
+    elif tp is not None:
+        params = {k: tp.whole(w, k, differ=False) for k, w in params.items()}
+        tp = None
     g = x @ params["gate"]
     u = x @ params["up"]
-    return swiglu(g, u) @ params["down"]
+    y = swiglu(g, u) @ params["down"]
+    return y if tp is None else tp.psum(y)

@@ -11,9 +11,15 @@ Parameters are a nested dict of tensors with the JAX package's keys and
 layouts.  ``constrain`` (``sharding.rules.make_constrain`` on a live
 mesh) makes a call one rank's part of a run across ranks: its tokens are
 the rank's rows, MoE routes as JAX's program does over the whole batch,
-and ``loss_fn`` returns the global loss.  Entry points run where the
-parameters live: ``init_params`` puts them on the CUDA device unless the
-caller passes ``device="cpu"``.
+and ``loss_fn`` returns the global loss.  When ``constrain`` also
+carries the parameters' specs, each leaf is this rank's block (FSDP and
+tensor parallelism at run time): the embedding is a lookup masked to
+the rank's vocabulary rows and psummed over the model axis, the logits
+stay cut over the vocabulary, and the cross-entropy takes its max and
+its sum of exponentials over the model ranks and the gold logit from
+the rank that holds it.  Entry points run where the parameters live:
+``init_params`` puts them on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -35,12 +41,15 @@ MOE_AUX_COEF = 0.01
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                *, device=None) -> dict:
+                *, device=None, shard=None) -> dict:
     """Random parameters in ``cfg.dtype`` (``A_log`` and ``D`` in f32).
 
     Drawn from ``generator`` (a ``torch.Generator`` on ``device``; seed 0
     when None).  The numbers differ from JAX's ``init_params``; the tests
-    go through ``models.convert.params_from_jax`` instead.
+    go through ``models.convert.params_from_jax`` instead.  ``shard`` (a
+    ``sharding.rules.LeafCutter``) keeps this rank's block of each leaf
+    as it is drawn: the same global parameters at every world size,
+    never whole on one device.
     """
     dev = resolve_device(device)
     if generator is None:
@@ -52,49 +61,99 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     cb = max(cfg.num_codebooks, 1)
     emb_shape = (cfg.vocab_size, cfg.d_model) if cb == 1 else \
         (cb, cfg.vocab_size, cfg.d_model)
+    cut = (lambda key, leaf: leaf) if shard is None else \
+        (lambda key, leaf: shard((key,), leaf))
     params = {
-        "embed": dense_init(generator, emb_shape, cfg.d_model, dt),
-        "blocks": tfm.init_blocks(generator, cfg),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+        "embed": cut("embed", dense_init(generator, emb_shape, cfg.d_model,
+                                         dt)),
+        "blocks": tfm.init_blocks(generator, cfg, shard),
+        "final_norm": cut("final_norm", torch.zeros((cfg.d_model,),
+                                                    dtype=dt, device=dev)),
     }
     if not cfg.tie_embeddings:
         head_shape = (cfg.d_model, cfg.vocab_size) if cb == 1 else \
             (cb, cfg.d_model, cfg.vocab_size)
-        params["head"] = dense_init(generator, head_shape, cfg.d_model, dt)
+        params["head"] = cut("head", dense_init(generator, head_shape,
+                                                cfg.d_model, dt))
     return params
 
 
+def _vocab_tp(name: str, constrain):
+    """(spec, ``TensorParallel`` view) of top-level leaf ``name`` (the
+    embedding or the head): the view when its vocabulary is cut over
+    the model axis, the only dim it may cut there (else None: the leaf
+    is whole but for FSDP).  (None, None) without specs."""
+    if constrain is None or constrain.param_specs is None:
+        return None, None
+    spec = constrain.param_specs[name]
+    tp = constrain.tp({name: spec})
+    vocab = len(spec) - (2 if name == "embed" else 1)
+    return spec, (tp if tp is not None and tp.cut(name, vocab) else None)
+
+
+def _top_leaf(params, name: str, constrain):
+    """Top-level leaf ``name`` with its FSDP dims gathered, and its
+    ``_vocab_tp`` view."""
+    spec, tp = _vocab_tp(name, constrain)
+    w = params[name]
+    return (w if spec is None else constrain.gather_fsdp(w, spec)), tp
+
+
+def _head_name(cfg: ModelConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "head"
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
-                 vision_embeds: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 vision_embeds: Optional[torch.Tensor] = None,
+                 constrain=None) -> torch.Tensor:
     """tokens [B,S] (or [B,S,CB] for codebooks) -> [B, S(+P), D].
 
     A lookup through ``F.embedding``, whose gradient is summed in a fixed
     order (indexing's ``index_put_`` accumulates on the CPU in no fixed
     order, so two training runs would part in the embedding's last bits).
+    With the vocabulary cut over the model axis, each rank looks up the
+    tokens of its rows (zero for the others) and the ranks' lookups are
+    psummed.
     """
+    table, tp = _top_leaf(params, "embed", constrain)
+    lookup = F.embedding
+    if tp is not None:
+        vl = table.shape[-2]
+        lo = tp.index * vl
+
+        def lookup(t, w):
+            t = t - lo
+            ok = (t >= 0) & (t < vl)
+            return torch.where(ok[..., None],
+                               F.embedding(t.clamp(0, vl - 1), w), 0)
     if cfg.num_codebooks:
         # sum of per-codebook embeddings
-        x = F.embedding(tokens[..., 0], params["embed"][0])
+        x = lookup(tokens[..., 0], table[0])
         for c in range(1, cfg.num_codebooks):
-            x = x + F.embedding(tokens[..., c], params["embed"][c])
+            x = x + lookup(tokens[..., c], table[c])
     else:
-        x = F.embedding(tokens, params["embed"])
+        x = lookup(tokens, table)
+    if tp is not None:
+        x = tp.psum(x)
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     return x
 
 
-def compute_logits(params, cfg: ModelConfig, hidden: torch.Tensor
-                   ) -> torch.Tensor:
-    """hidden [B,S,D] -> logits [B,S,V] (or [B,S,CB,V])."""
+def compute_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
+                   constrain=None) -> torch.Tensor:
+    """hidden [B,S,D] -> logits [B,S,V] (or [B,S,CB,V]); with the
+    vocabulary cut over the model axis, this rank's V/m of them."""
+    w, tp = _top_leaf(params, _head_name(cfg), constrain)
+    if tp is not None:
+        hidden = tp.fan_out(hidden)
     if cfg.tie_embeddings:
         if cfg.num_codebooks:
-            return torch.einsum("bsd,cvd->bscv", hidden, params["embed"])
-        return hidden @ params["embed"].T
+            return torch.einsum("bsd,cvd->bscv", hidden, w)
+        return hidden @ w.T
     if cfg.num_codebooks:
-        return torch.einsum("bsd,cdv->bscv", hidden, params["head"])
-    return hidden @ params["head"]
+        return torch.einsum("bsd,cdv->bscv", hidden, w)
+    return hidden @ w
 
 
 def forward(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
@@ -108,7 +167,7 @@ def forward(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
     ``forward`` defaults to "nothing"), so a call keeps its launches, and
     ``loss_fn`` defaults to "nothing" as JAX's does.  ``constrain`` goes
     to every MoE sub-layer."""
-    x = embed_tokens(params, cfg, tokens, vision_embeds)
+    x = embed_tokens(params, cfg, tokens, vision_embeds, constrain)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, kvs, aux, moe = tfm.apply_blocks(params["blocks"], cfg, x, positions,
                                         remat=remat, collect_kv=collect_kv,
@@ -120,13 +179,26 @@ def forward(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
-          constrain=None):
+          constrain=None, tp=None):
     """Mean masked cross-entropy in f32; logits [..., V], targets [...].
     With ``constrain``'s batch axes, the mean over every rank's rows: the
-    sums of nll and mask are summed over the ranks before the divide."""
+    sums of nll and mask are summed over the ranks before the divide.
+    With ``tp``, logits are this model rank's block of the vocabulary:
+    the max and the sum of exponentials are taken over the model ranks,
+    and the gold logit comes from the rank that holds it."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    if tp is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    else:
+        vl = lf.shape[-1]
+        top = tp.mesh.pmax(lf.amax(-1), tp.axis)
+        lse = torch.log(tp.psum(torch.exp(lf - top[..., None]).sum(-1))) \
+            + top
+        t = targets.long() - tp.index * vl
+        ok = (t >= 0) & (t < vl)
+        mine = torch.gather(lf, -1, t.clamp(0, vl - 1)[..., None])[..., 0]
+        gold = tp.psum(torch.where(ok, mine, 0.0))
     nll = (lse - gold) * mask
     if constrain is None or not constrain.batch_axes:
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
@@ -151,13 +223,14 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *,
                              remat=remat, constrain=constrain)
     if cfg.vision_tokens and vision is not None:
         hidden = hidden[:, vision.shape[1]:]
-    logits = compute_logits(params, cfg, hidden)
+    logits = compute_logits(params, cfg, hidden, constrain)
     targets = batch["targets"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
-    xent = _xent(logits, targets, mask.float(), constrain)
+    xent = _xent(logits, targets, mask.float(), constrain,
+                 _vocab_tp(_head_name(cfg), constrain)[1])
     loss = xent + MOE_AUX_COEF * aux
     return loss, {"xent": xent, "moe_aux": aux,
                   "perplexity": torch.exp(xent)}
@@ -174,13 +247,19 @@ def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
             metrics: list | None = None, constrain=None):
     """Full forward collecting KV; returns (last-token logits, kv stacks).
 
-    kv stacks: tuple per attn sub-layer of (k, v) [num_blocks, B, S, K, hd].
-    ``metrics`` and ``constrain`` as in ``forward``.
+    kv stacks: tuple per attn sub-layer of (k, v) [num_blocks, B, S, K, hd]
+    (this model rank's kv heads under tensor parallelism).  ``metrics``
+    and ``constrain`` as in ``forward``; the logits are whole (gathered
+    over the model axis when they are cut over the vocabulary).
     """
     hidden, kvs, _ = forward(params, cfg, tokens,
                              vision_embeds=vision_embeds, collect_kv=True,
                              metrics=metrics, constrain=constrain)
-    return compute_logits(params, cfg, hidden[:, -1:]), kvs
+    logits = compute_logits(params, cfg, hidden[:, -1:], constrain)
+    tp = _vocab_tp(_head_name(cfg), constrain)[1]
+    if tp is not None:
+        logits = tp.mesh.all_gather(logits, tp.axis, dim=logits.dim() - 1)
+    return logits, kvs
 
 
 @torch.no_grad()

@@ -143,6 +143,10 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     ep = constrain.ep_context() if constrain is not None else None
     if ep is not None and cfg.num_experts % ep[2] == 0:
         return moe_block_ep(params, cfg, x, constrain)
+    if ep is not None and constrain.param_specs is not None:
+        raise NotImplementedError(
+            f"{cfg.num_experts} experts over a model axis of {ep[2]}: "
+            f"sharded expert leaves need the experts to divide it")
     b, s, d = x.shape
     t = b * s
     k, e = cfg.num_experts_per_tok, cfg.num_experts
@@ -191,9 +195,11 @@ def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
     Leaves are this rank's blocks under ``param_pspecs``: the expert
     weights [e_loc, ...]; the router and the expert weights' FSDP dim
-    (with ``expert_fsdp``) either whole or a block, which is all-gathered
-    (a gathered FSDP dim's gradient comes back summed over its axes).  On
-    a mesh of one rank this is ``moe_block`` exactly."""
+    (with ``expert_fsdp``) either whole or a block, which is gathered
+    (a gathered FSDP dim's gradient is reduce-scattered back over its
+    axes: ``Mesh.gather``).  Inside a model's blocks the FSDP dim comes
+    gathered already (``transformer.apply_blocks``).  On a mesh of one
+    rank this is ``moe_block`` exactly."""
     mesh, rules = constrain.mesh, constrain.rules
     model = (rules.model,)
     m = mesh.shape[rules.model]
@@ -221,9 +227,8 @@ def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError(f"expert leaves hold {gate.shape[0]} experts, "
                          f"rank's block is {e_loc}")
     if fsdp and gate.shape[1] != d:
-        gate, up = (mesh.fan_out(mesh.all_gather(w, fsdp, dim=1), fsdp)
-                    for w in (gate, up))
-        down = mesh.fan_out(mesh.all_gather(down, fsdp, dim=2), fsdp)
+        gate, up = (mesh.gather(w, fsdp, dim=1) for w in (gate, up))
+        down = mesh.gather(down, fsdp, dim=2)
 
     xf = x.reshape(t, d)
     probs, w, idx = _route(xf, router, k)

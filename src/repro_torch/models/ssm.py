@@ -63,30 +63,65 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return out + b
 
 
-def _ssm_inputs(params, cfg: ModelConfig, xc: torch.Tensor):
-    """Shared projections: xc [..., di] -> (dt [..., di], B/C [..., n])."""
+def _ssm_inputs(params, cfg: ModelConfig, xc: torch.Tensor, tp=None):
+    """Shared projections: xc [..., di] -> (dt [..., di], B/C [..., n]).
+    With ``tp``, xc and ``x_proj``'s rows are this rank's channels: the
+    product is psummed over the model ranks, then fans out to their
+    different channels (``dt_proj``'s columns and the scan's)."""
     r, n = cfg.dt_rank_, cfg.ssm_state
     proj = xc @ params["x_proj"]
+    if tp is not None:
+        proj = tp.fan_out(tp.psum(proj))
     dt_raw, b_ssm, c_ssm = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus(dt_raw @ params["dt_proj"] + params["dt_bias"]).float()
     return dt, b_ssm.float(), c_ssm.float()
 
 
-def mamba_block(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _local_in_proj(w: torch.Tensor, tp, di: int) -> torch.Tensor:
+    """This model rank's columns of ``in_proj`` [D, 2*di], its xc
+    channels then its z channels.  ``param_pspecs`` cuts the [xc | z]
+    columns into m contiguous blocks (at m = 2, rank 0 holds all of xc),
+    so the leaf is gathered whole (its gradient reduce-scattered back)
+    and the rank's two column runs taken."""
+    w = tp.whole(w, "in_proj", differ=True)
+    dl = di // tp.size
+    lo = tp.index * dl
+    return torch.cat([w[:, lo:lo + dl], w[:, di + lo:di + lo + dl]], dim=1)
+
+
+def mamba_block(params, cfg: ModelConfig, x: torch.Tensor, tp=None
+                ) -> torch.Tensor:
     """Prefill/forward Mamba sub-layer: [B,S,D] -> [B,S,D], the scan
-    through the selective-scan kernel."""
+    through the selective-scan kernel.
+
+    ``tp`` (a ``sharding.rules.TensorParallel``): with ``inner`` cut
+    over the model axis, each rank runs d_inner/m channels: its columns
+    of ``in_proj`` (``_local_in_proj``) and ``dt_proj``, its rows of
+    ``conv_w``, ``x_proj`` (then a psum) and ``out_proj`` (then a psum),
+    its ``conv_b``, ``dt_bias``, ``A_log`` and ``D``; the input fans
+    out.  Otherwise every leaf is whole and every model rank computes
+    the whole sub-layer."""
     di = cfg.d_inner
-    xz = x @ params["in_proj"]
+    if tp is not None and not tp.cut("conv_w", 0):
+        params = {n: tp.whole(w, n, differ=False) for n, w in params.items()}
+        tp = None
+    if tp is None:
+        xz = x @ params["in_proj"]
+    else:
+        x = tp.fan_out(x)
+        xz = x @ _local_in_proj(params["in_proj"], tp, di)
+        di //= tp.size
     xc, z = torch.split(xz, [di, di], dim=-1)
     xc = F.silu(_causal_conv(xc, params["conv_w"], params["conv_b"]))
-    dt, b_ssm, c_ssm = _ssm_inputs(params, cfg, xc)
+    dt, b_ssm, c_ssm = _ssm_inputs(params, cfg, xc, tp)
     a = -torch.exp(params["A_log"])
     # B and C are column slices of one projection: the kernel takes them
     # contiguous
     y = selective_scan(dt, xc.float(), b_ssm.contiguous(),
                        c_ssm.contiguous(), a, params["D"])
     out = y.to(x.dtype) * F.silu(z)
-    return out @ params["out_proj"]
+    out = out @ params["out_proj"]
+    return out if tp is None else tp.psum(out)
 
 
 # ---------------------------------------------------------------------------

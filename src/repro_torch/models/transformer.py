@@ -11,6 +11,12 @@ Remat: with a gradient wanted, each block runs under
 ``torch.utils.checkpoint`` (policy selectable, as JAX wraps each scan
 step in ``jax.checkpoint``), so the backward recomputes the block's
 internals, the attention and scan kernels' forward launches included.
+
+Sharded parameters (a ``constrain`` that carries their specs): each
+leaf is this rank's block.  A block's FSDP dims are gathered inside the
+(checkpointed) block function, before its sub-layers run, and each
+sub-layer computes on its tensor-parallel blocks (``sharding.rules.
+TensorParallel``).
 """
 from __future__ import annotations
 
@@ -108,17 +114,29 @@ def _init_sublayer(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _cut(shard, keys: tuple, tree, lead: int):
+    """``shard(keys + path, leaf, lead)`` over a nested dict of leaves."""
+    if isinstance(tree, dict):
+        return {k: _cut(shard, keys + (k,), v, lead) for k, v in tree.items()}
+    return shard(keys, tree, lead)
+
+
+def init_blocks(gen: torch.Generator, cfg: ModelConfig, shard=None) -> dict:
     """{'sub{i}': dict of tensors stacked over num_blocks}.
 
     Each stacked leaf is allocated once and filled block by block, so
     the peak is the parameters plus one block's sub-layer (a full-size
-    MoE model holds no second copy of its experts)."""
+    MoE model holds no second copy of its experts).  ``shard`` (a
+    ``sharding.rules.LeafCutter``) keeps this rank's block of each drawn
+    leaf; the draws are the same."""
     out = {}
     for i, spec in enumerate(cfg.pattern):
         stacked = None
         for j in range(cfg.num_blocks):
             block = _init_sublayer(gen, cfg, spec)
+            if shard is not None:
+                block = _cut(shard, ("blocks", f"sub{i}"), block,
+                             cfg.num_blocks)
             if stacked is None:
                 stacked = _alloc(block, cfg.num_blocks)
             _fill(stacked, block, j)
@@ -131,16 +149,20 @@ def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                  constrain=None):
+                  constrain=None, specs=None):
     """One sub-layer; an MoE sub-layer returns its aux dict
     (``{"load_balance_loss", "dropped_frac"}``) as the third value
-    (``None`` otherwise)."""
+    (``None`` otherwise).  ``specs``: the sub-layer's leaves' specs when
+    they are this rank's blocks (their FSDP dims gathered)."""
+    tp = (lambda part: None) if specs is None else \
+        (lambda part: constrain.tp(specs[part]))
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     kv, aux = None, None
     if spec.mixer == "attn":
-        mix, kv = attn.attention_block(params["mixer"], cfg, h, positions)
+        mix, kv = attn.attention_block(params["mixer"], cfg, h, positions,
+                                       tp=tp("mixer"))
     else:
-        mix = ssm.mamba_block(params["mixer"], cfg, h)
+        mix = ssm.mamba_block(params["mixer"], cfg, h, tp=tp("mixer"))
     x = x + mix
     if _has_mlp(cfg, spec):
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
@@ -148,7 +170,7 @@ def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
             y, aux = moe_mod.moe_block(params["mlp"], cfg, h2,
                                        constrain=constrain)
         else:
-            y = mlp(params["mlp"], h2)
+            y = mlp(params["mlp"], h2, tp=tp("mlp"))
         x = x + y
     return x, kv, aux
 
@@ -166,14 +188,25 @@ def apply_blocks(blocks: dict, cfg: ModelConfig, x: torch.Tensor,
 
     ``remat`` ("none", "nothing", "dots", "dots_no_batch", JAX's names)
     checkpoints each block when a gradient is wanted; under ``no_grad``
-    (prefill) nothing is checkpointed."""
+    (prefill) nothing is checkpointed.
+
+    When ``constrain`` carries the parameters' specs, ``blocks`` holds
+    this rank's blocks: each block's FSDP-cut leaves are gathered inside
+    the block function, so a checkpointed block gathers them again in
+    the backward and no rank holds more than one gathered block at a
+    time.  With remat "none" autograd keeps each gathered block for the
+    backward, as it keeps every activation."""
+    specs = constrain.block_specs if constrain is not None else None
 
     def block_fn(x, block):
+        if specs is not None:
+            block = constrain.gather_block(block, specs)
         kvs, moe_j = [], []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, spec in enumerate(cfg.pattern):
             x, kv, m = _sublayer_fwd(block[f"sub{i}"], cfg, spec, x,
-                                     positions, constrain)
+                                     positions, constrain,
+                                     specs and specs[f"sub{i}"])
             if kv is not None and collect_kv:
                 kvs.append(kv)
             if m is not None:

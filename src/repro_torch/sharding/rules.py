@@ -8,25 +8,34 @@ axis the first listed wins.  The tables are JAX's, copied.
 
 A spec is a ``PartitionSpec``: one entry per dim, a mesh axis name, a
 tuple of names, or None.  ``shard_leaf`` cuts this rank's block of a
-global tensor by its spec (JAX's ``named_shardings`` and ``device_put``).
+global tensor by its spec (JAX's ``named_shardings`` and ``device_put``);
+``LeafCutter`` does it leaf by leaf as ``init_params`` draws them.
+``spec_axes``, ``fsdp_dims`` and ``reduced_axes`` read a spec.
 
 The ``Constrainer`` is JAX's activation constrainer seen from one rank:
 each rank already holds only its rows, so its constraints are
 identities.  It carries what the port's code needs instead: the mesh,
 the rules, the batch axes the rows are split over (``batch_axes``, by
-``batch_pspec``), and ``ep_context`` for MoE's expert parallelism.
-Nothing here imports ``torch.distributed``: meshes may be abstract.
+``batch_pspec``), ``ep_context`` for MoE's expert parallelism, and,
+given the parameters' specs, what runs them at run time, as GSPMD runs
+JAX's specs: ``gather_fsdp``/``gather_block`` gather a leaf's FSDP dims
+at use (to its tensor-parallel block), and ``tp`` hands a module a
+``TensorParallel`` view of its leaves' model-axis cuts.  Axes of size 1
+cost nothing: no gather, no collective.  Nothing here imports
+``torch.distributed``: meshes may be abstract.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Optional
 
 import torch
 
 __all__ = ["ShardingRules", "PartitionSpec", "P", "param_pspecs",
            "batch_pspec", "cache_pspecs", "Constrainer", "make_constrain",
-           "shard_leaf"]
+           "shard_leaf", "spec_axes", "fsdp_dims", "reduced_axes",
+           "gather_fsdp", "TensorParallel", "LeafCutter"]
 
 
 class PartitionSpec:
@@ -235,19 +244,131 @@ def cache_pspecs(cfg, mesh, rules: ShardingRules, batch: int,
     return _map_with_keys(spec, cache_shapes)
 
 
+def _flat(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: P, mesh=None) -> tuple[str, ...]:
+    """The mesh axes ``spec`` cuts a dim over, in dim order; with
+    ``mesh``, only those of size > 1 (the ones that split anything)."""
+    return tuple(a for e in spec for a in _flat(e)
+                 if mesh is None or mesh.shape[a] > 1)
+
+
+def fsdp_dims(spec: P, rules: ShardingRules
+              ) -> list[tuple[int, tuple[str, ...]]]:
+    """(dim, axes) of each dim of ``spec`` cut over the FSDP axes."""
+    fsdp = tuple(rules.fsdp)
+    return [(d, _flat(e)) for d, e in enumerate(spec)
+            if fsdp and _flat(e) == fsdp]
+
+
+def reduced_axes(spec: P, mesh, rules: ShardingRules,
+                 batch_axes) -> tuple[str, ...]:
+    """The batch axes over which ``gather_fsdp``'s backward has already
+    summed a leaf's gradient (its FSDP axes of size > 1, when the rows
+    are split over them)."""
+    out = []
+    for _, axes in fsdp_dims(spec, rules):
+        live = [a for a in axes if mesh.shape[a] > 1]
+        if live and set(live) <= set(batch_axes):
+            out.extend(live)
+    return tuple(out)
+
+
+def gather_fsdp(leaf: torch.Tensor, spec: P, mesh, rules: ShardingRules,
+                batch_axes=()) -> torch.Tensor:
+    """``leaf``, this rank's block under ``spec``, with its FSDP dims
+    gathered: the block it has under tensor parallelism alone.  Over
+    axes the batch's rows are split over, the gradient is
+    reduce-scattered (``Mesh.gather``); over axes whose ranks hold the
+    same rows, each rank's own block of it is kept
+    (``Mesh.all_gather``).  Axes of size 1 are skipped."""
+    for dim, axes in fsdp_dims(spec, rules):
+        live = tuple(a for a in axes if mesh.shape[a] > 1)
+        if not live:
+            continue
+        split = set(live) & set(batch_axes)
+        if split == set(live):
+            leaf = mesh.gather(leaf, live, dim)
+        elif not split:
+            leaf = mesh.all_gather(leaf, live, dim)
+        else:
+            raise NotImplementedError(
+                f"FSDP over {live} with rows split over {batch_axes}")
+    return leaf
+
+
+class TensorParallel:
+    """One module's leaves seen from a rank of the model axis (size >
+    1): ``specs`` maps each leaf's name to its spec (a stacked leaf's
+    without the block dim), ``index`` is this rank's block.  ``cut``
+    reads whether a leaf's dim is split over the model axis: a module
+    computes on its block of a cut leaf and on the whole of one that
+    fell back to replication.  ``fan_out`` and ``psum`` are the mesh's
+    over the model axis; ``whole`` gathers a cut leaf whole."""
+
+    def __init__(self, mesh, axis: str, specs: dict):
+        self.mesh, self.axis, self.specs = mesh, axis, specs
+        self.size = mesh.shape[axis]
+        self.index = mesh.axis_index(axis)
+
+    def cut(self, name: str, dim: int) -> bool:
+        spec = self.specs.get(name)
+        return spec is not None and dim < len(spec) and \
+            self.axis in _flat(spec[dim])
+
+    def fan_out(self, x):
+        return self.mesh.fan_out(x, self.axis)
+
+    def psum(self, x):
+        return self.mesh.psum(x, self.axis)
+
+    def whole(self, w, name: str, *, differ: bool):
+        """Leaf ``name`` (``w``, this rank's block) whole.  ``differ``:
+        the whole feeds computations that differ over the model ranks,
+        so its gradient is summed over them (``Mesh.gather`` of a cut
+        leaf, ``fan_out`` of a whole one); else every model rank
+        computes alike and keeps its own block of the gradient."""
+        cut = [d for d in range(w.dim()) if self.cut(name, d)]
+        for d in cut:
+            w = (self.mesh.gather if differ else self.mesh.all_gather)(
+                w, self.axis, d)
+        if differ and not cut:
+            w = self.fan_out(w)
+        return w
+
+
+def _block_spec(spec: P) -> P:
+    return P(*spec.entries[1:])
+
+
 class Constrainer:
     """JAX's activation constrainer on one rank: ``__call__``,
     ``moe_buf``, ``moe_tok`` and ``logits`` are identities, since a rank
     holds only its rows already.  ``batch_axes`` names the axes the
     batch's rows are split over (``batch_pspec`` at ``batch_size``, the
-    rows of one forward; () when every rank holds them all)."""
+    rows of one forward; () when every rank holds them all).
 
-    def __init__(self, mesh, rules: ShardingRules, batch_size: int):
+    ``param_specs`` (a tree like the parameters, ``param_pspecs`` of
+    their global shapes) says that each leaf is this rank's block under
+    its spec: the modules then gather FSDP dims at use and compute on
+    their tensor-parallel blocks.  Without it every leaf is whole."""
+
+    def __init__(self, mesh, rules: ShardingRules, batch_size: int,
+                 param_specs=None):
         self.mesh = mesh
         self.rules = rules
         lead = batch_pspec(mesh, rules, 1, batch_size)[0]
         self.batch_axes = () if lead is None else (
             lead if isinstance(lead, tuple) else (lead,))
+        self.param_specs = param_specs
+        self.block_specs = None
+        if param_specs is not None and "blocks" in param_specs:
+            self.block_specs = _map_with_keys(
+                lambda keys, s: _block_spec(s), param_specs["blocks"])
 
     def __call__(self, x):
         return x
@@ -269,9 +390,55 @@ class Constrainer:
             return None
         return self.mesh, self.rules.batch, m
 
+    def gather_fsdp(self, leaf, spec: P):
+        return gather_fsdp(leaf, spec, self.mesh, self.rules,
+                           self.batch_axes)
 
-def make_constrain(mesh, rules: ShardingRules, batch_size: int):
-    return Constrainer(mesh, rules, batch_size)
+    def gather_block(self, block: dict, specs: dict) -> dict:
+        """Every leaf of one block (a nested dict like ``specs``) with its
+        FSDP dims gathered."""
+        return {k: self.gather_block(v, specs[k]) if isinstance(v, dict)
+                else self.gather_fsdp(v, specs[k]) for k, v in block.items()}
+
+    def tp(self, specs: Optional[dict]) -> Optional[TensorParallel]:
+        """A module's ``TensorParallel`` view (``specs``: its leaves'
+        specs), or None when the model axis is 1 or no specs are
+        carried: the module then runs as on one rank."""
+        if specs is None or self.mesh.shape[self.rules.model] <= 1:
+            return None
+        return TensorParallel(self.mesh, self.rules.model, specs)
+
+
+def make_constrain(mesh, rules: ShardingRules, batch_size: int,
+                   param_specs=None):
+    return Constrainer(mesh, rules, batch_size, param_specs)
+
+
+class LeafCutter:
+    """Cuts each parameter leaf to this rank's block as ``init_params``
+    draws it (``shard=``), so no whole model is ever held, and records
+    its spec: ``specs`` ends as ``param_pspecs`` of the global
+    parameters.  A leaf whose spec splits nothing (every axis of size 1)
+    is kept as drawn."""
+
+    def __init__(self, mesh, rules: ShardingRules):
+        self.mesh, self.rules = mesh, rules
+        self.specs: dict = {}
+
+    def __call__(self, keys: tuple, leaf: torch.Tensor, lead: int = 0):
+        """``leaf`` at ``keys`` (dict keys from the root); ``lead`` > 0:
+        it is one block of a leaf stacked over ``lead`` blocks."""
+        shape = ((lead,) if lead else ()) + tuple(leaf.shape)
+        spec = _spec_for_leaf(keys, types.SimpleNamespace(shape=shape),
+                              self.mesh, self.rules)
+        node = self.specs
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = spec
+        mine = _block_spec(spec) if lead else spec
+        if not spec_axes(mine, self.mesh):
+            return leaf
+        return shard_leaf(leaf, mine, self.mesh)
 
 
 def shard_leaf(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:

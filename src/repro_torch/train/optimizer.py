@@ -60,22 +60,43 @@ def warmup_cosine(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.peak_lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(_F32))) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The f32 norm of every leaf of ``tree`` together.  With ``mesh``
+    and ``specs`` (a tree of ``PartitionSpec`` like ``tree``) each leaf
+    is this rank's block: its sum of squares is summed over the axes its
+    spec cuts it over (of size > 1), and only those, one all-reduce a
+    set of axes; the sums are then added in the leaves' order, so on a
+    mesh of one rank the norm is bitwise the plain one."""
+    sums = [torch.sum(torch.square(x.to(_F32))) for x in tree_leaves(tree)]
+    if mesh is not None and specs is not None:
+        from repro_torch.sharding.rules import spec_axes
+        by_axes: dict = {}
+        for i, s in enumerate(tree_leaves(specs)):
+            axes = tuple(a for a in mesh.axis_names
+                         if a in spec_axes(s, mesh))
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            part = mesh.psum(torch.stack([sums[i] for i in idx]), axes)
+            for j, i in enumerate(idx):
+                sums[i] = part[j]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, mesh=None, specs=None):
     """(tree scaled to a global norm of at most ``max_norm``, in f32;
-    the norm before)."""
-    norm = global_norm(tree)
+    the norm before).  ``mesh``/``specs`` as in ``global_norm``."""
+    norm = global_norm(tree, mesh, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g.to(_F32) * scale, tree), norm
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
-    """Returns (new_params, new_state, metrics ``{"lr", "grad_norm"}``)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+def adamw_update(cfg: AdamWConfig, params, grads, state: OptState, *,
+                 mesh=None, specs=None):
+    """Returns (new_params, new_state, metrics ``{"lr", "grad_norm"}``).
+    With ``mesh`` and ``specs`` (the parameters'), every leaf, moment and
+    gradient is this rank's block, and the gradient norm is global."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, mesh, specs)
     step = state.step + 1
     lr = warmup_cosine(cfg, step)
     sf = step.to(_F32)

@@ -16,8 +16,17 @@ and its rows of each microbatch (``data.synthetic.shard_batch``).  It
 differentiates the global loss through its rows; the gradients are
 summed over the batch axes in f32, in one all-reduce a step, before
 error feedback, the gradient norm, clipping and AdamW, so every rank
-makes the same update.  A model axis larger than 1 (tensor or expert
-parallelism at run time) is not ported for training.
+makes the same update.
+
+Sharded parameters (a ``constrain`` that carries ``param_pspecs`` of
+the global parameters, as JAX's ``in_shardings``): the state's leaves,
+AdamW's moments and the gradients are this rank's blocks.  FSDP's
+gathers reduce-scatter their leaves' gradients over the batch axes in
+the backward; the one f32 all-reduce then sums only the leaves that
+still need it, over the batch axes their gathers did not reduce.
+Tensor and expert parallelism need no sum over the model axis: the
+modules' ``fan_out``s summed what differs there.  The gradient norm
+adds each leaf's blocks over the axes it is cut over.
 """
 from __future__ import annotations
 
@@ -29,10 +38,11 @@ import torch.distributed as dist
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import reduced_axes, spec_axes
 from repro_torch.train import compression
 from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_init,
                                          adamw_update)
-from repro_torch.tree import tree_flatten, tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 __all__ = ["TrainConfig", "TrainState", "init_train_state",
            "make_train_step", "loss_and_grads"]
@@ -98,15 +108,32 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
 
 
 def _sum_over_ranks(grads, constrain):
-    """The gradients summed over the batch axes: one f32 all-reduce of
-    every leaf, each then cast back to its dtype."""
+    """The gradients summed over the batch axes, each leaf over those its
+    FSDP gather has not reduce-scattered it over: one f32 all-reduce for
+    each set of axes (one in all under data parallelism), each leaf then
+    cast back to its dtype."""
     _, leaves, unflatten = tree_flatten(grads)
-    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in leaves])
-    dist.all_reduce(flat, group=constrain.mesh.group(constrain.batch_axes))
-    out, at = [], 0
-    for g in leaves:
-        out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
-        at += g.numel()
+    batch = constrain.batch_axes
+    groups: dict = {}
+    if constrain.param_specs is None:
+        groups[batch] = list(range(len(leaves)))
+    else:
+        mesh, rules = constrain.mesh, constrain.rules
+        for i, spec in enumerate(tree_leaves(constrain.param_specs)):
+            done = reduced_axes(spec, mesh, rules, batch)
+            axes = tuple(a for a in batch if a not in done)
+            if axes:
+                groups.setdefault(axes, []).append(i)
+    out = list(leaves)
+    for axes, idx in groups.items():
+        flat = torch.cat([leaves[i].reshape(-1).to(torch.float32)
+                          for i in idx])
+        dist.all_reduce(flat, group=constrain.mesh.group(axes))
+        at = 0
+        for i in idx:
+            g = leaves[i]
+            out[i] = flat[at:at + g.numel()].view(g.shape).to(g.dtype)
+            at += g.numel()
     return unflatten(out)
 
 
@@ -114,13 +141,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, constrain=None):
     """Returns step(state, batch) -> (state, metrics): ``loss``, ``lr``,
     ``grad_norm`` (f32 scalars), and ``xent``, ``moe_aux``,
     ``perplexity`` when ``tcfg.microbatches == 1``.  With ``constrain``,
-    ``batch`` is this rank's rows and the metrics are global."""
-    if constrain is not None and \
-            constrain.mesh.shape[constrain.rules.model] > 1:
-        raise NotImplementedError(
-            "training with a model axis larger than 1 (tensor or expert "
-            "parallelism at run time) is not ported")
+    ``batch`` is this rank's rows and the metrics are global; with its
+    ``param_specs``, the state's leaves are this rank's blocks."""
     across = constrain is not None and bool(constrain.batch_axes)
+    mesh = specs = None
+    if constrain is not None and constrain.param_specs is not None:
+        mesh, specs = constrain.mesh, constrain.param_specs
+        if tcfg.pod_compression and any(
+                spec_axes(s, mesh) for s in tree_leaves(specs)):
+            raise NotImplementedError(
+                "int8 error feedback quantizes whole leaves in blocks of "
+                "256; it is not ported for sharded leaves")
 
     def step(state: TrainState, batch: dict):
         if tcfg.microbatches > 1:
@@ -155,7 +186,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, constrain=None):
             grads, ef = compression.ef_compress_tree(grads, ef)
 
         params, opt, opt_metrics = adamw_update(tcfg.opt, state.params,
-                                                grads, state.opt)
+                                                grads, state.opt,
+                                                mesh=mesh, specs=specs)
         return TrainState(params=params, opt=opt, ef_error=ef), \
             {"loss": loss, **opt_metrics, **metrics}
 

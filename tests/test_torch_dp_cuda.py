@@ -1,7 +1,8 @@
 """Ranks on CUDA cards with NCCL: at world 1 (a one-rank group in this
-process) the data-parallel train step equals the one-device step bit for
-bit, ``allreduce_compressed`` equals its plain form bit for bit, and a
-(1, 1) mesh's expert parallelism equals ``moe_block`` bit for bit; with
+process) the data-parallel train step, and the step with FSDP rules on
+the (1, 1) mesh, equal the one-device step bit for bit,
+``allreduce_compressed`` equals its plain form bit for bit, and a (1, 1)
+mesh's expert parallelism equals ``moe_block`` bit for bit; with
 two or more cards, a run across all of them (``torch_ranks_worker.cards``,
 spawned) against one card.
 
@@ -31,12 +32,14 @@ from repro_torch.launch.mesh import (init_ranks, make_local_mesh, make_mesh,
                                      rules_for_mesh, shutdown_ranks)
 from repro_torch.launch.train import train
 from repro_torch.models.moe import init_moe, moe_block, moe_block_ep
-from repro_torch.sharding.rules import ShardingRules, make_constrain
+from repro_torch.models.model import init_params
+from repro_torch.sharding.rules import (ShardingRules, make_constrain,
+                                        param_pspecs, shard_leaf)
 from repro_torch.train import (AdamWConfig, TrainConfig, init_train_state,
                                make_train_step)
 from repro_torch.train.compression import (allreduce_compressed,
                                            dequantize_int8, quantize_int8)
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +74,39 @@ def test_world_one_step_is_the_one_device_step(nccl_world_one, arch):
     for c in (constrain, None):
         state = init_train_state(cfg, tcfg, torch.Generator(
             device="cuda").manual_seed(0), device="cuda")
+        step = make_train_step(cfg, tcfg, constrain=c)
+        for b in batches:
+            state, _ = step(state, b if c is None else shard_batch(
+                b, mesh, c.rules))
+        states.append(state)
+    for a, b in zip(tree_leaves(states[0]), tree_leaves(states[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b",
+                                  "moonshot-v1-16b-a3b"])
+def test_world_one_fsdp_step_is_the_one_device_step(nccl_world_one, arch):
+    """FSDP rules (``rules_for_mesh``'s default) on the (1, 1) mesh: the
+    state is cut by ``param_pspecs`` and the step runs the sharded path,
+    and every axis has size 1, so it equals the unsharded step bit for
+    bit."""
+    mesh = nccl_world_one
+    cfg = CFG.get_smoke_config(arch)
+    tcfg = TrainConfig(opt=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                       total_steps=10))
+    rules = rules_for_mesh(mesh)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    specs = param_pspecs(params, mesh, rules)
+    assert rules.fsdp == ("data",) and any(
+        "data" in tuple(s) for s in tree_leaves(specs))
+    constrain = make_constrain(mesh, rules, 4, param_specs=specs)
+    batches = [make_batch(config_for(cfg, 4, 64), s) for s in range(2)]
+    states = []
+    for c in (constrain, None):
+        mine = params if c is None else tree_map(
+            lambda p, s: shard_leaf(p, s, mesh), params, specs)
+        state = init_train_state(cfg, tcfg, params=mine)
         step = make_train_step(cfg, tcfg, constrain=c)
         for b in batches:
             state, _ = step(state, b if c is None else shard_batch(

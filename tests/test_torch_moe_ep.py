@@ -193,15 +193,20 @@ def test_ep_on_one_rank_is_moe_block(factor):
 
 def test_ep_context_and_training_under_a_model_axis():
     """``ep_context`` is JAX's (None at a model axis of 1); training with
-    a model axis larger than 1 is refused."""
+    a model axis larger than 1 is taken (tensor and expert parallelism at
+    run time), but int8 error feedback on sharded leaves is refused."""
     rules = ShardingRules()
-    wide = make_constrain(abstract_mesh((2, 4), ("data", "model")), rules, 8)
+    mesh = abstract_mesh((2, 4), ("data", "model"))
+    wide = make_constrain(mesh, rules, 8)
     assert wide.ep_context()[1:] == (("data",), 4)
     assert wide.batch_axes == ("data",)
     flat = make_constrain(abstract_mesh((8, 1), ("data", "model")), rules, 4)
     assert flat.ep_context() is None and flat.batch_axes == ()
+    assert callable(make_train_step(_cfg(), TrainConfig(), constrain=wide))
+    specs = param_pspecs({"gate": torch.empty(8, 32, 48)}, mesh, rules)
     with pytest.raises(NotImplementedError):
-        make_train_step(_cfg(), TrainConfig(), constrain=wide)
+        make_train_step(_cfg(), TrainConfig(pod_compression=True),
+                        constrain=make_constrain(mesh, rules, 8, specs))
 
 
 def test_expert_leaves_follow_param_pspecs():

@@ -194,3 +194,93 @@ def cards(rank, world, tmp):
            "y": y.cpu(), "aux": {k: v.cpu() for k, v in aux.items()}}
     shutdown_ranks()
     torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))
+
+
+def _whole(leaf, spec, mesh):
+    """A block under ``spec`` gathered whole (every rank gets it)."""
+    for dim, entry in enumerate(spec):
+        if entry is not None and mesh.axis_size(entry) > 1:
+            leaf = mesh.all_gather(leaf, entry, dim)
+    return leaf
+
+
+def sharded(rank, world, tmp):
+    """FSDP and tensor/expert parallelism at run time on the meshes of
+    ``inputs.pt`` (all in one world): per mesh and case, 3 train steps on
+    this rank's blocks under ``param_pspecs`` (losses, grad norms, the
+    parameters gathered whole, every block's shape); the prefill's
+    logits on the prefill mesh; a sharded checkpoint of the checkpoint
+    mesh's state (and one of its parameters alone), restored on the
+    restore mesh."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data.synthetic import shard_batch
+    from repro_torch.launch.mesh import (make_mesh, rules_for_mesh,
+                                         shutdown_ranks)
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import (P, make_constrain, param_pspecs,
+                                            shard_leaf)
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.step import TrainState
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_map
+
+    _start(rank, world, tmp)
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    meshes = {name: make_mesh(shape, ("data", "model"))
+              for name, shape in spec["meshes"].items()}
+    out = {"train": {}, "prefill": None, "restored": None}
+    states = {}
+    for mname, mesh in meshes.items():
+        rules = dataclasses.replace(rules_for_mesh(mesh),
+                                    **spec["rules"].get(mname, {}))
+        for name, case in spec["cases"].items():
+            cfg, tcfg = _cfg(case["arch"], case["cfg"]), _tcfg({})
+            specs = param_pspecs(case["params"], mesh, rules)
+            mine = tree_map(lambda p, s: shard_leaf(p, s, mesh),
+                            case["params"], specs)
+            rows = case["batches"][0]["tokens"].shape[0]
+            constrain = make_constrain(mesh, rules, rows, param_specs=specs)
+            state = init_train_state(cfg, tcfg, params=mine)
+            step = make_train_step(cfg, tcfg, constrain=constrain)
+            losses, norms = [], []
+            for batch in case["batches"]:
+                state, m = step(state, shard_batch(batch, mesh, rules))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            with torch.no_grad():
+                whole = tree_map(lambda p, s: _whole(p, s, mesh),
+                                 state.params, specs)
+            shapes = {k: [tuple(t.shape) for t in tree_leaves(tree)]
+                      for k, tree in (("params", state.params),
+                                      ("m", state.opt.m),
+                                      ("v", state.opt.v))}
+            out["train"][mname, name] = {
+                "losses": losses, "grad_norms": norms, "shapes": shapes,
+                "specs": tree_leaves(specs),
+                "params": whole if rank == 0 else None}
+            if (mname, name) == spec["prefill"]:
+                tokens = case["batches"][0]["tokens"]
+                logits, _ = M.prefill(mine, cfg, tokens, constrain=constrain)
+                out["prefill"] = logits
+            states[mname, name] = (state, specs)
+    # a checkpoint of one mesh's state, restored on another
+    (src, case), dst = spec["ckpt"], spec["restore_on"]
+    ckpt = os.path.join(tmp, "ckpt")
+
+    def state_specs(specs):
+        return TrainState(params=specs, opt=OptState(step=P(), m=specs,
+                                                     v=specs))
+    state, specs = states[src, case]
+    save(ckpt, 3, state, mesh=meshes[src], specs=state_specs(specs))
+    # the parameters alone: the layout of JAX's tree of parameters
+    save(os.path.join(tmp, "ckpt_params"), 3, state.params, mesh=meshes[src],
+         specs=specs)
+    with torch.no_grad():
+        out["saved"] = tree_map(lambda p, s: _whole(p, s, meshes[src]),
+                                state, state_specs(specs))
+    like, specs = states[dst, case]
+    out["restored"] = restore(ckpt, 3, like, mesh=meshes[dst],
+                              specs=state_specs(specs))
+    out["restored_specs"] = tree_flatten(state_specs(specs))[1]
+    shutdown_ranks()
+    torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))

@@ -78,12 +78,39 @@ script exits non-zero:
      peak memory and launches; ``[tp-shapes]``, the four LM kernels at the
      shapes a rank runs under tensor parallelism over m = 2 and 4 model
      ranks (flash at [4, 2048, 16/m, 8/m, 128] bf16, the scan at
-     [2, 2048, 8192/m]) against their plain versions, timed.
+     [2, 2048, 8192/m]) against their plain versions, timed;
+  5k. the rest of the sharding rules, on the same one-rank group:
+     ``[sp-world1]``, qwen3-0.6b at full size, the prefill of 4 x 2048
+     and 3 training steps with ``rules_for_mesh(mesh, sp=True)``, bitwise
+     the plain prefill's logits and ``[train-main]``'s first three
+     losses, with the plain launch counts and ``[train-sharded]``'s peak
+     memory to the byte; ``[decode-tp-world1]``, qwen3-0.6b and
+     falcon-mamba-7b at full size, 16 greedy decode steps of 8 slots
+     through ``decode_step(..., constrain=)`` with the caches of
+     ``init_cache(..., constrain=)``, bitwise the plain decode's tokens
+     and logits; ``[kv-seq-split]``, qwen3-0.6b at full width and depth
+     in f32, 8 slots, a cache of 32,768 positions (60.1 GB) of seeded
+     values: one decode step whole, and with the cache's sequence in 4
+     and in 16 blocks through the partial and combine functions the
+     ranks call (``decode_attention(..., blocks=n)``: the reductions
+     over the blocks on one card): layer 0's attention within 1e-5 of
+     max |output|, top-1 equal and logits within KV_SPLIT_TOL of max
+     |logit|, each step timed.
 
 ``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py
 --sharded`` (N >= 2 cards) runs the sharded paths across cards instead:
 ``[fsdp-cards]``, falcon-mamba-7b at all 64 layers with FSDP over (N, 1),
-and ``[tp-cards]``, qwen3-0.6b on (1, N) against one card.
+and ``[tp-cards]``, qwen3-0.6b on (1, N) against one card; then
+``[sp-cards]``, qwen3-0.6b on (1, N) with ``sp`` in f32, the prefill
+within 1e-3 of one card's and 3 training steps within 1e-5;
+``[decode-tp-cards]``, qwen3-0.6b and falcon-mamba-7b on (1, N) in f32,
+16 greedy steps on a 64-position cache against one card's tokens, each
+card holding 1/N of the cache's bytes; ``[kv-seq-cards]``, qwen3-0.6b
+with ``kv_seq=("model",)`` alike on ``[kv-seq-split]``'s 32,768
+positions of seeded values (60.1 GB whole in f32); and last
+``[sp-cards-bf16]``, the 3 training steps with ``sp`` in bf16, and with
+TP alone beside them, for three seeds of batches, each held to
+SP_BF16_LOSS_RTOL of one card's losses.
 
   6. the event-horizon leap: a staggered static scenario (512 hosts of
      2 PEs, 256 VMs, 3 waves) leap on and leap off, bitwise equal, with
@@ -193,9 +220,9 @@ selective-scan counts are set to 0 just before each and read just after,
 and the bf16 prefill's dtype must route its flash launches to the
 tensor-core kernel.  The full-width training runs of 5g are the training
 slice's: all four LM kernels' counts are set to 0 just before each run
-and read just after, and so for the runs of ``[train-dp]`` and
-``[train-sharded]`` (``launches_by_path`` of each LM kernel holds its
-paths).
+and read just after, and so for the runs of ``[train-dp]``,
+``[train-sharded]`` and ``[sp-world1]`` (``launches_by_path`` of each LM
+kernel holds its paths).
 The next-to-last line is the kernels' JSON record, the last the
 device's.  Without a CUDA device, or outside a checkout, the script
 fails before printing either.
@@ -246,6 +273,45 @@ TP_SIZES = (2, 4)               # [tp-shapes]: model axes a rank's shapes
 # at all 64 layers with FSDP over (n, 1), max(2, n) x 2048 (a row a card
 # from n = 2 on), and qwen3-0.6b on (1, n), 4 x 2048, against one card
 FSDP_ARCH, TP_ARCH, CARD_STEPS = "falcon-mamba-7b", "qwen3-0.6b", 3
+SP_STEPS = 3                    # [sp-world1], [sp-cards]: qwen3-0.6b steps
+# [decode-tp-*]: (arch, slots, greedy steps, cache positions)
+DECODE_CELLS = (("qwen3-0.6b", 8, 16, 64), ("falcon-mamba-7b", 8, 16, 64))
+# [kv-seq-split], [kv-seq-cards]: qwen3-0.6b, 8 slots, a cache of 32,768
+# positions (decode_32k's) of seeded values, in f32 (28 x 8 x 32,768 x 8
+# x 128 x 4 B x 2 = 60.1 GB whole); [kv-seq-split] cuts it into these
+# numbers of blocks on one card
+KV_SPLIT_SLOTS, KV_SPLIT_LEN, KV_SPLIT_BLOCKS = 8, 32_768, (4, 16)
+KV_SPLIT_DTYPE = "float32"
+# [kv-seq-split]: layer 0's attention output over the n blocks against
+# the whole cache's, of its max |output|: the same sums of 32,768 terms
+# in another order (f32 rounding ~1e-7 a term's share)
+KV_SPLIT_ATTN_TOL = 1e-5
+# [kv-seq-split]'s logits over the n blocks against the whole step's, of
+# max |logit|: those reordered f32 sums carried through 28 f32 layers
+# ([sp-cards]' f32 prefill, every product reordered, stays within 3.5e-6
+# of one card's; the port's card == CPU bound, PERF.md §2, is 1e-4).  A
+# wrong combine (a block dropped, or weighed by another block's max)
+# moves the attention outputs, and so the logits, by a large share of
+# their size
+KV_SPLIT_TOL = 1e-4
+# [sp-cards]: the prefill's logits against one card's, of max |logit|.
+# The prefill and the training steps run in f32 (the config's dtype set
+# to float32): in bf16 any change of summation order moves the logits
+# by a few bf16 ulps (3.4% of max |logit| in a bf16 decode step over a
+# cache in blocks, PERF.md §6), so 1e-3 on the logits and
+# DP_LOSS_RTOL["one"] on the losses hold in f32; [sp-cards-bf16] runs
+# the steps in bf16.  [decode-*-cards] decode in f32 for the same
+# reason: their greedy tokens must equal one card's, and in bf16 a
+# top-2 gap of one ulp is common with random weights
+SP_CARDS_TOL = 1e-3
+CARDS_DTYPE = "float32"
+# [sp-cards-bf16]: 3 bf16 steps with sp (and with TP alone) against one
+# card's losses, relative, for the batches of each seed.  JAX's own sp
+# train step in bf16 (qwen3-0.6b's smoke config, 8 x 64, 4 fake devices
+# against one) parts from one device by no more than its data-parallel
+# step does (PERF.md §6), so sp is held to data parallelism's bound
+SP_BF16_LOSS_RTOL = DP_LOSS_RTOL["cards"]
+SP_BF16_SEEDS = (0, 1, 2)
 RTOL = ATOL = 1e-6              # tests/test_simstep_parity.py's tolerance
 SIMSTEP_DESIGN = "ragged-packed-warp"
 CL_DONE = 2                     # repro_torch.core.state.CL_DONE
@@ -4109,12 +4175,14 @@ def phase_train_dp(device, card, main_losses, launched):
               f"plain ({card})")
 
 
-def run_train_sharded(device, mesh, rules, arch, batch, steps):
-    """``launch.train.train`` of ``arch`` at full size on ``mesh`` with
-    ``rules`` (the state built as this rank's blocks): ``steps`` steps of
-    a ``batch`` x PREFILL_LEN global batch.  All four LM kernels' counts
-    are set to 0 just before and read just after; the peak memory is
-    this rank's."""
+def run_train_sharded(device, mesh, rules, arch, batch, steps, cfg=None,
+                      data_seed=0):
+    """``launch.train.train`` of ``arch`` at full size (or of ``cfg``) on
+    ``mesh`` with ``rules`` (the state built as this rank's blocks; a
+    ``mesh`` of None: one card, no ranks): ``steps`` steps of a
+    ``batch`` x PREFILL_LEN global batch, the synthetic batches of
+    ``data_seed``.  All four LM kernels' counts are set to 0 just before
+    and read just after; the peak memory is this rank's."""
     import gc
 
     import torch
@@ -4131,8 +4199,13 @@ def run_train_sharded(device, mesh, rules, arch, batch, steps):
     for f in (flash_attention, flash_attention_bwd, selective_scan,
               selective_scan_bwd):
         f.launches = 0
-    rep = train(CFG.get_config(arch), steps=steps, batch=batch,
-                seq=PREFILL_LEN, device=device, mesh=mesh, rules=rules,
+    from repro_torch.data.synthetic import config_for, make_batch
+    cfg = cfg or CFG.get_config(arch)
+    scfg = config_for(cfg, batch, PREFILL_LEN)
+    rep = train(cfg, steps=steps, batch=batch, seq=PREFILL_LEN,
+                device=device, mesh=mesh, rules=rules,
+                batch_fn=lambda s: make_batch(scfg, s, seed=data_seed,
+                                              device=device),
                 log=lambda line: None)
     out = {"losses": rep.losses, "grad_norms": rep.grad_norms,
            "launches": kernel_launches(),
@@ -4168,7 +4241,7 @@ def phase_train_sharded(device, card, main_losses, launched, records):
     bit; the launches are the shape's and are added to ``launched``.
     ``[tp-shapes]``: the four LM kernels at the shapes a rank runs under
     tensor parallelism (``records``: the full shapes' records, for their
-    times)."""
+    times).  Returns ``[train-sharded]``'s peak allocated bytes."""
     from repro_torch.launch.mesh import make_local_mesh, rules_for_mesh
 
     mesh = make_local_mesh()
@@ -4197,6 +4270,7 @@ def phase_train_sharded(device, card, main_losses, launched, records):
     check(same, f"[train-sharded] losses {res['losses']} against "
           f"[train-main]'s {main_losses[:SHARDED_STEPS]}")
     phase_tp_shapes(device, card, records)
+    return res["peak"]
 
 
 def phase_tp_shapes(device, card, records):
@@ -4285,6 +4359,326 @@ def phase_tp_shapes(device, card, records):
               f"(device, graph replay) ({card})")
 
 
+def lm_counts_zero():
+    """Set the four LM kernels' counts to 0."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_bwd)
+    for f in (flash_attention, flash_attention_bwd, selective_scan,
+              selective_scan_bwd):
+        f.launches = 0
+
+
+def sp_prefill(params, cfg, tokens, constrain):
+    """``prefill``'s logits and the four LM kernels' launches in it."""
+    import torch
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.models import model as M
+    lm_counts_zero()
+    logits, kvs = M.prefill(params, cfg, tokens, constrain=constrain)
+    torch.cuda.synchronize()
+    return logits, kvs, kernel_launches()
+
+
+def phase_sp_world1(device, card, main_losses, sharded_peak, launched):
+    """``[sp-world1]``: qwen3-0.6b at full size with ``rules_for_mesh(mesh,
+    sp=True)`` on this process's one-rank group (every axis of size 1):
+    the prefill of 4 x PREFILL_LEN through ``prefill(..., constrain=)``
+    against the plain prefill, logits and KV bit for bit and the same
+    launches (28); then SP_STEPS training steps through ``train(...,
+    rules=)``: losses bitwise ``[train-main]``'s first SP_STEPS, launches
+    the shape's (168 / 84), peak memory ``[train-sharded]``'s to the
+    byte.  The counts of both runs are set to 0 just before and read
+    just after, and added to ``launched``."""
+    import gc
+
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.launch.mesh import make_local_mesh, rules_for_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import LeafCutter, make_constrain
+
+    arch = "qwen3-0.6b"
+    cfg = CFG.get_config(arch)
+    mesh = make_local_mesh()
+    rules = rules_for_mesh(mesh, sp=True)
+    gen = torch.Generator(device=device).manual_seed(0)
+    cutter = LeafCutter(mesh, rules)
+    params = M.init_params(cfg, gen, device=device, shard=cutter)
+    tokens = torch.randint(2, cfg.vocab_size, (4, PREFILL_LEN),
+                           generator=gen, device=device)
+    constrain = make_constrain(mesh, rules, 4, param_specs=cutter.specs)
+    check(constrain.seq_axis(PREFILL_LEN) is None, "[sp-world1] a model "
+          "axis of 1 split the sequence")
+    plain, plain_kv, plain_n = sp_prefill(params, cfg, tokens, None)
+    got, got_kv, got_n = sp_prefill(params, cfg, tokens, constrain)
+    same = torch.equal(got, plain) and all(
+        torch.equal(a, b) for pa, pb in zip(got_kv, plain_kv)
+        for a, b in zip(pa, pb))
+    want_n = {"flash_attention": cfg.num_layers, "flash_attention_bwd": 0,
+              "selective_scan": 0, "selective_scan_bwd": 0}
+    check(same, "[sp-world1] the prefill under sp rules differs from the "
+          "plain prefill")
+    check(got_n == plain_n == want_n, f"[sp-world1] prefill launches "
+          f"{got_n}, plain {plain_n}, expected {want_n}")
+    for name, n in got_n.items():
+        launched[name] += n
+    print(f"[sp-world1] {arch} bf16, prefill 4 x {PREFILL_LEN} through "
+          f"prefill(constrain=make_constrain(mesh, rules_for_mesh(mesh, "
+          f"sp=True), ...)), mesh {mesh.shape}, {ranks_line()}: logits "
+          f"{list(got.shape)} and every layer's KV equal the plain "
+          f"prefill's bit for bit: {same}; launches {got_n} (plain "
+          f"{plain_n}) ({card})")
+    # nothing of the prefill may stay allocated: the training run's peak
+    # is held to [train-sharded]'s to the byte
+    del params, tokens, plain, plain_kv, got, got_kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = run_train_sharded(device, mesh, rules, arch, 4, SP_STEPS)
+    want = lm_launches(arch, SP_STEPS)
+    check(res["launches"] == want, f"[sp-world1] train launches "
+          f"{res['launches']}, expected {want}")
+    for name, n in res["launches"].items():
+        launched[name] += n
+    same = res["losses"] == main_losses[:SP_STEPS]
+    print(f"[sp-world1] {arch} bf16, global batch 4 x {PREFILL_LEN}, "
+          f"{SP_STEPS} steps through train(mesh=make_local_mesh(), "
+          f"rules=rules_for_mesh(mesh, sp=True)): losses "
+          f"{res['losses']!r}, equal to [train-main]'s first {SP_STEPS} bit "
+          f"for bit: {same}; step ms {res['step_ms']!r} (host clock, "
+          f"synced); peak allocated {res['peak']} bytes against "
+          f"[train-sharded]'s {sharded_peak}; launches {res['launches']} (= "
+          f"the shape's prediction) ({card})")
+    check(same, f"[sp-world1] losses {res['losses']} against "
+          f"[train-main]'s {main_losses[:SP_STEPS]}")
+    check(res["peak"] == sharded_peak, f"[sp-world1] peak {res['peak']} "
+          f"against [train-sharded]'s {sharded_peak}")
+
+
+def spread_positions(slots, max_seq, steps, device):
+    """Start positions i32[slots] spread over a cache of ``max_seq``: slot
+    i at ``max_seq - steps - i * (max_seq // slots)``, so that ``steps``
+    steps end inside it."""
+    import torch
+    return (max_seq - steps - torch.arange(slots, device=device)
+            * (max_seq // slots)).to(torch.int32)
+
+
+def seeded_cache(cfg, slots, max_seq, device, constrain=None):
+    """``init_cache(..., constrain=)``'s caches filled with seeded values:
+    each global leaf drawn a block (layer) at a time from a normal
+    generator seeded 1, of which this rank keeps its block under the
+    cache's spec (``shard_leaf``): the same global cache at every world
+    size, never whole on one rank."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import shard_leaf
+    caches = M.init_cache(cfg, slots, max_seq, device=device,
+                          constrain=constrain)
+    shapes = M.init_cache(cfg, slots, max_seq, device="meta")
+    specs = None if constrain is None else constrain.cache_block_specs
+    gen = torch.Generator(device=device).manual_seed(1)
+    for k, sub in caches.items():
+        for n, c in sub.items():
+            for j in range(c.shape[0]):
+                g = torch.randn(shapes[k][n].shape[1:], generator=gen,
+                                device=device, dtype=c.dtype)
+                c[j].copy_(g if specs is None else
+                           shard_leaf(g, specs[k][n], constrain.mesh))
+    return caches
+
+
+def greedy_decode(params, cfg, slots, steps, max_seq, device,
+                  constrain=None, tokens=None, filled=False):
+    """``steps`` greedy decode steps of ``slots`` sequences through
+    ``decode_step`` on the caches of ``init_cache`` (both with
+    ``constrain``), fed ``tokens`` (the first step's, [slots, 1]): from
+    position 0, or, ``filled``, on ``seeded_cache``'s caches from
+    ``spread_positions``.  Returns the tokens fed [steps, slots, 1], the
+    logits of every step, the caches' bytes and the host seconds of
+    each step (synced)."""
+    import torch
+    from repro_torch.models import model as M
+    if filled:
+        caches = seeded_cache(cfg, slots, max_seq, device, constrain)
+        start = spread_positions(slots, max_seq, steps, device)
+    else:
+        caches = M.init_cache(cfg, slots, max_seq, device=device,
+                              constrain=constrain)
+        start = torch.zeros((slots,), dtype=torch.int32, device=device)
+    fed, logits, seconds = [], [], []
+    tok = tokens
+    for p in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, caches = M.decode_step(params, cfg, tok, caches, start + p,
+                                    constrain=constrain)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        fed.append(tok)
+        logits.append(out)
+        tok = out.argmax(-1).to(torch.int32)
+    return torch.stack(fed), torch.stack(logits), tree_bytes(caches), \
+        seconds
+
+
+def decode_constrain(cfg, mesh, rules, slots, max_seq, specs):
+    """``make_constrain`` for decode: the parameters' and the caches'
+    specs."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import make_constrain
+    return make_constrain(mesh, rules, slots, param_specs=specs,
+                          cache_specs=M.cache_specs(cfg, mesh, rules, slots,
+                                                    max_seq))
+
+
+def phase_decode_tp_world1(device, card):
+    """``[decode-tp-world1]``: each of DECODE_CELLS at full size, its
+    parameters cut by ``rules_for_mesh(mesh, kv_seq=("model",))`` on
+    this process's one-rank group (every axis of size 1), greedy decode
+    through ``decode_step(..., constrain=)`` on the caches of
+    ``init_cache(..., constrain=)``: the tokens and logits of every step
+    equal the plain decode's bit for bit."""
+    import gc
+
+    import torch
+    from repro_torch import configs as CFG
+    from repro_torch.launch.mesh import make_local_mesh, rules_for_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import LeafCutter
+
+    mesh = make_local_mesh()
+    rules = rules_for_mesh(mesh, kv_seq=("model",))
+    for arch, slots, steps, max_seq in DECODE_CELLS:
+        cfg = CFG.get_config(arch)
+        gen = torch.Generator(device=device).manual_seed(0)
+        cutter = LeafCutter(mesh, rules)
+        params = M.init_params(cfg, gen, device=device, shard=cutter)
+        first = torch.randint(2, cfg.vocab_size, (slots, 1), generator=gen,
+                              device=device, dtype=torch.int32)
+        constrain = decode_constrain(cfg, mesh, rules, slots, max_seq,
+                                     cutter.specs)
+        plain = greedy_decode(params, cfg, slots, steps, max_seq, device,
+                              tokens=first)
+        got = greedy_decode(params, cfg, slots, steps, max_seq, device,
+                            constrain, first)
+        same = torch.equal(got[0], plain[0]) and torch.equal(got[1],
+                                                             plain[1])
+        print(f"[decode-tp-world1] {arch} bf16, {cfg.num_layers} layers, "
+              f"{slots} slots, {steps} greedy steps through decode_step("
+              f"constrain=) on init_cache(constrain=)'s {got[2]} cache bytes "
+              f"(plain {plain[2]}), rules_for_mesh(mesh, kv_seq=(\"model\","
+              f")), mesh {mesh.shape}, {ranks_line()}: tokens and logits "
+              f"equal the plain decode's bit for bit: {same}; step ms "
+              f"{statistics.median(got[3][1:]) * 1e3!r} against "
+              f"{statistics.median(plain[3][1:]) * 1e3!r} (median after the "
+              f"first, host clock, synced) ({card})")
+        check(same and got[2] == plain[2], f"[decode-tp-world1] {arch}: "
+              f"decode under constrain differs from the plain decode")
+        del params, plain, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_kv_seq_split(device, card):
+    """``[kv-seq-split]``: qwen3-0.6b at full width and depth in
+    KV_SPLIT_DTYPE, KV_SPLIT_SLOTS slots on ``seeded_cache``'s cache of
+    KV_SPLIT_LEN positions, the slots at ``spread_positions``.  Layer
+    0's attention (its query from the new tokens) over the whole cache
+    against ``decode_attention(..., blocks=n)`` (each block's
+    ``decode_attention_partial`` at its offset, ``decode_attention_combine``
+    over them) for n in KV_SPLIT_BLOCKS: within KV_SPLIT_ATTN_TOL of max
+    |output|.  Then one ``decode_step`` whole and with ``attend=`` that
+    attention in n blocks: top-1 equal, logits within KV_SPLIT_TOL of
+    max |logit|; each step timed (host clock, synced).  The slot each
+    step writes is restored before the next, so all read the same
+    cache."""
+    import functools
+    import gc
+
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import block_slice
+
+    cfg = config_in("qwen3-0.6b", KV_SPLIT_DTYPE)
+    b, smax = KV_SPLIT_SLOTS, KV_SPLIT_LEN
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = M.init_params(cfg, gen, device=device)
+    caches = seeded_cache(cfg, b, smax, device)
+    cache_bytes = tree_bytes(caches)
+    tok = torch.randint(2, cfg.vocab_size, (b, 1), generator=gen,
+                        device=device, dtype=torch.int32)
+    position = spread_positions(b, smax, 1, device)
+    cache_len = position + 1
+
+    # layer 0's attention, whole and in blocks
+    with torch.no_grad():
+        p0 = block_slice(params["blocks"], 0)["sub0"]
+        h = rms_norm(M.embed_tokens(params, cfg, tok), p0["norm1"],
+                     cfg.norm_eps)
+        q, _, _ = attn._project_qkv(p0["mixer"], cfg, h, position[:, None])
+        k0, v0 = caches["sub0"]["k"][0], caches["sub0"]["v"][0]
+        ref = attn.decode_attention(q, k0, v0, cache_len)
+        attn_err = {n: float((attn.decode_attention(
+            q, k0, v0, cache_len, blocks=n) - ref).abs().max())
+            for n in KV_SPLIT_BLOCKS}
+        attn_top = float(ref.abs().max())
+        del q, h, ref
+
+    bidx = torch.arange(b, device=device)
+    slot = (position % smax).long()
+    saved = {k: {n: c[:, bidx, slot].clone() for n, c in sub.items()}
+             for k, sub in caches.items()}
+
+    def step(n):
+        attend = None if n == 1 else functools.partial(attn.decode_attention,
+                                                       blocks=n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = M.decode_step(params, cfg, tok, caches, position,
+                                  attend=attend)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, sub in caches.items():
+            for n_, c in sub.items():
+                c[:, bidx, slot] = saved[k][n_]
+        return logits[:, 0].float(), wall
+
+    step(1)                                         # warm, not kept
+    whole, whole_s = step(1)
+    top = float(whole.abs().max())
+    gap = whole.topk(2, dim=-1).values
+    gap = float((gap[:, 0] - gap[:, 1]).min())
+    print(f"[kv-seq-split] qwen3-0.6b {KV_SPLIT_DTYPE}, {cfg.num_layers} "
+          f"layers, {b} slots at positions {position.tolist()}, a cache of "
+          f"{smax} positions ({cache_bytes} bytes): the whole step "
+          f"{whole_s * 1e3!r} ms (host clock, synced); max |logit| {top!r}, "
+          f"smallest top-2 gap {gap!r} ({card})")
+    for n in KV_SPLIT_BLOCKS:
+        got, got_s = step(n)
+        err = float((got - whole).abs().max())
+        same = torch.equal(got.argmax(-1), whole.argmax(-1))
+        print(f"[kv-seq-split] the cache's sequence in {n} blocks (partials "
+              f"combined over the blocks on one card): layer 0's attention "
+              f"output {attn_err[n]!r} from the whole cache's (tol "
+              f"{KV_SPLIT_ATTN_TOL} x max |output| {attn_top!r}); the step's "
+              f"logits {err!r} from the whole step's (tol {KV_SPLIT_TOL} x "
+              f"max |logit| {top!r}), top-1 equal on every slot: {same}; "
+              f"step {got_s * 1e3!r} ms against {whole_s * 1e3!r} ms whole "
+              f"(host clock, synced) ({card})")
+        check(attn_err[n] <= KV_SPLIT_ATTN_TOL * attn_top, f"[kv-seq-split] "
+              f"{n} blocks: layer 0's attention error {attn_err[n]}")
+        check(same and err <= KV_SPLIT_TOL * top, f"[kv-seq-split] {n} "
+              f"blocks: logits error {err} (tol {KV_SPLIT_TOL} x {top}), "
+              f"top-1 equal {same}")
+    del params, caches, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main_sharded():
     """``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py
     --sharded`` on N >= 2 cards: the sharded paths across them, each rank
@@ -4293,8 +4687,9 @@ def main_sharded():
     CARD_STEPS steps with FSDP over (N, 1), max(2, N) x 2048: losses,
     step time and peak memory per card; then qwen3-0.6b on (1, N)
     (tensor parallelism), 4 x 2048, CARD_STEPS steps, against one card
-    (rank 0 alone): losses within DP_LOSS_RTOL["cards"].  Rank 0 prints;
-    the last line is a JSON summary."""
+    (rank 0 alone): losses within DP_LOSS_RTOL["cards"]; then
+    ``sp_cards`` and ``decode_cards``.  Rank 0 prints; the last line is a
+    JSON summary."""
     import torch
     import torch.distributed as dist
     if not torch.cuda.is_available():
@@ -4383,11 +4778,229 @@ def main_sharded():
         summary["tp"] = {"losses": tp[0]["losses"], "one": one["losses"],
                          "step_ms": [r["step_ms"] for r in tp],
                          "one_step_ms": one["step_ms"]}
+    summary["sp"] = sp_cards(device, card, world, everyone)
+    summary["decode"] = decode_cards(device, card, world, everyone)
+    # last, so that every other phase reports before its check
+    summary["sp_bf16"] = sp_cards_bf16(device, card, world, everyone)
+    if rank == 0:
         print(json.dumps({"sharded": summary, "world": world,
                           "kind": torch.cuda.get_device_name(0)}))
+        for run, err in summary["sp_bf16"].items():
+            check(err <= SP_BF16_LOSS_RTOL, f"[sp-cards-bf16] {run} (rules, "
+                  f"data seed, rank): losses part from one card's by {err} "
+                  f"(tol {SP_BF16_LOSS_RTOL})")
     dist.barrier()
     shutdown_ranks()
     return 0
+
+
+def one_card_params(cfg, device):
+    """The parameters every rank's ``LeafCutter`` cuts, whole on this
+    card, and the generator after their draws."""
+    import torch
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=device).manual_seed(0)
+    return M.init_params(cfg, gen, device=device), gen
+
+
+def cut_params(cfg, mesh, rules, device):
+    """This rank's blocks of ``one_card_params``' parameters (drawn and
+    cut leaf by leaf), their specs and the generator after the draws."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import LeafCutter
+    gen = torch.Generator(device=device).manual_seed(0)
+    cutter = LeafCutter(mesh, rules)
+    params = M.init_params(cfg, gen, device=device, shard=cutter)
+    return params, cutter.specs, gen
+
+
+def config_in(arch, dtype):
+    """``arch``'s full-size config in ``dtype``."""
+    import dataclasses
+
+    from repro_torch import configs as CFG
+    return dataclasses.replace(CFG.get_config(arch), dtype=dtype)
+
+
+def sp_cards(device, card, world, everyone):
+    """``[sp-cards]`` (``--sharded``): TP_ARCH in CARDS_DTYPE on (1,
+    world) with ``rules_for_mesh(mesh, sp=True)``: the prefill of 4 x
+    PREFILL_LEN (whole logits on every rank) within SP_CARDS_TOL of max
+    |logit| of one card's (rank 0), top-1 equal; then CARD_STEPS
+    training steps, losses within DP_LOSS_RTOL["one"] of one card's."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, rules_for_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.sharding.rules import make_constrain
+
+    cfg = config_in(TP_ARCH, CARDS_DTYPE)
+    mesh = make_mesh((1, world), ("data", "model"))
+    rules = rules_for_mesh(mesh, sp=True)
+    params, specs, gen = cut_params(cfg, mesh, rules, device)
+    tokens = torch.randint(2, cfg.vocab_size, (4, PREFILL_LEN),
+                           generator=gen, device=device)
+    constrain = make_constrain(mesh, rules, 4, param_specs=specs)
+    logits, _, counts = sp_prefill(params, cfg, tokens, constrain)
+    mine = {"logits": logits.float().cpu(), "launches": counts,
+            "bytes": tree_bytes(params),
+            "split": constrain.seq_axis(PREFILL_LEN)}
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = one = None
+    if mesh.rank == 0:
+        whole, _ = one_card_params(cfg, device)
+        ref, _, _ = sp_prefill(whole, cfg, tokens, None)
+        ref = ref.float().cpu()
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        one = train(cfg, steps=CARD_STEPS, batch=4, seq=PREFILL_LEN,
+                    device=device, log=lambda line: None).losses
+    got = everyone(mine)
+    train_res = everyone(run_train_sharded(device, mesh, rules, TP_ARCH, 4,
+                                           CARD_STEPS, cfg))
+    dist.barrier()
+    if mesh.rank != 0:
+        return None
+    top = float(ref.abs().max())
+    out = {}
+    for r, (res, tr) in enumerate(zip(got, train_res)):
+        err = float((res["logits"] - ref).abs().max())
+        same = torch.equal(res["logits"].argmax(-1), ref.argmax(-1))
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(tr["losses"], one))
+        print(f"[sp-cards] {TP_ARCH} on (\"data\", \"model\") = (1, "
+              f"{world}) with sp (sequence split over {res['split']!r}), "
+              f"rank {r} of {world} ({res['bytes']} {CARDS_DTYPE} parameter "
+              f"bytes): prefill 4 x {PREFILL_LEN} in {CARDS_DTYPE}, logits "
+              f"error {err!r} against one "
+              f"card's (tol {SP_CARDS_TOL} x max |logit| {top!r}), top-1 "
+              f"equal {same}, launches {res['launches']}; {CARD_STEPS} "
+              f"steps: losses {tr['losses']!r} against one card's "
+              f"{one!r}, largest difference {lerr!r} (relative); "
+              f"step ms {tr['step_ms']!r}; peak allocated {tr['peak']} bytes "
+              f"({card})")
+        check(res["split"] == "model" and err <= SP_CARDS_TOL * top and same,
+              f"[sp-cards] rank {r}: prefill error {err}, top-1 {same}")
+        check(lerr <= DP_LOSS_RTOL["one"], f"[sp-cards] rank {r}: losses "
+              f"part from one card's by {lerr}")
+        out[r] = {"err": err, "losses": tr["losses"],
+                  "step_ms": tr["step_ms"], "peak": tr["peak"]}
+    return out
+
+
+def sp_cards_bf16(device, card, world, everyone):
+    """``[sp-cards-bf16]`` (``--sharded``): TP_ARCH in its own dtype (bf16)
+    on (1, world), CARD_STEPS training steps of 4 x PREFILL_LEN with
+    ``rules_for_mesh(mesh, sp=True)`` and, beside it, with TP alone,
+    against one card's losses (rank 0), for the synthetic batches of each
+    of SP_BF16_SEEDS.  Returns, on rank 0, each run's largest relative
+    difference on each rank; the caller holds every one to
+    SP_BF16_LOSS_RTOL."""
+    from repro_torch.launch.mesh import make_mesh, rules_for_mesh
+
+    mesh = make_mesh((1, world), ("data", "model"))
+    out = {}
+    for seed in SP_BF16_SEEDS:
+        one = None
+        if mesh.rank == 0:
+            one = run_train_sharded(device, None, None, TP_ARCH, 4,
+                                    CARD_STEPS, data_seed=seed)["losses"]
+        for name, sp in (("sp", True), ("tp", False)):
+            got = everyone(run_train_sharded(
+                device, mesh, rules_for_mesh(mesh, sp=sp), TP_ARCH, 4,
+                CARD_STEPS, data_seed=seed))
+            if mesh.rank != 0:
+                continue
+            for r, tr in enumerate(got):
+                err = max(abs(a - b) / abs(b) for a, b in zip(tr["losses"],
+                                                             one))
+                print(f"[sp-cards-bf16] {TP_ARCH} bf16 on (\"data\", "
+                      f"\"model\") = (1, {world}), {name} rules, data seed "
+                      f"{seed}, rank {r} of {world}: 4 x {PREFILL_LEN}, "
+                      f"losses {tr['losses']!r} against one card's {one!r}: "
+                      f"largest difference {err!r} (relative; tol "
+                      f"{SP_BF16_LOSS_RTOL}); step ms {tr['step_ms']!r} "
+                      f"({card})")
+                out[f"{name}:{seed}:{r}"] = err
+    return out if mesh.rank == 0 else None
+
+
+def decode_cards(device, card, world, everyone):
+    """``[decode-tp-cards]`` and ``[kv-seq-cards]`` (``--sharded``): each
+    of DECODE_CELLS on (1, world) under ``rules_for_mesh(mesh)`` from
+    position 0, and TP_ARCH with ``kv_seq=("model",)`` on
+    ``seeded_cache``'s KV_SPLIT_SLOTS x KV_SPLIT_LEN positions from
+    ``spread_positions``, in CARDS_DTYPE: greedy decode through
+    ``decode_step(..., constrain=)`` on ``init_cache(...,
+    constrain=)``'s blocks against one card's (rank 0): tokens equal
+    over every step, each card's cache bytes 1/world of one card's."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, rules_for_mesh
+
+    mesh = make_mesh((1, world), ("data", "model"))
+    runs = [("decode-tp-cards", arch, slots, steps, max_seq, (), False)
+            for arch, slots, steps, max_seq in DECODE_CELLS]
+    runs.append(("kv-seq-cards", TP_ARCH, KV_SPLIT_SLOTS, DECODE_CELLS[0][2],
+                 KV_SPLIT_LEN, ("model",), True))
+    out = {}
+    for tag, arch, slots, steps, max_seq, kv_seq, filled in runs:
+        cfg = config_in(arch, CARDS_DTYPE)
+        rules = rules_for_mesh(mesh, kv_seq=kv_seq)
+        params, specs, gen = cut_params(cfg, mesh, rules, device)
+        first = torch.randint(2, cfg.vocab_size, (slots, 1), generator=gen,
+                              device=device, dtype=torch.int32)
+        constrain = decode_constrain(cfg, mesh, rules, slots, max_seq, specs)
+        fed, logits, nbytes, secs = greedy_decode(
+            params, cfg, slots, steps, max_seq, device, constrain, first,
+            filled)
+        mine = {"fed": fed.cpu(), "bytes": nbytes,
+                "ms": statistics.median(secs[1:]) * 1e3}
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = None
+        if mesh.rank == 0:
+            whole, _ = one_card_params(cfg, device)
+            ref = greedy_decode(whole, cfg, slots, steps, max_seq, device,
+                                tokens=first, filled=filled)
+            ref = {"fed": ref[0].cpu(), "bytes": ref[2],
+                   "ms": statistics.median(ref[3][1:]) * 1e3}
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        got = everyone(mine)
+        dist.barrier()
+        if mesh.rank != 0:
+            continue
+        how = "seeded, from positions spread over it" if filled else \
+            "from position 0"
+        for r, res in enumerate(got):
+            same = torch.equal(res["fed"], ref["fed"])
+            agree = int((res["fed"] == ref["fed"]).all(-1).all(-1).sum())
+            print(f"[{tag}] {arch} {CARDS_DTYPE} on (\"data\", \"model\") "
+                  f"= (1, {world}), kv_seq {kv_seq}, rank {r} of {world}: "
+                  f"{slots} slots, a cache of {max_seq} positions ({how}), "
+                  f"{steps} greedy steps, tokens equal one card's: "
+                  f"{same} ({agree} of {steps} steps agree on every slot); "
+                  f"cache {res['bytes']} bytes against one card's "
+                  f"{ref['bytes']}; step {res['ms']!r} ms against "
+                  f"{ref['ms']!r} (median after the first, host clock, "
+                  f"synced) ({card})")
+            check(same and res["bytes"] * world == ref["bytes"],
+                  f"[{tag}] {arch} rank {r}: tokens equal {same}, cache "
+                  f"bytes {res['bytes']} of {ref['bytes']}")
+        out[f"{tag}:{arch}"] = {"max_seq": max_seq,
+                                "ms": [g["ms"] for g in got],
+                                "one_ms": ref["ms"]}
+    return out
 
 
 def moe_ep_one_rank(params, cfg, tokens, card):
@@ -4630,24 +5243,32 @@ def main():
     # the sharded parameter specs at run time: [train-sharded] (counts set
     # to 0 just before the run, read just after) and [tp-shapes]
     sharded = dict.fromkeys(trained, 0)
-    phase_train_sharded(device, card, main_losses["qwen3-0.6b"], sharded,
-                        lm_records + train_records)
+    sharded_peak = phase_train_sharded(device, card,
+                                       main_losses["qwen3-0.6b"], sharded,
+                                       lm_records + train_records)
+    # the rest of the sharding rules: [sp-world1] (counts set to 0 just
+    # before its prefill and its training run, read just after each),
+    # [decode-tp-world1] and [kv-seq-split]
+    sp = dict.fromkeys(trained, 0)
+    phase_sp_world1(device, card, main_losses["qwen3-0.6b"], sharded_peak,
+                    sp)
+    phase_decode_tp_world1(device, card)
+    phase_kv_seq_split(device, card)
     shutdown_ranks()
+    paths = {"train": trained, "train-dp": dp, "train-sharded": sharded,
+             "sp-world1": sp}
     for r in lm_records:
         r["launches_by_path"] = {"prefill": r["launches"],
-                                 "train": trained[r["name"]],
-                                 "train-dp": dp[r["name"]],
-                                 "train-sharded": sharded[r["name"]]}
-        r["launches"] += trained[r["name"]] + dp[r["name"]] + \
-            sharded[r["name"]]
+                                 **{k: v[r["name"]] for k, v in paths.items()}}
+        r["launches"] += sum(v[r["name"]] for v in paths.values())
     check(dp["flash_attention"] > 0, "flash_attention never launched on the "
           "train-dp path")
+    check(sp["flash_attention"] > 0 and sp["flash_attention_bwd"] > 0,
+          "flash_attention or its backward never launched on the sp-world1 "
+          "path")
     for r in train_records:
-        r["launches_by_path"] = {"train": trained[r["name"]],
-                                 "train-dp": dp[r["name"]],
-                                 "train-sharded": sharded[r["name"]]}
-        r["launches"] = trained[r["name"]] + dp[r["name"]] + \
-            sharded[r["name"]]
+        r["launches_by_path"] = {k: v[r["name"]] for k, v in paths.items()}
+        r["launches"] = sum(v[r["name"]] for v in paths.values())
         check(r["launches"] > 0, f"{r['name']} never launched on the "
               f"training path")
     check(dp["flash_attention_bwd"] > 0, "flash_attention_bwd never launched "

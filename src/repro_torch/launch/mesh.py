@@ -27,7 +27,12 @@ feeds the same computation on every rank of the axes); ``gather``
 (FSDP's) reduce-scatters it instead (the whole feeds computations that
 differ along the axes: other rows of the batch, other heads), in f32.
 Gradients of leaves a rank holds whole are then this rank's share,
-summed over the batch axes by the train step.
+summed over the batch axes by the train step.  The sequence-parallel
+residual stream also takes the whole sequence into a tensor-parallel
+sub-layer through ``gather``, and adds ``scatter`` (a reduce-scatter;
+the gradient all-gathered) and ``split`` (this rank's block of a tensor
+the ranks hold alike; the gradient all-gathered).  Axes of size 1 cost
+nothing in these two: no collective.
 
 ``init_ranks`` starts the process group: NCCL on ``cuda:LOCAL_RANK`` by
 default, gloo when ``device="cpu"``.  Under ``torchrun`` it reads
@@ -136,8 +141,30 @@ class Mesh:
         """The blocks of ``axes`` concatenated along ``dim``, as
         ``all_gather``; the gradient is reduce-scattered: summed over
         ``axes`` in f32 (one ``reduce_scatter``), this rank's block kept
-        and cast to ``x``'s dtype.  FSDP's gather at use."""
+        and cast to ``x``'s dtype.  FSDP's gather at use, and the
+        sequence's at a tensor-parallel sub-layer's entry."""
         return _Gather.apply(x, self.group(axes), dim, self.axis_size(axes))
+
+    def scatter(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """The sum over the ranks of ``axes`` of ``x``, of which this rank
+        keeps its block along ``dim`` (one ``reduce_scatter`` in ``x``'s
+        dtype; JAX's ``psum_scatter``); the gradient is all-gathered
+        (every rank's block feeds the sum).  On axes of size 1, ``x``."""
+        n = self.axis_size(axes)
+        if n == 1:
+            return x
+        return _Scatter.apply(x, self.group(axes), dim, n)
+
+    def split(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of ``x``, which every rank of
+        ``axes`` holds alike; the gradient is all-gathered (each block
+        of ``x`` feeds the loss on its own rank).  On axes of size 1,
+        ``x``."""
+        n = self.axis_size(axes)
+        if n == 1:
+            return x
+        return _Split.apply(x, self.group(axes), dim, n,
+                            self.axis_index(axes))
 
     def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The elementwise maximum over the ranks of ``axes``, without a
@@ -194,24 +221,61 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
+def _gathered(x, group, dim: int, n: int) -> torch.Tensor:
+    """The blocks ``x`` of the ``n`` ranks of ``group`` concatenated along
+    ``dim`` (one ``all_gather`` into a tensor)."""
+    xm = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xm.shape[0], *xm.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _gather_into(out, xm, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _scattered(x, group, dim: int, n: int, dtype) -> torch.Tensor:
+    """The sum of ``x`` over the ``n`` ranks of ``group`` in ``dtype``,
+    this rank's block along ``dim`` (one ``reduce_scatter``), cast back
+    to ``x``'s dtype."""
+    xm = x.movedim(dim, 0).to(dtype).contiguous()
+    out = torch.empty((xm.shape[0] // n, *xm.shape[1:]), dtype=dtype,
+                      device=x.device)
+    _reduce_scatter(out, xm, group=group)
+    return out.movedim(0, dim).to(x.dtype).contiguous()
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim, n):
-        ctx.group, ctx.dim, ctx.dtype = group, dim, x.dtype
-        xm = x.movedim(dim, 0).contiguous()
-        out = torch.empty((n * xm.shape[0], *xm.shape[1:]), dtype=x.dtype,
-                          device=x.device)
-        _gather_into(out, xm, group=group)
-        return out.movedim(0, dim).contiguous()
+        ctx.group, ctx.dim, ctx.n = group, dim, n
+        return _gathered(x, group, dim, n)
 
     @staticmethod
     def backward(ctx, g):
-        gm = g.movedim(ctx.dim, 0).to(torch.float32).contiguous()
-        n = dist.get_world_size(ctx.group)
-        out = torch.empty((gm.shape[0] // n, *gm.shape[1:]),
-                          dtype=torch.float32, device=g.device)
-        _reduce_scatter(out, gm, group=ctx.group)
-        return out.movedim(0, ctx.dim).to(ctx.dtype), None, None, None
+        return (_scattered(g, ctx.group, ctx.dim, ctx.n, torch.float32),
+                None, None, None)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, n):
+        ctx.group, ctx.dim, ctx.n = group, dim, n
+        return _scattered(x, group, dim, n, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.group, ctx.dim, ctx.n), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, n, index):
+        ctx.group, ctx.dim, ctx.n = group, dim, n
+        block = x.shape[dim] // n
+        return x.narrow(dim, index * block, block).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gathered(g, ctx.group, ctx.dim, ctx.n), None, None, None,
+                None)
 
 
 def abstract_mesh(axis_sizes, axis_names, rank: int = 0) -> Mesh:

@@ -11,6 +11,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import enter, leave
+
 __all__ = ["rms_norm", "rope", "apply_rope", "swiglu", "dense_init",
            "init_mlp", "mlp", "torch_dtype"]
 
@@ -74,20 +76,24 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, tp=None, sp=None) -> torch.Tensor:
     """SwiGLU feed-forward: x [.., D] -> [.., D].
 
     ``tp`` (a ``sharding.rules.TensorParallel``): with ``ffn`` cut over
     the model axis, ``gate``/``up`` are this rank's columns and ``down``
     its rows; the input fans out over the model ranks and the output is
     their psum.  A leaf that fell back to replication is whole, and
-    every model rank computes the whole MLP."""
-    if tp is not None and tp.cut("gate", 1):
-        x = tp.fan_out(x)
-    elif tp is not None:
+    every model rank computes the whole MLP.
+
+    ``sp`` (a ``sharding.rules.SequenceParallel``): x [B, S/m, D] is the
+    rank's block of the sequence; the whole sequence is gathered at
+    entry, in place of the fan-out, and the output reduce-scattered
+    over the sequence, in place of the psum (or, computed whole, the
+    rank's block kept)."""
+    if tp is not None and not tp.cut("gate", 1):
         params = {k: tp.whole(w, k, differ=False) for k, w in params.items()}
         tp = None
+    x = enter(x, tp, sp)
     g = x @ params["gate"]
     u = x @ params["up"]
-    y = swiglu(g, u) @ params["down"]
-    return y if tp is None else tp.psum(y)
+    return leave(swiglu(g, u) @ params["down"], tp, sp)

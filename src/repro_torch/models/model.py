@@ -17,7 +17,14 @@ tensor parallelism at run time): the embedding is a lookup masked to
 the rank's vocabulary rows and psummed over the model axis, the logits
 stay cut over the vocabulary, and the cross-entropy takes its max and
 its sum of exponentials over the model ranks and the gold logit from
-the rank that holds it.  Entry points run where the parameters live:
+the rank that holds it.  Under ``rules.sp`` the residual stream is the
+rank's block of the sequence: the embedding ends in a reduce-scatter
+over the sequence (or keeps the rank's block of a whole lookup), and
+the final hidden sequence is gathered before the logits, which stay
+cut over the vocabulary.  ``decode_step`` and ``init_cache`` take the
+same ``constrain``; given ``cache_specs`` each cache is this rank's
+block under ``cache_pspecs`` (see ``cache_specs``).  Entry points run
+where the parameters live:
 ``init_params`` puts them on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
@@ -32,9 +39,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, rms_norm, torch_dtype
+from repro_torch.sharding.rules import cache_pspecs, leave
 
 __all__ = ["init_params", "embed_tokens", "compute_logits", "forward",
-           "loss_fn", "prefill", "decode_step", "init_cache",
+           "loss_fn", "prefill", "decode_step", "init_cache", "cache_specs",
            "MOE_AUX_COEF"]
 
 MOE_AUX_COEF = 0.01
@@ -103,6 +111,18 @@ def _head_name(cfg: ModelConfig) -> str:
     return "embed" if cfg.tie_embeddings else "head"
 
 
+def _seq_len(tokens, vision_embeds) -> int:
+    """The length of the sequence ``embed_tokens`` makes."""
+    return tokens.shape[1] + (0 if vision_embeds is None
+                              else vision_embeds.shape[1])
+
+
+def _seq(constrain, seq_len: int):
+    """The ``SequenceParallel`` view of a forward over ``seq_len``
+    positions, or None."""
+    return None if constrain is None else constrain.seq(seq_len)
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
                  vision_embeds: Optional[torch.Tensor] = None,
                  constrain=None) -> torch.Tensor:
@@ -113,8 +133,13 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
     order, so two training runs would part in the embedding's last bits).
     With the vocabulary cut over the model axis, each rank looks up the
     tokens of its rows (zero for the others) and the ranks' lookups are
-    psummed.
+    psummed (the vision tokens counted once, on model rank 0).  Under
+    ``rules.sp`` (``constrain.seq`` of S(+P)) the result is this rank's
+    block [B, (S+P)/m, D] of the sequence: the ranks' lookups are
+    reduce-scattered over it in place of the psum, or a whole lookup
+    keeps the rank's block (``sharding.rules.leave``).
     """
+    sp = _seq(constrain, _seq_len(tokens, vision_embeds))
     table, tp = _top_leaf(params, "embed", constrain)
     lookup = F.embedding
     if tp is not None:
@@ -133,11 +158,12 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
             x = x + lookup(tokens[..., c], table[c])
     else:
         x = lookup(tokens, table)
-    if tp is not None:
-        x = tp.psum(x)
     if vision_embeds is not None:
-        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
-    return x
+        vision = vision_embeds.to(x.dtype)
+        if tp is not None and tp.index:
+            vision = torch.zeros_like(vision)      # summed once, below
+        x = torch.cat([vision, x], dim=1)
+    return leave(x, tp, sp)
 
 
 def compute_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
@@ -166,16 +192,20 @@ def forward(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
     ``transformer.apply_blocks``; it defaults to "none" here (JAX's
     ``forward`` defaults to "nothing"), so a call keeps its launches, and
     ``loss_fn`` defaults to "nothing" as JAX's does.  ``constrain`` goes
-    to every MoE sub-layer."""
+    to every MoE sub-layer.  Under ``rules.sp`` the blocks run on this
+    rank's block of the sequence, and the final hidden sequence is
+    gathered whole (its gradient the rank's block)."""
+    s = _seq_len(tokens, vision_embeds)
+    sp = _seq(constrain, s)
     x = embed_tokens(params, cfg, tokens, vision_embeds, constrain)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    positions = torch.arange(s, device=x.device)[None, :]
     x, kvs, aux, moe = tfm.apply_blocks(params["blocks"], cfg, x, positions,
                                         remat=remat, collect_kv=collect_kv,
                                         constrain=constrain)
     if metrics is not None:
         metrics.extend(moe)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, kvs, aux
+    x = rms_norm(x, tfm._scale(params, "final_norm", sp), cfg.norm_eps)
+    return (x if sp is None else sp.all_gather(x)), kvs, aux
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
@@ -237,9 +267,21 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               device=None) -> dict:
+               device=None, constrain=None) -> dict:
+    """Zeroed decode caches for ``batch`` sequences of up to ``max_seq``
+    (``transformer.init_block_caches``); with ``constrain`` carrying
+    ``cache_specs``, this rank's block of each, never the whole."""
     return tfm.init_block_caches(cfg, batch, max_seq,
-                                 resolve_device(device))
+                                 resolve_device(device), constrain)
+
+
+def cache_specs(cfg: ModelConfig, mesh, rules, batch: int,
+                max_seq: int) -> dict:
+    """``cache_pspecs`` of ``init_cache(cfg, batch, max_seq)``'s global
+    caches (shapes only: nothing is allocated), for
+    ``make_constrain(..., cache_specs=)``."""
+    return cache_pspecs(cfg, mesh, rules, batch,
+                        init_cache(cfg, batch, max_seq, device="meta"))
 
 
 @torch.no_grad()
@@ -263,12 +305,29 @@ def prefill(params, cfg: ModelConfig, tokens, *, vision_embeds=None,
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, tokens_new, caches, position):
+def decode_step(params, cfg: ModelConfig, tokens_new, caches, position, *,
+                constrain=None, attend=None):
     """One token for every sequence: tokens_new [B,1] (or [B,1,CB]),
     position i32[B].  Returns (logits [B,1,V...], caches), the caches
-    updated in place."""
-    x = embed_tokens(params, cfg, tokens_new)
+    updated in place.
+
+    ``constrain`` (``sharding.rules.make_constrain`` on a live mesh):
+    the tokens, positions and caches are this rank's rows, the leaves
+    (given ``param_specs``) and caches (given ``cache_specs``) its
+    blocks, as JAX's ``decode_step`` jitted with ``param_pspecs`` and
+    ``cache_pspecs`` in-shardings runs them; the logits are whole
+    (gathered over the model axis when the vocabulary is cut).
+
+    ``attend``: the decode attention over a cache this rank holds whole
+    in positions (``attention.decode_attention`` when None; with
+    ``blocks=n`` it sums over n blocks of positions on one device, as
+    the ranks under ``kv_seq`` sum over theirs)."""
+    x = embed_tokens(params, cfg, tokens_new, constrain=constrain)
     x, caches = tfm.apply_blocks_decode(params["blocks"], caches, cfg, x,
-                                        position)
+                                        position, constrain, attend)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return compute_logits(params, cfg, x), caches
+    logits = compute_logits(params, cfg, x, constrain)
+    tp = _vocab_tp(_head_name(cfg), constrain)[1]
+    if tp is not None:
+        logits = tp.mesh.all_gather(logits, tp.axis, dim=logits.dim() - 1)
+    return logits, caches

@@ -31,7 +31,11 @@ live mesh), a rank holds its rows of the batch:
 
 In both, the load-balance terms ``me`` and ``ce`` are averaged over the
 batch axes before their product, and ``dropped_frac`` counts every
-rank's pairs.
+rank's pairs.  Under sequence parallelism (``sp``), x is the rank's
+block of the sequence: the whole sequence is gathered over the model
+axis at entry, so routing and capacity are those of the whole, and the
+rank keeps its block of the output (``moe_block_ep`` reduce-scatters
+it over the sequence in place of its psum).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 from repro_torch.core.segments import segment_rank
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu
+from repro_torch.sharding.rules import TensorParallel, enter, leave
 
 __all__ = ["init_moe", "moe_block", "moe_block_ep", "moe_capacity",
            "top_k"]
@@ -132,21 +137,27 @@ def _combine(flat_out, order, keep, slot, w, t: int, k: int):
 
 
 def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
-              capacity: int | None = None, constrain=None
+              capacity: int | None = None, constrain=None, sp=None
               ) -> tuple[torch.Tensor, dict]:
     """x [B,S,D] -> ([B,S,D], {"load_balance_loss", "dropped_frac"}).
 
     ``constrain`` (a ``sharding.rules.Constrainer``) with a model axis
     larger than 1 that divides the experts runs ``moe_block_ep``; with
     batch axes, x is this rank's rows and routing is global (see the
-    module's docstring)."""
+    module's docstring).  ``sp`` (a ``sharding.rules.SequenceParallel``):
+    x is the rank's block of the sequence."""
     ep = constrain.ep_context() if constrain is not None else None
     if ep is not None and cfg.num_experts % ep[2] == 0:
-        return moe_block_ep(params, cfg, x, constrain)
+        return moe_block_ep(params, cfg, x, constrain, sp)
     if ep is not None and constrain.param_specs is not None:
         raise NotImplementedError(
             f"{cfg.num_experts} experts over a model axis of {ep[2]}: "
             f"sharded expert leaves need the experts to divide it")
+    if sp is not None:
+        # every model rank routes the whole sequence alike
+        y, aux = moe_block(params, cfg, enter(x, None, sp), capacity,
+                           constrain)
+        return leave(y, None, sp), aux
     b, s, d = x.shape
     t = b * s
     k, e = cfg.num_experts_per_tok, cfg.num_experts
@@ -184,7 +195,7 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                 constrain) -> tuple[torch.Tensor, dict]:
+                 constrain, sp=None) -> tuple[torch.Tensor, dict]:
     """Expert parallelism (JAX's ``shard_map`` EP): experts
     ``[shard*e_loc, (shard+1)*e_loc)`` live on model rank ``shard``,
     tokens on the batch axes (the same on every model rank).  Each rank
@@ -199,8 +210,14 @@ def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
     (a gathered FSDP dim's gradient is reduce-scattered back over its
     axes: ``Mesh.gather``).  Inside a model's blocks the FSDP dim comes
     gathered already (``transformer.apply_blocks``).  On a mesh of one
-    rank this is ``moe_block`` exactly."""
+    rank this is ``moe_block`` exactly.
+
+    ``sp`` (a ``sharding.rules.SequenceParallel`` over the model axis):
+    x is the rank's block of the sequence, all-gathered at entry (every
+    model rank routes the whole, as without ``sp``), and the output is
+    reduce-scattered over the sequence in place of the psum."""
     mesh, rules = constrain.mesh, constrain.rules
+    x = enter(x, None, sp)        # every model rank routes the whole alike
     model = (rules.model,)
     m = mesh.shape[rules.model]
     fsdp = rules.fsdp if rules.expert_fsdp else ()
@@ -242,7 +259,9 @@ def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
     flat_out = _experts(mesh.fan_out(xf, model), order, slot, k, e_loc,
                         cap, gate, up, down)
     y = _combine(flat_out, order, keep, slot, mesh.fan_out(w, model), t, k)
-    y = mesh.psum(y, model)
+    y = y.reshape(b, s, d)
+    # the ranks' experts' outputs differ: summed over the model ranks
+    y = leave(y, TensorParallel(mesh, rules.model, {}), sp)
 
     # aux, as JAX reduces it: me and ce averaged over the batch axes before
     # their product; kept summed over the model axis
@@ -254,5 +273,5 @@ def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
         both = mesh.psum(torch.cat([me, ce, dropped[None]]), dp) \
             / mesh.axis_size(dp)
         me, ce, dropped = both[:e], both[e:2 * e], both[2 * e]
-    return y.reshape(b, s, d), {"load_balance_loss": e * torch.sum(me * ce),
-                                "dropped_frac": dropped}
+    return y, {"load_balance_loss": e * torch.sum(me * ce),
+               "dropped_frac": dropped}

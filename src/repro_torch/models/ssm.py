@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.rules import enter, leave
 
 __all__ = ["init_mamba", "mamba_block", "mamba_decode_block",
            "init_mamba_cache"]
@@ -89,8 +90,8 @@ def _local_in_proj(w: torch.Tensor, tp, di: int) -> torch.Tensor:
     return torch.cat([w[:, lo:lo + dl], w[:, di + lo:di + lo + dl]], dim=1)
 
 
-def mamba_block(params, cfg: ModelConfig, x: torch.Tensor, tp=None
-                ) -> torch.Tensor:
+def mamba_block(params, cfg: ModelConfig, x: torch.Tensor, tp=None,
+                sp=None) -> torch.Tensor:
     """Prefill/forward Mamba sub-layer: [B,S,D] -> [B,S,D], the scan
     through the selective-scan kernel.
 
@@ -100,15 +101,22 @@ def mamba_block(params, cfg: ModelConfig, x: torch.Tensor, tp=None
     ``conv_w``, ``x_proj`` (then a psum) and ``out_proj`` (then a psum),
     its ``conv_b``, ``dt_bias``, ``A_log`` and ``D``; the input fans
     out.  Otherwise every leaf is whole and every model rank computes
-    the whole sub-layer."""
+    the whole sub-layer.
+
+    ``sp`` (a ``sharding.rules.SequenceParallel``): x is the rank's
+    block of the sequence; the whole sequence is gathered at entry (in
+    place of the fan-out) and ``out_proj``'s product reduce-scattered
+    over it (in place of the psum); computed whole, the rank keeps its
+    block.  The scan runs over the whole sequence of the rank's
+    channels: no state passes between ranks."""
     di = cfg.d_inner
     if tp is not None and not tp.cut("conv_w", 0):
         params = {n: tp.whole(w, n, differ=False) for n, w in params.items()}
         tp = None
+    x = enter(x, tp, sp)
     if tp is None:
         xz = x @ params["in_proj"]
     else:
-        x = tp.fan_out(x)
         xz = x @ _local_in_proj(params["in_proj"], tp, di)
         di //= tp.size
     xc, z = torch.split(xz, [di, di], dim=-1)
@@ -120,8 +128,7 @@ def mamba_block(params, cfg: ModelConfig, x: torch.Tensor, tp=None
     y = selective_scan(dt, xc.float(), b_ssm.contiguous(),
                        c_ssm.contiguous(), a, params["D"])
     out = y.to(x.dtype) * F.silu(z)
-    out = out @ params["out_proj"]
-    return out if tp is None else tp.psum(out)
+    return leave(out @ params["out_proj"], tp, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -138,28 +145,55 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 
 
 def mamba_decode_block(params, cfg: ModelConfig, x: torch.Tensor,
-                       cache: dict) -> tuple[torch.Tensor, dict]:
+                       cache: dict, tp=None) -> tuple[torch.Tensor, dict]:
     """x [B,1,D], cache {conv [B,k-1,di], h [B,di,n]} -> (y [B,1,D], cache).
 
     The conv window and the state are updated in ``cache`` in place, where
     the JAX version returns new ones; the returned cache is the same dict.
-    """
+
+    ``tp`` (a ``sharding.rules.TensorParallel``) with ``inner`` cut over
+    the model axis: the rank runs its d_inner/m channels, as
+    ``mamba_block`` does: ``in_proj`` gathered at use and cut to its
+    ``xc``/``z`` columns (``_local_in_proj``), ``x_proj`` row-parallel
+    with a psum, ``out_proj`` then a psum.  Its cache is its channels
+    (``cache_pspecs`` cuts conv's and h's inner dim over the model
+    axis), or, whole, the rank reads and updates its channels of it.
+    Otherwise every leaf is whole and every model rank computes the
+    whole step."""
     di = cfg.d_inner
-    xz = x[:, 0] @ params["in_proj"]
+    if tp is not None and not tp.cut("conv_w", 0):
+        params = {n: tp.whole(w, n, differ=False) for n, w in params.items()}
+        tp = None
+    if cache["h"].shape[1] != di and tp is None:
+        raise ValueError(f"a cache of {cache['h'].shape[1]} of {di} "
+                         f"channels needs the Mamba leaves cut alike "
+                         f"(param_specs)")
+    mine = cache
+    if tp is None:
+        xz = x[:, 0] @ params["in_proj"]
+    else:
+        xz = x[:, 0] @ _local_in_proj(params["in_proj"], tp, di)
+        dl = di // tp.size
+        if cache["h"].shape[1] == di:
+            lo = tp.index * dl
+            mine = {"conv": cache["conv"][..., lo:lo + dl],
+                    "h": cache["h"][:, lo:lo + dl]}
+        di = dl
     xc, z = torch.split(xz, [di, di], dim=-1)
 
-    win = torch.cat([cache["conv"], xc[:, None]], dim=1)       # [B,k,di]
+    win = torch.cat([mine["conv"], xc[:, None]], dim=1)        # [B,k,di]
     conv_out = torch.einsum("bkd,dk->bd", win, params["conv_w"]) \
         + params["conv_b"]
     xc = F.silu(conv_out)
 
-    dt, b_ssm, c_ssm = _ssm_inputs(params, cfg, xc)
+    dt, b_ssm, c_ssm = _ssm_inputs(params, cfg, xc, tp)
     a = -torch.exp(params["A_log"])
     decay = torch.exp(dt[..., None] * a)                       # [B,di,n]
-    h = decay * cache["h"] + (dt * xc.float())[..., None] \
+    h = decay * mine["h"] + (dt * xc.float())[..., None] \
         * b_ssm[:, None, :]
     y = torch.einsum("bdn,bn->bd", h, c_ssm) + xc.float() * params["D"]
     out = y.to(x.dtype) * F.silu(z)
-    cache["conv"].copy_(win[:, 1:])
-    cache["h"].copy_(h)
-    return (out @ params["out_proj"])[:, None], cache
+    mine["conv"].copy_(win[:, 1:])
+    mine["h"].copy_(h)
+    out = (out @ params["out_proj"])[:, None]
+    return leave(out, tp, None), cache

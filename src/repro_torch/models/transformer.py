@@ -16,7 +16,13 @@ Sharded parameters (a ``constrain`` that carries their specs): each
 leaf is this rank's block.  A block's FSDP dims are gathered inside the
 (checkpointed) block function, before its sub-layers run, and each
 sub-layer computes on its tensor-parallel blocks (``sharding.rules.
-TensorParallel``).
+TensorParallel``).  Under ``rules.sp`` the residual stream between
+sub-layers is the rank's block of the sequence (``sharding.rules.
+SequenceParallel``); the norms' scales then fan out over the model
+axis, so each rank's gradient of them is the whole sequence's.  A
+decode cache under ``cache_pspecs`` is this rank's block of it
+(``init_block_caches(..., constrain=)``), and the decode sub-layers
+take their tensor-parallel views and the cache's ``kv_seq`` view.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import init_mlp, mlp, rms_norm, torch_dtype
+from repro_torch.sharding.rules import block_shape
 
 __all__ = ["init_blocks", "apply_blocks", "apply_blocks_decode",
            "init_block_caches", "block_slice", "REMAT_POLICIES"]
@@ -148,29 +155,48 @@ def init_blocks(gen: torch.Generator, cfg: ModelConfig, shard=None) -> dict:
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
+def _views(constrain, specs):
+    """``part -> TensorParallel`` view of a sub-layer's part (None
+    without specs)."""
+    if specs is None:
+        return lambda part: None
+    return lambda part: constrain.tp(specs[part])
+
+
+def _scale(params, name: str, sp):
+    """Norm scale ``name``, fanned out over the model axis when it is
+    applied to the rank's block of the sequence: in f32 (``rms_norm``
+    reads it in f32 either way), so the ranks' partial gradients are
+    summed before the one rounding to the leaf's dtype, as one rank's
+    whole-sequence sum is."""
+    w = params[name]
+    return w if sp is None else sp.fan_out(w.float())
+
+
 def _sublayer_fwd(params, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                  constrain=None, specs=None):
+                  constrain=None, specs=None, sp=None):
     """One sub-layer; an MoE sub-layer returns its aux dict
     (``{"load_balance_loss", "dropped_frac"}``) as the third value
     (``None`` otherwise).  ``specs``: the sub-layer's leaves' specs when
-    they are this rank's blocks (their FSDP dims gathered)."""
-    tp = (lambda part: None) if specs is None else \
-        (lambda part: constrain.tp(specs[part]))
-    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    they are this rank's blocks (their FSDP dims gathered).  ``sp``: x
+    is the rank's block of the sequence."""
+    tp = _views(constrain, specs)
+    h = rms_norm(x, _scale(params, "norm1", sp), cfg.norm_eps)
     kv, aux = None, None
     if spec.mixer == "attn":
         mix, kv = attn.attention_block(params["mixer"], cfg, h, positions,
-                                       tp=tp("mixer"))
+                                       tp=tp("mixer"), sp=sp)
     else:
-        mix = ssm.mamba_block(params["mixer"], cfg, h, tp=tp("mixer"))
+        mix = ssm.mamba_block(params["mixer"], cfg, h, tp=tp("mixer"),
+                              sp=sp)
     x = x + mix
     if _has_mlp(cfg, spec):
-        h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
+        h2 = rms_norm(x, _scale(params, "norm2", sp), cfg.norm_eps)
         if spec.moe:
             y, aux = moe_mod.moe_block(params["mlp"], cfg, h2,
-                                       constrain=constrain)
+                                       constrain=constrain, sp=sp)
         else:
-            y = mlp(params["mlp"], h2, tp=tp("mlp"))
+            y = mlp(params["mlp"], h2, tp=tp("mlp"), sp=sp)
         x = x + y
     return x, kv, aux
 
@@ -195,8 +221,14 @@ def apply_blocks(blocks: dict, cfg: ModelConfig, x: torch.Tensor,
     the block function, so a checkpointed block gathers them again in
     the backward and no rank holds more than one gathered block at a
     time.  With remat "none" autograd keeps each gathered block for the
-    backward, as it keeps every activation."""
+    backward, as it keeps every activation.
+
+    Under ``rules.sp`` (``constrain.seq`` of the positions' length), x
+    is the rank's block [B, S/m, D] of the sequence, in and out, and
+    ``positions`` the whole sequence's; kv covers the whole sequence."""
     specs = constrain.block_specs if constrain is not None else None
+    sp = constrain.seq(positions.shape[-1]) if constrain is not None \
+        else None
 
     def block_fn(x, block):
         if specs is not None:
@@ -206,7 +238,7 @@ def apply_blocks(blocks: dict, cfg: ModelConfig, x: torch.Tensor,
         for i, spec in enumerate(cfg.pattern):
             x, kv, m = _sublayer_fwd(block[f"sub{i}"], cfg, spec, x,
                                      positions, constrain,
-                                     specs and specs[f"sub{i}"])
+                                     specs and specs[f"sub{i}"], sp)
             if kv is not None and collect_kv:
                 kvs.append(kv)
             if m is not None:
@@ -239,57 +271,86 @@ def apply_blocks(blocks: dict, cfg: ModelConfig, x: torch.Tensor,
 # Decode (cached, one token)
 # ---------------------------------------------------------------------------
 def init_block_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                      device) -> dict:
+                      device, constrain=None) -> dict:
     """Cache dict mirroring init_blocks (stacked per block).
 
     Attention sub-layers get [num_blocks, B, Smax, K, hd] ring/linear KV
     buffers (Smax = window for SWA archs); Mamba sub-layers get conv +
     state caches.  Position bookkeeping lives with the caller.
+
+    ``constrain`` carrying ``cache_specs`` (``cache_pspecs`` of these
+    global caches): each leaf is allocated as this rank's block under
+    its spec, never whole.
     """
     dt = torch_dtype(cfg.dtype)
+    specs = None if constrain is None else constrain.cache_specs
+
+    def zeros(i: int, key: str, shape, dtype):
+        if specs is not None:
+            shape = block_shape(shape, specs[f"sub{i}"][key], constrain.mesh)
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     caches = {}
     for i, spec in enumerate(cfg.pattern):
         if spec.mixer == "attn":
             smax = min(max_seq, cfg.sliding_window or max_seq)
             shape = (cfg.num_blocks, batch, smax, cfg.num_kv_heads,
                      cfg.head_dim)
-            caches[f"sub{i}"] = {
-                "k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+            caches[f"sub{i}"] = {key: zeros(i, key, shape, dt)
+                                 for key in ("k", "v")}
         else:
-            one = ssm.init_mamba_cache(cfg, batch, dt, device)
+            one = ssm.init_mamba_cache(cfg, batch, dt, "meta")
             caches[f"sub{i}"] = {
-                key: torch.zeros((cfg.num_blocks, *a.shape), dtype=a.dtype,
-                                 device=device)
+                key: zeros(i, key, (cfg.num_blocks, *a.shape), a.dtype)
                 for key, a in one.items()}
     return caches
 
 
 def apply_blocks_decode(blocks: dict, caches: dict, cfg: ModelConfig,
-                        x: torch.Tensor, position: torch.Tensor):
+                        x: torch.Tensor, position: torch.Tensor,
+                        constrain=None, attend=None):
     """One decode step through all layers.
 
     x [B,1,D]; position i32[B] (absolute index of the new token).  The
     caches are updated in place; returns (x, caches).  An MoE sub-layer
     routes the B tokens with the default capacity, as JAX's does.
+
+    ``constrain`` (``sharding.rules.make_constrain`` on a live mesh):
+    x is this rank's rows, each block's FSDP dims are gathered at use
+    (as ``apply_blocks`` does, given ``param_specs``), each sub-layer
+    takes its ``TensorParallel`` view, and an attention sub-layer its
+    cache's ``kv_seq`` view (given ``cache_specs``); MoE sub-layers go
+    through ``moe.moe_block`` with ``constrain`` (expert parallelism
+    when the model axis divides the experts).  ``attend``: see
+    ``attention.attention_decode_block``.
     """
+    specs = constrain.block_specs if constrain is not None else None
+    cspecs = constrain.cache_block_specs if constrain is not None else None
     for j in range(cfg.num_blocks):
         block, cache = block_slice(blocks, j), block_slice(caches, j)
+        if specs is not None:
+            block = constrain.gather_block(block, specs)
         for i, spec in enumerate(cfg.pattern):
             p = block[f"sub{i}"]
+            tp = _views(constrain, specs and specs[f"sub{i}"])
             h = rms_norm(x, p["norm1"], cfg.norm_eps)
             if spec.mixer == "attn":
+                kv = None if cspecs is None else \
+                    constrain.kv_seq(cspecs[f"sub{i}"]["k"])
                 mix, _ = attn.attention_decode_block(
-                    p["mixer"], cfg, h, cache[f"sub{i}"], position)
+                    p["mixer"], cfg, h, cache[f"sub{i}"], position,
+                    tp=tp("mixer"), kv=kv, attend=attend)
             else:
                 mix, _ = ssm.mamba_decode_block(p["mixer"], cfg, h,
-                                                cache[f"sub{i}"])
+                                                cache[f"sub{i}"],
+                                                tp=tp("mixer"))
             x = x + mix
             if _has_mlp(cfg, spec):
                 h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
                 if spec.moe:
-                    y, _ = moe_mod.moe_block(p["mlp"], cfg, h2)
+                    y, _ = moe_mod.moe_block(p["mlp"], cfg, h2,
+                                             constrain=constrain)
                 else:
-                    y = mlp(p["mlp"], h2)
+                    y = mlp(p["mlp"], h2, tp=tp("mlp"))
                 x = x + y
     return x, caches

@@ -55,12 +55,17 @@ def _tok_shape(cfg: ModelConfig, *lead):
 
 
 def init_server(cfg: ModelConfig, scfg: ServeConfig, *, prompt_max: int = 64,
-                gen_max: int = 64, device=None) -> ServerState:
+                gen_max: int = 64, device=None, constrain=None
+                ) -> ServerState:
+    """Empty slots.  ``constrain`` goes to ``M.init_cache``: with its
+    ``cache_specs`` the caches are this rank's blocks (the slots' other
+    state stays whole on every rank)."""
     dev = resolve_device(device)
     b = scfg.slots
     i32 = dict(dtype=torch.int32, device=dev)
     return ServerState(
-        caches=M.init_cache(cfg, b, scfg.max_seq, device=dev),
+        caches=M.init_cache(cfg, b, scfg.max_seq, device=dev,
+                            constrain=constrain),
         position=torch.zeros((b,), **i32),
         active=torch.zeros((b,), dtype=torch.bool, device=dev),
         in_prompt=torch.zeros((b,), **i32),
@@ -102,9 +107,17 @@ def _bcast(mask, like):
     return mask.reshape(mask.shape + (1,) * (like.ndim - mask.ndim))
 
 
-def make_serve_step(cfg: ModelConfig, scfg: ServeConfig, params):
+def make_serve_step(cfg: ModelConfig, scfg: ServeConfig, params,
+                    constrain=None):
     """One continuous-batching step over all slots:
-    ``step(state, generator=None) -> (state, next_tok)``."""
+    ``step(state, generator=None) -> (state, next_tok)``.  ``constrain``
+    goes to ``M.decode_step`` (``params`` and the caches this rank's
+    blocks); every rank holds every slot, gets the whole logits and
+    samples alike, so its rows must not be split over batch axes."""
+    if constrain is not None and constrain.batch_axes:
+        raise ValueError(f"the slots are whole on every rank; a constrain "
+                         f"splitting them over {constrain.batch_axes} "
+                         f"needs each rank's rows")
 
     def sample(logits, generator):
         if scfg.temperature <= 0.0:
@@ -117,7 +130,7 @@ def make_serve_step(cfg: ModelConfig, scfg: ServeConfig, params):
     def step(state: ServerState, generator: Optional[torch.Generator] = None):
         toks = state.last_token[:, None]               # [B,1(,CB)]
         logits, caches = M.decode_step(params, cfg, toks, state.caches,
-                                       state.position)
+                                       state.position, constrain=constrain)
         next_tok = sample(logits[:, 0], generator)     # [B(,CB)]
 
         b = state.position.shape[0]

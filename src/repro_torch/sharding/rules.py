@@ -20,9 +20,15 @@ the rules, the batch axes the rows are split over (``batch_axes``, by
 given the parameters' specs, what runs them at run time, as GSPMD runs
 JAX's specs: ``gather_fsdp``/``gather_block`` gather a leaf's FSDP dims
 at use (to its tensor-parallel block), and ``tp`` hands a module a
-``TensorParallel`` view of its leaves' model-axis cuts.  Axes of size 1
-cost nothing: no gather, no collective.  Nothing here imports
-``torch.distributed``: meshes may be abstract.
+``TensorParallel`` view of its leaves' model-axis cuts.  Under
+``rules.sp`` it makes JAX's sequence constraint real: ``seq`` hands the
+forward a ``SequenceParallel`` view (the residual stream is the rank's
+block of the sequence between sub-layers), where JAX's ``__call__``
+would split the sequence.  Given ``cache_pspecs``' specs
+(``cache_specs``), a decode cache is this rank's block and ``kv_seq``
+says which block of positions.  Axes of size 1 cost nothing: no
+gather, no collective.  Nothing here imports ``torch.distributed``:
+meshes may be abstract.
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ import torch
 
 __all__ = ["ShardingRules", "PartitionSpec", "P", "param_pspecs",
            "batch_pspec", "cache_pspecs", "Constrainer", "make_constrain",
-           "shard_leaf", "spec_axes", "fsdp_dims", "reduced_axes",
-           "gather_fsdp", "TensorParallel", "LeafCutter"]
+           "shard_leaf", "block_shape", "spec_axes", "fsdp_dims",
+           "reduced_axes", "gather_fsdp", "TensorParallel",
+           "SequenceParallel", "KVSeq", "LeafCutter", "enter", "leave"]
 
 
 class PartitionSpec:
@@ -341,6 +348,85 @@ class TensorParallel:
         return w
 
 
+class SequenceParallel:
+    """The residual stream's sequence split over the model axis (JAX's
+    ``sp``, Megatron's sequence parallelism), seen from one rank: between
+    sub-layers it holds its block [B, S/m, D] of the sequence (block
+    ``index`` of ``size``).  A tensor-parallel sub-layer takes the whole
+    sequence through ``gather`` (its gradient reduce-scattered in f32:
+    the ranks' heads and channels differ) and ends in ``scatter`` (a
+    reduce-scatter over the sequence in place of the psum).  A
+    sub-layer every model rank computes alike (leaves whole) takes it
+    through ``all_gather`` and keeps its block through ``split``.
+    ``fan_out`` is for a whole leaf applied to the rank's block (the
+    norms' scales): its gradient is summed over the model ranks, in the
+    leaf's dtype (so ``transformer`` fans out the f32 copy of a bf16
+    scale: one rounding of the sum, as on one rank)."""
+
+    def __init__(self, mesh, axis: str):
+        self.mesh, self.axis = mesh, axis
+        self.size = mesh.shape[axis]
+        self.index = mesh.axis_index(axis)
+
+    def gather(self, x):
+        return self.mesh.gather(x, self.axis, 1)
+
+    def scatter(self, x):
+        return self.mesh.scatter(x, self.axis, 1)
+
+    def all_gather(self, x):
+        return self.mesh.all_gather(x, self.axis, 1)
+
+    def split(self, x):
+        return self.mesh.split(x, self.axis, 1)
+
+    def fan_out(self, w):
+        return self.mesh.fan_out(w, self.axis)
+
+
+def enter(x, tp: Optional[TensorParallel], sp: Optional[SequenceParallel]):
+    """A sub-layer's input across the model axis, the one rule every
+    sub-layer follows.  ``tp``: the sub-layer's ``TensorParallel`` view,
+    None when every model rank computes it whole and alike; ``sp``: the
+    ``SequenceParallel`` view, None when the residual stream holds the
+    whole sequence.  Under ``tp`` the input fans out (``sp``: the
+    sequence is gathered, its gradient reduce-scattered); computed
+    alike, it is all-gathered over the sequence (``sp``) or taken as it
+    is."""
+    if tp is None:
+        return x if sp is None else sp.all_gather(x)
+    return tp.fan_out(x) if sp is None else sp.gather(x)
+
+
+def leave(y, tp: Optional[TensorParallel], sp: Optional[SequenceParallel]):
+    """A sub-layer's output across the model axis (``enter``'s
+    counterpart): under ``tp`` the ranks' partial outputs are psummed
+    (``sp``: reduce-scattered over the sequence); computed alike, the
+    rank keeps its block of the sequence (``sp``) or the whole."""
+    if tp is None:
+        return y if sp is None else sp.split(y)
+    return tp.psum(y) if sp is None else sp.scatter(y)
+
+
+class KVSeq:
+    """A decode cache's positions cut over ``axes`` (``rules.kv_seq``):
+    this rank holds block ``index`` of ``n`` (row-major over the axes,
+    ``Mesh.axis_index``'s order and JAX's for a tuple of mesh axes);
+    ``pmax`` and ``psum`` reduce the decode attention's partials over
+    the blocks."""
+
+    def __init__(self, mesh, axes: tuple):
+        self.mesh, self.axes = mesh, axes
+        self.n = mesh.axis_size(axes)
+        self.index = mesh.axis_index(axes)
+
+    def pmax(self, x):
+        return self.mesh.pmax(x, self.axes)
+
+    def psum(self, x):
+        return self.mesh.psum(x, self.axes)
+
+
 def _block_spec(spec: P) -> P:
     return P(*spec.entries[1:])
 
@@ -355,10 +441,15 @@ class Constrainer:
     ``param_specs`` (a tree like the parameters, ``param_pspecs`` of
     their global shapes) says that each leaf is this rank's block under
     its spec: the modules then gather FSDP dims at use and compute on
-    their tensor-parallel blocks.  Without it every leaf is whole."""
+    their tensor-parallel blocks.  Without it every leaf is whole.
+
+    ``rules.sp`` splits the residual stream's sequence over the model
+    axis (``seq``).  ``cache_specs`` (``cache_pspecs`` of the global
+    caches, a tree like ``init_cache``'s) says that each decode cache is
+    this rank's block under its spec (``kv_seq``)."""
 
     def __init__(self, mesh, rules: ShardingRules, batch_size: int,
-                 param_specs=None):
+                 param_specs=None, cache_specs=None):
         self.mesh = mesh
         self.rules = rules
         lead = batch_pspec(mesh, rules, 1, batch_size)[0]
@@ -369,6 +460,33 @@ class Constrainer:
         if param_specs is not None and "blocks" in param_specs:
             self.block_specs = _map_with_keys(
                 lambda keys, s: _block_spec(s), param_specs["blocks"])
+        self.cache_specs = cache_specs
+        self.cache_block_specs = None if cache_specs is None else \
+            _map_with_keys(lambda keys, s: _block_spec(s), cache_specs)
+
+    def seq_axis(self, seq_len: int) -> Optional[str]:
+        """The axis the residual stream's sequence of ``seq_len`` is split
+        over: the model axis under ``rules.sp`` when it is larger than 1
+        and divides ``seq_len`` (else None, JAX's fallback: the sequence
+        stays whole)."""
+        m = self.rules.model
+        size = self.mesh.shape[m]
+        if self.rules.sp and size > 1 and seq_len % size == 0:
+            return m
+        return None
+
+    def seq(self, seq_len: int) -> Optional[SequenceParallel]:
+        """The ``SequenceParallel`` view of a forward over ``seq_len``
+        positions, or None when ``seq_axis`` is None."""
+        axis = self.seq_axis(seq_len)
+        return None if axis is None else SequenceParallel(self.mesh, axis)
+
+    def kv_seq(self, spec: P) -> Optional[KVSeq]:
+        """The ``KVSeq`` view of a KV cache block whose spec (without the
+        block dim: [B, Smax, K, hd]) is ``spec``: its positions' axes of
+        size > 1, or None when they are not cut."""
+        axes = tuple(a for a in _flat(spec[1]) if self.mesh.shape[a] > 1)
+        return KVSeq(self.mesh, axes) if axes else None
 
     def __call__(self, x):
         return x
@@ -410,8 +528,8 @@ class Constrainer:
 
 
 def make_constrain(mesh, rules: ShardingRules, batch_size: int,
-                   param_specs=None):
-    return Constrainer(mesh, rules, batch_size, param_specs)
+                   param_specs=None, cache_specs=None):
+    return Constrainer(mesh, rules, batch_size, param_specs, cache_specs)
 
 
 class LeafCutter:
@@ -439,6 +557,24 @@ class LeafCutter:
         if not spec_axes(mine, self.mesh):
             return leaf
         return shard_leaf(leaf, mine, self.mesh)
+
+
+def block_shape(shape, spec: P, mesh) -> tuple[int, ...]:
+    """The shape of a rank's block of a global ``shape`` under ``spec``;
+    raises when a cut dim does not split evenly or an axis cuts two
+    dims."""
+    out, used = list(shape), []
+    for dim, entry in enumerate(spec):
+        axes = _flat(entry)
+        if set(axes) & set(used):
+            raise ValueError(f"{spec} cuts two dims over one axis")
+        used.extend(axes)
+        n = mesh.axis_size(entry) if axes else 1
+        if out[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"into {n} blocks")
+        out[dim] //= n
+    return tuple(out)
 
 
 def shard_leaf(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:

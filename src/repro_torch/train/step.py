@@ -25,8 +25,13 @@ gathers reduce-scatter their leaves' gradients over the batch axes in
 the backward; the one f32 all-reduce then sums only the leaves that
 still need it, over the batch axes their gathers did not reduce.
 Tensor and expert parallelism need no sum over the model axis: the
-modules' ``fan_out``s summed what differs there.  The gradient norm
-adds each leaf's blocks over the axes it is cut over.
+modules' ``fan_out``s summed what differs there.  Under ``rules.sp``
+neither does sequence parallelism: the leaves whole over the model axis
+that a rank applies to its block of the sequence (``norm1``, ``norm2``,
+``final_norm``) fan out over it in the forward
+(``transformer._scale``, ``model.forward``), so each rank's gradient of
+them is the whole sequence's.  The gradient norm adds each leaf's
+blocks over the axes it is cut over.
 """
 from __future__ import annotations
 

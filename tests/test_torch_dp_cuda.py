@@ -1,6 +1,8 @@
 """Ranks on CUDA cards with NCCL: at world 1 (a one-rank group in this
 process) the data-parallel train step, and the step with FSDP rules on
-the (1, 1) mesh, equal the one-device step bit for bit,
+the (1, 1) mesh, equal the one-device step bit for bit, as do the step
+and the prefill with ``sp`` rules and greedy decode through
+``decode_step(constrain=)`` on ``init_cache(constrain=)``'s caches,
 ``allreduce_compressed`` equals its plain form bit for bit, and a (1, 1)
 mesh's expert parallelism equals ``moe_block`` bit for bit; with
 two or more cards, a run across all of them (``torch_ranks_worker.cards``,
@@ -32,6 +34,7 @@ from repro_torch.launch.mesh import (init_ranks, make_local_mesh, make_mesh,
                                      rules_for_mesh, shutdown_ranks)
 from repro_torch.launch.train import train
 from repro_torch.models.moe import init_moe, moe_block, moe_block_ep
+from repro_torch.models import model as M
 from repro_torch.models.model import init_params
 from repro_torch.sharding.rules import (ShardingRules, make_constrain,
                                         param_pspecs, shard_leaf)
@@ -173,3 +176,76 @@ def test_across_cards_equals_one_card(cuda, tmp_path):
                                    atol=1e-5)
         assert float(out["aux"]["dropped_frac"]) == float(
             want_aux["dropped_frac"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b",
+                                  "moonshot-v1-16b-a3b"])
+def test_world_one_sp_step_and_prefill_are_the_one_device_ones(
+        nccl_world_one, arch):
+    """``sp`` rules (with FSDP) on the (1, 1) mesh: the model axis is 1,
+    so the sequence is not split and the step and the prefill equal the
+    unsharded ones bit for bit."""
+    mesh = nccl_world_one
+    cfg = CFG.get_smoke_config(arch)
+    tcfg = TrainConfig(opt=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                       total_steps=10))
+    rules = rules_for_mesh(mesh, sp=True)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    specs = param_pspecs(params, mesh, rules)
+    constrain = make_constrain(mesh, rules, 4, param_specs=specs)
+    assert constrain.seq(64) is None
+    batches = [make_batch(config_for(cfg, 4, 64), s) for s in range(2)]
+    states = []
+    for c in (constrain, None):
+        state = init_train_state(cfg, tcfg, params=params)
+        step = make_train_step(cfg, tcfg, constrain=c)
+        for b in batches:
+            state, _ = step(state, b if c is None else shard_batch(
+                b, mesh, c.rules))
+        states.append(state)
+    for a, b in zip(tree_leaves(states[0]), tree_leaves(states[1])):
+        assert torch.equal(a, b)
+    tokens = batches[0]["tokens"]
+    got, got_kv = M.prefill(params, cfg, tokens, constrain=constrain)
+    want, want_kv = M.prefill(params, cfg, tokens)
+    assert torch.equal(got, want)
+    for a, b in zip(tree_leaves(got_kv), tree_leaves(want_kv)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b",
+                                  "h2o-danube-1.8b", "moonshot-v1-16b-a3b"])
+def test_world_one_decode_under_constrain_is_the_plain_decode(
+        nccl_world_one, arch):
+    """Greedy decode through ``decode_step(constrain=)`` with the parameter
+    specs and ``cache_pspecs``' caches (``kv_seq=("model",)``) on the
+    (1, 1) mesh equals the plain decode bit for bit, its caches the
+    whole caches."""
+    mesh = nccl_world_one
+    cfg = CFG.get_smoke_config(arch)
+    rules = rules_for_mesh(mesh, kv_seq=("model",))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    slots, max_seq = 4, 32
+    constrain = make_constrain(
+        mesh, rules, slots, param_specs=param_pspecs(params, mesh, rules),
+        cache_specs=M.cache_specs(cfg, mesh, rules, slots, max_seq))
+    first = torch.tensor([[3], [7], [11], [13]], dtype=torch.int32,
+                         device="cuda")
+    runs = []
+    for c in (constrain, None):
+        caches = M.init_cache(cfg, slots, max_seq, device="cuda",
+                              constrain=c)
+        tok, logits = first, []
+        for p in range(12):
+            out, caches = M.decode_step(
+                params, cfg, tok, caches,
+                torch.full((slots,), p, dtype=torch.int32, device="cuda"),
+                constrain=c)
+            tok = out.argmax(-1).to(torch.int32)
+            logits.append(out)
+        runs.append((torch.stack(logits), caches))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(tree_leaves(runs[0][1]), tree_leaves(runs[1][1])):
+        assert torch.equal(a, b)

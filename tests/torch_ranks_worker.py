@@ -284,3 +284,119 @@ def sharded(rank, world, tmp):
     out["restored_specs"] = tree_flatten(state_specs(specs))[1]
     shutdown_ranks()
     torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))
+
+
+def _rows(batch, mesh, rules):
+    from repro_torch.data.synthetic import shard_batch
+    return shard_batch(batch, mesh, rules)
+
+
+def sp_decode(rank, world, tmp):
+    """The sequence-parallel residual stream and decode under tensor
+    parallelism on the meshes of ``inputs.pt`` (all in one world): per
+    prefill case the logits through ``prefill`` with ``sp`` rules; per
+    train case 3 steps with ``sp`` rules (losses, grad norms, the
+    parameters gathered whole); per decode case one ``decode_step`` on
+    this rank's blocks of the parameters and of the global caches under
+    ``cache_pspecs`` (the logits, the updated blocks, the blocks'
+    shapes as ``init_cache(constrain=)`` allocated them); per serve
+    case the greedy tokens of ``make_serve_step`` over its steps."""
+    from repro_torch.launch.mesh import (make_mesh, rules_for_mesh,
+                                         shutdown_ranks)
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (ServeConfig, init_server,
+                                          make_serve_step, submit)
+    from repro_torch.sharding.rules import (make_constrain, param_pspecs,
+                                            shard_leaf)
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    _start(rank, world, tmp)
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    meshes = {name: make_mesh(shape, ("data", "model"))
+              for name, shape in spec["meshes"].items()}
+    out = {"prefill": {}, "train": {}, "decode": {}, "serve": {}}
+
+    def mine(mesh, rules, params):
+        specs = param_pspecs(params, mesh, rules)
+        return tree_map(lambda p, s: shard_leaf(p, s, mesh), params,
+                        specs), specs
+
+    for key, case in spec["prefill"].items():
+        mesh = meshes[case["mesh"]]
+        rules = rules_for_mesh(mesh, sp=True)
+        cfg = _cfg(case["arch"], case["cfg"])
+        params, specs = mine(mesh, rules, case["params"])
+        tokens = case["tokens"]
+        constrain = make_constrain(mesh, rules, tokens.shape[0],
+                                   param_specs=specs)
+        logits, _ = M.prefill(params, cfg,
+                              _rows({"t": tokens}, mesh, rules)["t"],
+                              constrain=constrain)
+        out["prefill"][key] = {"logits": logits,
+                               "seq_axis": constrain.seq_axis(
+                                   tokens.shape[1])}
+
+    for key, case in spec["train"].items():
+        mesh = meshes[case["mesh"]]
+        rules = rules_for_mesh(mesh, sp=True)
+        cfg, tcfg = _cfg(case["arch"], case["cfg"]), _tcfg({})
+        params, specs = mine(mesh, rules, case["params"])
+        rows = case["batches"][0]["tokens"].shape[0]
+        constrain = make_constrain(mesh, rules, rows, param_specs=specs)
+        state = init_train_state(cfg, tcfg, params=params)
+        step = make_train_step(cfg, tcfg, constrain=constrain)
+        losses, norms = [], []
+        for batch in case["batches"]:
+            state, m = step(state, _rows(batch, mesh, rules))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        with torch.no_grad():
+            whole = tree_map(lambda p, s: _whole(p, s, mesh), state.params,
+                             specs)
+        out["train"][key] = {"losses": losses, "grad_norms": norms,
+                             "params": whole if rank == 0 else None}
+
+    for key, case in spec["decode"].items():
+        mesh = meshes[case["mesh"]]
+        rules = rules_for_mesh(mesh, kv_seq=case["kv_seq"])
+        cfg = _cfg(case["arch"], case["cfg"])
+        params, specs = mine(mesh, rules, case["params"])
+        b, smax = case["tokens"].shape[0], case["max_seq"]
+        cspecs = M.cache_specs(cfg, mesh, rules, b, smax)
+        constrain = make_constrain(mesh, rules, b, param_specs=specs,
+                                   cache_specs=cspecs)
+        caches = M.init_cache(cfg, b, smax, device="cpu",
+                              constrain=constrain)
+        shapes = [tuple(c.shape) for c in tree_leaves(caches)]
+        tree_map(lambda c, g, s: c.copy_(shard_leaf(g, s, mesh)), caches,
+                 case["caches"], cspecs)
+        rows = _rows({"t": case["tokens"], "p": case["position"]}, mesh,
+                     rules)
+        logits, caches = M.decode_step(params, cfg, rows["t"], caches,
+                                       rows["p"], constrain=constrain)
+        out["decode"][key] = {"logits": logits, "caches": caches,
+                              "shapes": shapes,
+                              "specs": tree_leaves(cspecs)}
+
+    for key, case in spec["serve"].items():
+        mesh = meshes[case["mesh"]]
+        rules = rules_for_mesh(mesh, kv_seq=case["kv_seq"])
+        cfg = _cfg(case["arch"], case["cfg"])
+        params, specs = mine(mesh, rules, case["params"])
+        scfg = ServeConfig(**case["scfg"])
+        constrain = make_constrain(
+            mesh, rules, scfg.slots, param_specs=specs,
+            cache_specs=M.cache_specs(cfg, mesh, rules, scfg.slots,
+                                      scfg.max_seq))
+        state = init_server(cfg, scfg, device="cpu", constrain=constrain)
+        for slot, prompt in enumerate(case["prompts"]):
+            state = submit(state, slot, prompt, case["max_new"])
+        step = make_serve_step(cfg, scfg, params, constrain=constrain)
+        toks = []
+        for _ in range(case["steps"]):
+            state, tok = step(state)
+            toks.append(tok)
+        out["serve"][key] = torch.stack(toks)
+    shutdown_ranks()
+    torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))

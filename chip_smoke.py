@@ -95,7 +95,19 @@ script exits non-zero:
      ranks call (``decode_attention(..., blocks=n)``: the reductions
      over the blocks on one card): layer 0's attention within 1e-5 of
      max |output|, top-1 equal and logits within KV_SPLIT_TOL of max
-     |logit|, each step timed.
+     |logit|, each step timed;
+  5l. the simulator's partitioners over ranks and the dry-run, on the
+     same one-rank group: ``[sweep-ranks-world1]``, phase 7's grid (the
+     paper's largest datacenter x the 2x2 grid) through
+     ``run_grid(mesh=)`` on a ("sweep",) mesh of 1 with the
+     ``"shard_map"`` and ``"gspmd"`` partitioners, every lane bitwise
+     phase 7's, simstep launches counted; ``[dryrun-world1]``, the
+     dry-run (``launch.dryrun``, shape-only tensors on the host) of
+     qwen3-0.6b's training step at 4 x 2048 on a (1, 1) mesh: its peak
+     within DRYRUN_PEAK_RTOL of ``[train-main]``'s measured peak, its
+     flops equal to ``FlopCounterMode``'s count (the kernels' operators
+     by their formulas) over one step on the card, no collective bytes;
+     its wall time.
 
 ``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py
 --sharded`` (N >= 2 cards) runs the sharded paths across cards instead:
@@ -107,10 +119,20 @@ within 1e-3 of one card's and 3 training steps within 1e-5;
 16 greedy steps on a 64-position cache against one card's tokens, each
 card holding 1/N of the cache's bytes; ``[kv-seq-cards]``, qwen3-0.6b
 with ``kv_seq=("model",)`` alike on ``[kv-seq-split]``'s 32,768
-positions of seeded values (60.1 GB whole in f32); and last
-``[sp-cards-bf16]``, the 3 training steps with ``sp`` in bf16, and with
-TP alone beside them, for three seeds of batches, each held to
-SP_BF16_LOSS_RTOL of one card's losses.
+positions of seeded values (60.1 GB whole in f32); ``[sweep-cards]``,
+phase 7's grid through ``run_grid(mesh=)`` on a ("sweep",) mesh of N
+(one 100,000-host lane a card at 4), both partitioners, each rank's
+whole grid bitwise one card's; ``[federation-cards]``, phase 19's four
+providers through ``federated_run(mesh=)`` on a ("dc",) mesh of 4, bitwise
+the device-list form; ``[dryrun-cards]``, qwen3-0.6b's training step
+(4 x 2048, FSDP and ``sp``) on (N, 1), (1, N) and (2, N/2): on every
+rank the collectives the dry-run predicts equal the live ones entry by
+entry, the predicted peak within DRYRUN_PEAK_RTOL of the measured one,
+the predicted compute, memory and collective times printed beside the
+step time (and in the summary); and last ``[sp-cards-bf16]``, the 3
+training steps with ``sp`` in bf16, and with TP alone beside them, for
+three seeds of batches, each held to SP_BF16_LOSS_RTOL of one card's
+losses.
 
   6. the event-horizon leap: a staggered static scenario (512 hosts of
      2 PEs, 256 VMs, 3 waves) leap on and leap off, bitwise equal, with
@@ -209,11 +231,12 @@ against its plain version, and times it at 4 lanes of [50000, 10]; and
 on padded indexes (a streamed window's), against its plain version and
 against the unpadded index.
 
-Phases 3, 4 and 4b are the simulator's main path, and 6 to 20 and 22
-to 24 each a path of its own (20 two: the dispatched batches and the
-federated run): simstep's launch count is set to 0 just before phase 3
-and read just after phase 4b, and set to 0 just before and read just
-after each run of the later ones (``launches_by_path`` in the kernels'
+Phases 3, 4 and 4b are the simulator's main path, and 6 to 20, 22 to
+24 and ``[sweep-ranks-world1]`` each a path of its own (20 two: the
+dispatched batches and the federated run): simstep's launch count is
+set to 0 just before phase 3 and read just after phase 4b, and set to 0
+just before and read just after each run of the later ones
+(``launches_by_path`` in the kernels'
 record; every path must show launches).  The full-depth
 prefills are the LM slice's main path: the flash-attention and
 selective-scan counts are set to 0 just before each and read just after,
@@ -312,6 +335,15 @@ CARDS_DTYPE = "float32"
 # step does (PERF.md §6), so sp is held to data parallelism's bound
 SP_BF16_LOSS_RTOL = DP_LOSS_RTOL["cards"]
 SP_BF16_SEEDS = (0, 1, 2)
+# [dryrun-world1], [dryrun-cards]: the dry-run of qwen3-0.6b's training
+# step at 4 x 2048 (launch.dryrun on an abstract mesh, no card) against
+# the step on the cards; its peak within DRYRUN_PEAK_RTOL of the
+# measured one (it follows the storages alive, rounded as the caching
+# allocator rounds them; the libraries' workspaces are not its): set from
+# the readings before it, 0.40-0.53% under on one card and 0.9-1.2% under
+# on (4, 1), (1, 4) and (2, 2), ~71 MB on each (PERF.md §6)
+DRYRUN_ARCH, DRYRUN_BATCH = "qwen3-0.6b", 4
+DRYRUN_PEAK_RTOL = 0.02
 RTOL = ATOL = 1e-6              # tests/test_simstep_parity.py's tolerance
 SIMSTEP_DESIGN = "ragged-packed-warp"
 CL_DONE = 2                     # repro_torch.core.state.CL_DONE
@@ -976,11 +1008,13 @@ def phase_grid(device, card, launched, n_hosts=100_000, n_vms=50_000):
     """Phase 7: the paper's largest datacenter under the 2x2 policy grid
     in one run_grid call: 4 lanes, 4 x 500,000 slots in each simstep
     launch.  Every lane equals its single run bit for bit and meets the
-    §5 closed forms for its task policy."""
+    §5 closed forms for its task policy.  Returns the grid, on the
+    CPU."""
     import dataclasses
     import torch
     from repro_torch.core import sweep
     from repro_torch.core.engine import batched_run_stats, run_stats
+    from repro_torch.core.state import to_device
     from repro_torch.kernels.simstep import simstep
 
     batch = sweep.stack_scenarios([section5(n_hosts, n_vms, 0, device)])
@@ -1018,6 +1052,7 @@ def phase_grid(device, card, launched, n_hosts=100_000, n_vms=50_000):
           f"{wall!r} s, the four single runs {singles!r} s; simstep "
           f"launches {n_grid} (single runs {n_single}); peak allocated "
           f"{peak} bytes ({card})")
+    return to_device(grid, "cpu")
 
 
 def shared_hosts(seed, n_hosts, device):
@@ -3871,7 +3906,7 @@ def phase_train_small(device, steps=3):
               f"param err {param_err!r}")
 
 
-def phase_train_main(device, card, launched):
+def phase_train_main(device, card, launched, peaks=None):
     """Phase 5g: ``launch.train.train`` at full width with its CLI's
     defaults (AdamW peak lr 3e-3, remat "nothing"): qwen3-0.6b at full
     size (4 x 2048, 10 steps) and falcon-mamba-7b at 8 of its 64 layers
@@ -3882,7 +3917,8 @@ def phase_train_main(device, card, launched):
     non-zero gradient in every parameter leaf (one more loss_and_grads,
     not counted); prints step time, tokens/s, peak memory, the device's
     busy share of one step under the profiler and each backward kernel's
-    share of it.  Returns each arch's losses."""
+    share of it.  Returns each arch's losses; ``peaks`` (a dict) gets
+    each arch's peak allocated bytes."""
     import dataclasses
     import gc
 
@@ -3924,6 +3960,8 @@ def phase_train_main(device, card, launched):
                 "selective_scan_bwd": n_ssm * steps}
         check(counts == want, f"{arch} training launches {counts}, expected "
               f"{want}")
+        if peaks is not None:
+            peaks[arch] = peak
         for name, n in counts.items():
             launched[name] += n
         check(np.isfinite(rep.losses).all() and np.isfinite(
@@ -4679,6 +4717,132 @@ def phase_kv_seq_split(device, card):
     torch.cuda.empty_cache()
 
 
+def phase_sweep_ranks_world1(device, card, grid, launched,
+                             n_hosts=100_000, n_vms=50_000):
+    """``[sweep-ranks-world1]``: ``run_grid(mesh=...)`` over this
+    process's one-rank NCCL group (a ("sweep",) mesh of 1), with the
+    ``"shard_map"`` and ``"gspmd"`` partitioners, on phase 7's
+    datacenter: every lane bitwise ``grid`` (phase 7's one-card grid);
+    simstep's count is set to 0 just before and read just after (added
+    to ``launched``)."""
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.core.state import to_device
+    from repro_torch.kernels.simstep import simstep
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1,), ("sweep",))
+    batch = sweep.stack_scenarios([section5(n_hosts, n_vms, 0, device)])
+    vm_p, task_p = sweep.policy_grid(device=device)
+    walls, n = {}, 0
+    for part in ("shard_map", "gspmd"):
+        torch.cuda.synchronize()
+        simstep.launches = 0
+        t0 = time.perf_counter()
+        got = sweep.run_grid(batch, vm_p, task_p, max_steps=8192,
+                             mesh=mesh, partitioner=part)
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t0
+        n += simstep.launches
+        check(simstep.launches > 0, f"[sweep-ranks-world1] {part}: no "
+              f"simstep launch")
+        got = to_device(got, "cpu")
+        for p in range(4):
+            check(same_state(lane(got, p, 0), lane(grid, p, 0)),
+                  f"[sweep-ranks-world1] {part}: lane {p} != phase 7's")
+        del got
+    launched["sweep-ranks-world1"] = n
+    print(f"[sweep-ranks-world1] {n_hosts} hosts, {n_vms} VMs x "
+          f"policy_grid() through run_grid(mesh=) on a (\"sweep\",) mesh of "
+          f"1 ({ranks_line()}): shard_map and gspmd, every lane == phase "
+          f"7's one-card grid bitwise; walls {walls!r} s; simstep launches "
+          f"{n} ({card})")
+
+
+def dryrun_cell(mesh_shape, rank=0):
+    """The dry-run of DRYRUN_ARCH's training step at DRYRUN_BATCH x
+    PREFILL_LEN on an abstract mesh of ``mesh_shape`` seen from ``rank``
+    (``launch.dryrun``'s rules for train_4k): its ``measure`` and its
+    wall time (building the shape-only inputs and tracing)."""
+    from repro_torch import configs as CFG
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+
+    t0 = time.perf_counter()
+    chips = mesh_shape[0] * mesh_shape[1]
+    prog, info = dryrun.lower_cell(
+        CFG.get_config(DRYRUN_ARCH),
+        CFG.ShapeSpec("train_4k", PREFILL_LEN, DRYRUN_BATCH, "train"),
+        abstract_mesh(mesh_shape, ("data", "model"), rank), chips)
+    got = dryrun.measure(prog)
+    got["wall_s"] = time.perf_counter() - t0
+    got["model_flops"] = info["model_flops"]
+    return got
+
+
+def roofline_line(got, chips):
+    """The dry-run's compute, memory and collective times (ms) on H100
+    constants (``launch.cost_analysis.roofline_terms``)."""
+    from repro_torch.launch.cost_analysis import roofline_terms
+    r = roofline_terms(hlo_flops=got["flops"], hlo_bytes=got["bytes"],
+                       collective_wire_bytes=got["collectives"]["wire_bytes"],
+                       chips=chips, model_flops=got["model_flops"])
+    return {k: r[k] * 1e3 for k in ("compute_s", "memory_s",
+                                    "collective_s")}
+
+
+def phase_dryrun_world1(device, card, main_peak):
+    """``[dryrun-world1]``: the dry-run of qwen3-0.6b's training step at
+    4 x 2048 on a (1, 1) mesh (no card: shape-only tensors on the host)
+    against the card: its predicted peak within DRYRUN_PEAK_RTOL of
+    ``[train-main]``'s measured ``main_peak``; its flops equal to
+    ``FlopCounterMode``'s count (the products and the kernels' operators
+    by their formulas, ``kernels.work``) over one real step on the card;
+    no collective bytes."""
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs as CFG
+    from repro_torch.data.synthetic import config_for, make_batch
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   init_train_state, make_train_step)
+
+    got = dryrun_cell((1, 1))
+    cfg = CFG.get_config(DRYRUN_ARCH)
+    tcfg = TrainConfig(opt=AdamWConfig())
+    state = init_train_state(cfg, tcfg, torch.Generator(
+        device=device).manual_seed(0), device=device)
+    batch = make_batch(config_for(cfg, DRYRUN_BATCH, PREFILL_LEN), 0,
+                       device=device)
+    step = make_train_step(cfg, tcfg)
+    with FlopCounterMode(display=False) as fc:
+        step(state, batch)
+    torch.cuda.synchronize()
+    real = fc.get_total_flops()
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = got["memory"]["peak_bytes_per_device"]
+    err = abs(peak - main_peak) / main_peak
+    times = roofline_line(got, 1)
+    print(f"[dryrun-world1] {DRYRUN_ARCH} training step, {DRYRUN_BATCH} x "
+          f"{PREFILL_LEN}, on a (1, 1) mesh, traced on shape-only tensors "
+          f"in {got['wall_s']!r} s (host): predicted peak {peak} bytes "
+          f"against [train-main]'s measured {main_peak} (relative "
+          f"difference {err!r}, tol {DRYRUN_PEAK_RTOL}); predicted flops "
+          f"{got['flops']!r} (kernels {got['by_kernel']!r}) against "
+          f"{real!r} counted over one step on the card; collective wire "
+          f"bytes {got['collectives']['wire_bytes']!r}; predicted compute "
+          f"/ memory / collective {times['compute_s']!r} / "
+          f"{times['memory_s']!r} / {times['collective_s']!r} ms ({card})")
+    check(err <= DRYRUN_PEAK_RTOL, f"[dryrun-world1] peak {peak} against "
+          f"{main_peak}")
+    check(got["flops"] == real, f"[dryrun-world1] flops {got['flops']} "
+          f"against {real}")
+    check(not got["entries"], "[dryrun-world1] collectives on a mesh of 1")
+
+
 def main_sharded():
     """``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py
     --sharded`` on N >= 2 cards: the sharded paths across them, each rank
@@ -4780,6 +4944,8 @@ def main_sharded():
                          "one_step_ms": one["step_ms"]}
     summary["sp"] = sp_cards(device, card, world, everyone)
     summary["decode"] = decode_cards(device, card, world, everyone)
+    summary["sweep"] = sweep_cards(device, card, world, everyone)
+    summary["dryrun"] = dryrun_cards(device, card, world, everyone)
     # last, so that every other phase reports before its check
     summary["sp_bf16"] = sp_cards_bf16(device, card, world, everyone)
     if rank == 0:
@@ -4792,6 +4958,160 @@ def main_sharded():
     dist.barrier()
     shutdown_ranks()
     return 0
+
+
+def sweep_cards(device, card, world, everyone, n_hosts=100_000,
+                n_vms=50_000):
+    """``[sweep-cards]`` (``--sharded``): the §5 datacenter at 100,000
+    hosts under the 2x2 grid through ``run_grid(mesh=)`` on a ("sweep",)
+    mesh of every card, one lane a card at 4, with ``"shard_map"`` and
+    ``"gspmd"``: each rank's whole result bitwise its own one-card
+    ``run_grid``; each rank launches simstep.  And ``[federation-cards]``:
+    phase 19's four providers (``build_study``'s datacenters) through
+    ``federated_run(mesh=)`` on a ("dc",) mesh, one provider a card,
+    bitwise the device-list form on each rank."""
+    import torch
+    from repro_torch.core import experiments as E
+    from repro_torch.core import federation as F
+    from repro_torch.core import sweep
+    from repro_torch.kernels.simstep import simstep
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((world,), ("sweep",))
+    batch = sweep.stack_scenarios([section5(n_hosts, n_vms, 0, device)])
+    vm_p, task_p = sweep.policy_grid(device=device)
+    one = sweep.run_grid(batch, vm_p, task_p, max_steps=8192)
+    mine = {}
+    for part in ("shard_map", "gspmd"):
+        torch.cuda.synchronize()
+        simstep.launches = 0
+        t0 = time.perf_counter()
+        got = sweep.run_grid(batch, vm_p, task_p, max_steps=8192,
+                             mesh=mesh, partitioner=part)
+        torch.cuda.synchronize()
+        mine[part] = {"wall": time.perf_counter() - t0,
+                      "launches": simstep.launches,
+                      "same": same_state(got, one)}
+        del got
+    providers, fleets = federation(device)
+    dcs, _, _ = E.build_study(providers, fleets, device=device)
+    parks = [int(d.hosts.num_pes.shape[0]) for d in dcs]
+    stack = sweep.stack_scenarios(dcs)
+    fed = {}
+    if len(dcs) == world:
+        t0 = time.perf_counter()
+        got = F.federated_run(stack, mesh=make_mesh((world,), ("dc",)),
+                              max_steps=8192)
+        torch.cuda.synchronize()
+        fed["wall"] = time.perf_counter() - t0
+        ref = F.federated_run(stack, devices=[device], max_steps=8192)
+        fed["same"] = (same_state(got[0], ref[0])
+                       and same_rows(got[1], ref[1])
+                       and same_rows(got[2], ref[2]))
+    res = everyone({"grid": mine, "fed": fed})
+    if mesh.rank != 0:
+        return None
+    for r, got in enumerate(res):
+        for part, g in got["grid"].items():
+            print(f"[sweep-cards] {n_hosts} hosts, {n_vms} VMs x "
+                  f"policy_grid() through run_grid(mesh=) on a "
+                  f"(\"sweep\",) mesh of {world}, {part}, rank {r} "
+                  f"({ranks_line()}): its whole grid == one card's "
+                  f"bitwise: {g['same']}; wall {g['wall']!r} s; simstep "
+                  f"launches {g['launches']} ({card})")
+            check(g["same"] and g["launches"] > 0, f"[sweep-cards] {part} "
+                  f"rank {r}: grid differs or no simstep launch")
+    if world == len(dcs):
+        for r, got in enumerate(res):
+            print(f"[federation-cards] {len(dcs)} providers of phase 19 "
+                  f"({parks} hosts) through federated_run(mesh=) "
+                  f"on a (\"dc\",) mesh of {world}, rank {r}: states, "
+                  f"reports and table == the device-list form bitwise: "
+                  f"{got['fed']['same']}; wall {got['fed']['wall']!r} s "
+                  f"({card})")
+            check(got["fed"]["same"], f"[federation-cards] rank {r}")
+    else:
+        print(f"[federation-cards] skipped: {len(dcs)} providers on "
+              f"{world} cards (one provider a card)")
+    return {part: [g["grid"][part]["wall"] for g in res] for part in mine}
+
+
+def dryrun_cards(device, card, world, everyone):
+    """``[dryrun-cards]`` (``--sharded``): DRYRUN_ARCH's training step at
+    DRYRUN_BATCH x PREFILL_LEN on (world, 1), (1, world) and (2,
+    world/2) with train_4k's dry-run rules (FSDP, ``sp``): on every rank,
+    the collectives the dry-run predicts from that rank (an abstract
+    mesh, no card) equal, entry by entry and so kind by kind, what the
+    live mesh records over 2 steps of ``train`` on the cards; the
+    predicted peak within DRYRUN_PEAK_RTOL of the measured one.  Returns,
+    on rank 0, each mesh's predicted compute, memory and collective
+    times beside its measured step time."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs as CFG
+    from repro_torch.launch.cost_analysis import collective_bytes
+    from repro_torch.launch.dryrun import _rules_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+
+    cfg = CFG.get_config(DRYRUN_ARCH)
+    steps, out = 2, {}
+    for shape in ((world, 1), (1, world), (2, world // 2)):
+        mesh = make_mesh(shape, ("data", "model"))
+        rules = _rules_for("train_4k", mesh, True, True, True, True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with mesh.recording() as log:
+            rep = train(cfg, steps=steps, batch=DRYRUN_BATCH,
+                        seq=PREFILL_LEN, device=device, mesh=mesh,
+                        rules=rules, log=lambda line: None)
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = rep.step_seconds[-1] * 1e3
+        del rep
+        got = dryrun_cell(shape, dist.get_rank())
+        mine = {"same": log == got["entries"] * steps,
+                "live": collective_bytes(log).by_kind,
+                "predicted": {k: v * steps for k, v in collective_bytes(
+                    got["entries"]).by_kind.items()},
+                "peak": peak,
+                "predicted_peak": got["memory"]["peak_bytes_per_device"],
+                "step_ms": step_ms, "wall_s": got["wall_s"],
+                "times": roofline_line(got, world)}
+        res = everyone(mine)
+        if mesh.rank == 0:
+            for r, m in enumerate(res):
+                err = abs(m["predicted_peak"] - m["peak"]) / m["peak"]
+                print(f"[dryrun-cards] {DRYRUN_ARCH} training step, "
+                      f"{DRYRUN_BATCH} x {PREFILL_LEN}, on (\"data\", "
+                      f"\"model\") = {shape} (train_4k's rules: FSDP, sp), "
+                      f"rank {r} of {world}: the dry-run's collectives "
+                      f"(traced in {m['wall_s']!r} s on the host) == the "
+                      f"live ones over {steps} steps, entry by entry: "
+                      f"{m['same']}; wire bytes by kind, live "
+                      f"{m['live']!r}, predicted {m['predicted']!r}; "
+                      f"peak predicted {m['predicted_peak']} bytes, "
+                      f"measured {m['peak']} (relative difference "
+                      f"{err!r}, tol {DRYRUN_PEAK_RTOL}); predicted "
+                      f"compute / memory / collective "
+                      f"{m['times']['compute_s']!r} / "
+                      f"{m['times']['memory_s']!r} / "
+                      f"{m['times']['collective_s']!r} ms against a "
+                      f"measured step of {m['step_ms']!r} ms ({card})")
+                check(m["same"] and m["live"] == m["predicted"],
+                      f"[dryrun-cards] {shape} rank {r}: collectives differ")
+                check(err <= DRYRUN_PEAK_RTOL, f"[dryrun-cards] {shape} "
+                      f"rank {r}: peak {m['predicted_peak']} against "
+                      f"{m['peak']}")
+            out[str(shape)] = {"times_ms": res[0]["times"],
+                               "step_ms": [m["step_ms"] for m in res],
+                               "peak": [m["peak"] for m in res],
+                               "predicted_peak": [m["predicted_peak"]
+                                                  for m in res]}
+        dist.barrier()
+    return out if dist.get_rank() == 0 else None
 
 
 def one_card_params(cfg, device):
@@ -5185,7 +5505,7 @@ def main():
     phase_skewed(device, card)
     launched = {"section5": simstep.launches}
     phase_leap(device, card, launched)
-    phase_grid(device, card, launched)
+    grid = phase_grid(device, card, launched)
     phase_lanes(device, card, launched)
     phase_simulate(device, card, launched)
     phase_s5_dynamic(device, card, launched)
@@ -5234,7 +5554,8 @@ def main():
     phase_train_small(device)
     from repro_torch.launch.train import kernel_launches
     trained = dict.fromkeys(kernel_launches(), 0)
-    main_losses = phase_train_main(device, card, trained)
+    main_peaks = {}
+    main_losses = phase_train_main(device, card, trained, main_peaks)
     phase_train_supervisor(device, card)
     # the multi-rank slice: [train-dp] (counts set to 0 just before the run
     # on this process's group, read just after) and [allreduce-int8]
@@ -5254,6 +5575,12 @@ def main():
                     sp)
     phase_decode_tp_world1(device, card)
     phase_kv_seq_split(device, card)
+    # the simulator's partitioners over ranks and the dry-run, on the
+    # same one-rank group: [sweep-ranks-world1] (simstep's count set to 0
+    # just before each run, read just after) and [dryrun-world1]
+    phase_sweep_ranks_world1(device, card, grid, record["launches_by_path"])
+    record["launches"] = sum(record["launches_by_path"].values())
+    phase_dryrun_world1(device, card, main_peaks[DRYRUN_ARCH])
     shutdown_ranks()
     paths = {"train": trained, "train-dp": dp, "train-sharded": sharded,
              "sp-world1": sp}

@@ -8,9 +8,11 @@ prices, ``cloudburst_assign``); then the datacenters run independently.
 ``vmap_federation`` runs the D datacenters as lanes of one batch
 (``engine.batched_run``); ``federated_run`` runs datacenter d on
 ``devices[d % len(devices)]``, one run each, and stacks the registry
-rows where the JAX package gathers them across a mesh.  Lane d of a
-batch equals the single run of datacenter d, so the two agree bit for
-bit.
+rows, or, given a live ``launch.mesh.Mesh`` (JAX's form), runs
+datacenter d on rank d of its ``axis`` and all-gathers the registry
+rows, the final states and the reports over it, so every rank holds
+the whole federation.  Lane d of a batch equals the single run of
+datacenter d, so all of them agree bit for bit.
 
 The routing greedy is sequential over users: experiment set-up over a
 table with one row a datacenter.  It runs on the host in NumPy f32,
@@ -27,6 +29,7 @@ import torch
 from repro_torch.core import broker, cis, engine, market
 from repro_torch.core import state as S
 from repro_torch.core.provisioning import FIRST_FIT
+from repro_torch.core.sweep import gather_lanes
 from repro_torch.device import resolve_device
 
 __all__ = ["UserDemand", "assign_users", "cloudburst_assign",
@@ -140,14 +143,45 @@ def vmap_federation(dc_stack: S.DatacenterState, *,
     return out, rep, table
 
 
+def _federated_on_mesh(dc_stack, mesh, axis: str, max_steps: int,
+                       provision_policy: int):
+    """Datacenter d on rank d of ``axis``: its registry row, final state
+    and report, all-gathered over ``axis``."""
+    n_dc, n = dc_stack.time.shape[0], mesh.axis_size(axis)
+    if n_dc != n:
+        raise ValueError(f"{n_dc} datacenters on an axis {axis!r} of {n} "
+                         f"ranks: one datacenter a rank")
+    dc = S.to_device(_lane(dc_stack, mesh.axis_index(axis)), mesh.device)
+    gather = lambda row: type(row)(*(  # noqa: E731
+        gather_lanes(t[None], mesh, axis) for t in row))
+    table = gather(cis.register(dc))
+    out = engine.run(dc, max_steps=max_steps,
+                     provision_policy=provision_policy)
+    rep = gather(broker.collect(out))
+    out = gather_lanes(S.map_tensors(lambda t: t[None], out), mesh, axis)
+    return out, rep, table
+
+
 def federated_run(dc_stack: S.DatacenterState, *,
-                  devices: Sequence | None = None,
-                  max_steps: int = 100_000,
+                  devices: Sequence | None = None, mesh=None,
+                  axis: str = "dc", max_steps: int = 100_000,
                   provision_policy: int = FIRST_FIT):
     """Datacenter d of ``dc_stack`` (leaves [D, ...]) runs alone on
     ``devices[d % len(devices)]`` (default: the card); the results and
     registry rows are stacked on ``devices[0]``, in the layout of
-    ``vmap_federation``, which they equal bit for bit."""
+    ``vmap_federation``, which they equal bit for bit.
+
+    With ``mesh`` (a live ``launch.mesh.Mesh`` whose ``axis`` has D
+    ranks, JAX's ``federated_run(mesh, ...)``): datacenter d runs on rank
+    d of ``axis``; every rank returns the whole triple (final states
+    [D], reports [D], the table of the initial states [D]) on its own
+    device."""
+    if mesh is not None:
+        if devices is not None:
+            raise ValueError("federated_run takes devices or a mesh, not "
+                             "both")
+        return _federated_on_mesh(dc_stack, mesh, axis, max_steps,
+                                  provision_policy)
     devs = ([resolve_device()] if devices is None
             else [resolve_device(d) for d in devices])
     home = devs[0]

@@ -42,8 +42,21 @@ keeps the fused program; ``"dispatch"`` always cuts, even on one card,
 where the pieces run one after another.  The stream runners take no
 partitioner and always follow the one-distinct-device rule.  Every
 spelling equals ``run_batch`` bit for bit, because lane i equals its
-single run.  JAX's ``"gspmd"`` and ``"shard_map"`` partitioners build
-one SPMD program over a mesh and have no counterpart here.
+single run.
+
+Over ranks (``run_sharded(mesh=...)``, ``run_grid(mesh=...)``), the lane
+axis is split over a live 1-D ``launch.mesh.Mesh`` of processes (NCCL
+on cards, gloo on the CPU), where JAX builds one SPMD program over a
+1-D device mesh.  The lanes are padded to a multiple of the world with
+inert lanes; each rank runs its contiguous block (``"gspmd"``, or
+``"shard_map"`` with ``inner="vmap"``: one ``batched_run``;
+``"shard_map"`` with ``inner="map"``: one ``engine.run`` a lane); the
+blocks are all-gathered leaf by leaf through the mesh, so every rank
+holds the whole result, as JAX's lane-sharded output is one global
+array; then the padding is cut.  ``"auto"`` with a mesh is
+``"shard_map"`` with ``inner="vmap"``, JAX's choice on an accelerator
+backend.  No lane's arithmetic depends on which rank runs it, so every
+spelling equals ``run_batch`` bit for bit.
 """
 from __future__ import annotations
 
@@ -70,7 +83,7 @@ __all__ = ["pad_scenario", "stack_scenarios", "run_batch", "run_grid",
            "stack_streams", "inert_stream_lane", "run_stream_batch",
            "run_stream_grid", "StreamSweepSummary", "summarize_stream",
            "PolicyGrid", "policy_points", "fuse_policies",
-           "run_policy_search"]
+           "run_policy_search", "gather_lanes"]
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +245,7 @@ def _unfuse(out: DatacenterState, n_pol: int) -> DatacenterState:
 
 def run_grid(batch: DatacenterState, vm_policies, task_policies, *,
              max_steps: int = 1_000_000, provision_policy: int = FIRST_FIT,
-             leap: bool | None = None, devices=None,
+             leap: bool | None = None, devices=None, mesh=None,
              sharded: bool | None = None,
              partitioner: str = "auto") -> DatacenterState:
     """Scenarios x policy grid as ONE fused batch: ``fuse_grid``, then
@@ -240,17 +253,19 @@ def run_grid(batch: DatacenterState, vm_policies, task_policies, *,
 
     ``vm_policies``/``task_policies`` are i32[P], paired (the 2x2
     Figure 3 matrix is P = 4, ``policy_grid``).  With ``sharded`` (the
-    default when ``devices`` is given) the fused lanes go through
-    ``run_sharded`` over ``devices`` instead.  Every lane equals the
-    single ``engine.run`` of its cell and ``run_grid_nested``, bit for
-    bit, whichever the spelling.
+    default when ``devices`` or ``mesh`` is given) the fused lanes go
+    through ``run_sharded`` over ``devices``, or over the ranks of
+    ``mesh`` (JAX's ``_grid_runner``; every rank gets the whole grid).
+    Every lane equals the single ``engine.run`` of its cell and
+    ``run_grid_nested``, bit for bit, whichever the spelling.
     """
     vm_p, task_p = _policies(batch, vm_policies, task_policies)
     if sharded is None:
-        sharded = devices is not None
+        sharded = devices is not None or mesh is not None
     fused = fuse_grid(batch, vm_p, task_p)
     if sharded:
-        out = run_sharded(fused, devices=devices, max_steps=max_steps,
+        out = run_sharded(fused, devices=devices, mesh=mesh,
+                          max_steps=max_steps,
                           provision_policy=provision_policy,
                           partitioner=partitioner, leap=leap)
     else:
@@ -309,9 +324,9 @@ def _check_partitioner(partitioner: str) -> None:
     and ``"dispatch"`` (always the dispatcher)."""
     if partitioner in ("gspmd", "shard_map"):
         raise ValueError(
-            f"partitioner {partitioner!r} builds one SPMD program over a "
-            "JAX device mesh and has no counterpart in the port; use "
-            "'dispatch' (or 'auto')")
+            f"partitioner {partitioner!r} splits the lanes over the ranks "
+            "of a mesh (run_sharded(mesh=...)), not over a device list; "
+            "use 'dispatch' (or 'auto')")
     if partitioner not in ("auto", "dispatch"):
         raise ValueError(f"unknown partitioner: {partitioner!r}")
 
@@ -361,19 +376,99 @@ def _dispatch_run(batch: DatacenterState, devices, *, max_steps: int,
     return _take(_cat(outs, devices[0]), inv, devices[0])
 
 
-def run_sharded(batch: DatacenterState, *, devices=None,
+def _lane_axis(mesh) -> str:
+    """The (only) axis name of a 1-D sweep mesh; reject higher ranks."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            f"sweep meshes are 1-D; got axes {mesh.axis_names}")
+    return mesh.axis_names[0]
+
+
+def _mesh_partitioner(partitioner: str, inner: str | None) -> str:
+    """The per-rank scheme of the mesh form: "vmap" (one
+    ``batched_run``) or "map" (one ``engine.run`` a lane)."""
+    if partitioner == "auto":
+        partitioner = "shard_map"
+    if partitioner == "gspmd":
+        return "vmap"
+    if partitioner != "shard_map":
+        raise ValueError(f"partitioner {partitioner!r} over a mesh: "
+                         f"'shard_map', 'gspmd' or 'auto'")
+    inner = inner or "vmap"
+    if inner not in ("vmap", "map"):
+        raise ValueError(f"unknown inner: {inner!r}")
+    return inner
+
+
+def gather_lanes(tree, mesh, axis: str):
+    """Every rank's block of a state (or any block of one) along the
+    lane axis, all-gathered leaf by leaf over ``axis`` in rank order.
+    Each leaf travels as its bytes (any dtype; the copies are exact);
+    a leaf with no elements is not sent."""
+    n = mesh.axis_size(axis)
+
+    def leaf(x):
+        if x.numel() == 0:
+            return x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        raw = x.clone(memory_format=torch.contiguous_format).view(
+            torch.uint8)
+        return mesh.all_gather(raw, axis, dim=0).view(x.dtype)
+    return map_tensors(leaf, tree)
+
+
+def _run_on_mesh(batch: DatacenterState, mesh, *, scheme: str,
+                 max_steps: int, provision_policy: int,
+                 leap: bool | None) -> DatacenterState:
+    """This rank's contiguous block of the padded lanes, run by
+    ``scheme``, then every block gathered and the padding cut."""
+    axis = _lane_axis(mesh)
+    n = mesh.axis_size(axis)
+    have = batch.time.shape[0]
+    per = -(-have // n)
+    padded = pad_batch(batch, per * n)
+    lo = mesh.axis_index(axis) * per
+    block = to_device(map_tensors(lambda x: x[lo:lo + per], padded),
+                      mesh.device)
+    kw = dict(max_steps=max_steps, provision_policy=provision_policy,
+              leap=leap)
+    if scheme == "vmap":
+        out = engine.batched_run(block, **kw)
+    else:
+        out = _stack([engine.run(map_tensors(lambda x: x[i], block), **kw)
+                      for i in range(per)])
+    out = gather_lanes(out, mesh, axis)
+    return map_tensors(lambda x: x[:have], out)
+
+
+def run_sharded(batch: DatacenterState, *, devices=None, mesh=None,
                 max_steps: int = 1_000_000,
                 provision_policy: int = FIRST_FIT,
-                partitioner: str = "auto",
+                partitioner: str = "auto", inner: str | None = None,
                 leap: bool | None = None) -> DatacenterState:
-    """``run_batch`` with the lane axis split over ``devices`` (a list of
-    devices, which may name one card twice; default the card) by the
-    sorted-chunk dispatcher (``_dispatch_run``).  ``partitioner`` is
-    ``"dispatch"`` (always the dispatcher) or ``"auto"`` (one
-    ``batched_run`` on ``devices[0]`` when the list names one distinct
-    device, the dispatcher otherwise); ``"gspmd"`` and ``"shard_map"``
-    raise ``ValueError``.  The result lies on ``devices[0]`` and equals
-    ``run_batch`` bit for bit."""
+    """``run_batch`` with the lane axis split over ``devices`` or over
+    the ranks of ``mesh``; the result equals ``run_batch`` bit for bit.
+
+    ``devices`` (a list of devices, which may name one card twice;
+    default the card): the sorted-chunk dispatcher (``_dispatch_run``).
+    ``partitioner`` is ``"dispatch"`` (always the dispatcher) or
+    ``"auto"`` (one ``batched_run`` on ``devices[0]`` when the list
+    names one distinct device, the dispatcher otherwise); ``"gspmd"``
+    and ``"shard_map"`` over a device list raise ``ValueError``.  The
+    result lies on ``devices[0]``.
+
+    ``mesh`` (a live 1-D ``launch.mesh.Mesh``, JAX's sweep mesh): each
+    rank runs its contiguous block of lanes (see the module's
+    docstring) with ``partitioner`` ``"shard_map"`` (``inner`` "vmap",
+    the default, or "map"), ``"gspmd"`` or ``"auto"`` (``"shard_map"``);
+    every rank gets the whole result, on its own device."""
+    if mesh is not None:
+        if devices is not None:
+            raise ValueError("run_sharded takes devices or a mesh, not "
+                             "both")
+        return _run_on_mesh(batch, mesh,
+                            scheme=_mesh_partitioner(partitioner, inner),
+                            max_steps=max_steps,
+                            provision_policy=provision_policy, leap=leap)
     _check_partitioner(partitioner)
     devs = _devices(devices)
     if _one_batch(partitioner, devs):

@@ -18,15 +18,19 @@ gradient is autograd through ``attention_ref``.  Without a gradient
 (``no_grad``, serving) the call is the forward launch alone, as before.
 
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-the CUDA launches (reset by assignment).
+the CUDA launches (reset by assignment).  Each kernel launches as the
+operator ``repro_torch::flash_attention`` (``_bwd``), with its flop
+formula (``kernels.work``); shape-only tensors (``work.shape_only``, the
+dry-run's) take the CUDA route, where the operator launches nothing.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["attention", "attention_ref", "flash_attention",
@@ -86,7 +90,7 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None):
     tensors launch the kernel, with the backward kernel as their gradient
     when one is wanted, or the call raises.
     """
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not work.shape_only(q):
         return attention_ref(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -119,7 +123,7 @@ def _bwd_library() -> ctypes.CDLL:
 def _check(q, k, v, window, what="flash_attention", extra=()):
     """The checks both kernels share: devices, dtypes, shapes, layouts."""
     device = q.device
-    if device.type != "cuda":
+    if device.type != "cuda" and not work.shape_only(q):
         raise ValueError(f"{what} needs CUDA tensors, got {device}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"{what}: q, k, v must be [B, S, heads, hd]")
@@ -169,12 +173,26 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """
     _check(q, k, v, window)
     b, sq, h, hd = q.shape
-    _, skv, kh, _ = k.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if sq == 0 or b == 0 or h == 0:
-        return (out, lse) if return_lse else out
+    if sq and b and h:
+        _launch(q, k, v, out, lse, bool(causal), window)
+    return (out, lse) if return_lse else out
+
+
+def _fwd_flops(q, k, v, out, lse, causal, window):
+    b, sq, h, hd = q
+    return work.flash_flops(b, sq, k[1], h, hd, causal, window)
+
+
+@work.kernel_op("flash_attention", ("out", "lse"), _fwd_flops)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, lse: Optional[torch.Tensor], causal: bool,
+            window: Optional[int]) -> None:
+    """The forward kernel's launch into ``out`` (and ``lse``)."""
+    b, sq, h, hd = q.shape
+    _, skv, kh, _ = k.shape
     if (design(q.dtype, hd) == "wgmma-bf16"
             and any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("flash_attention: the tensor-core kernel copies "
@@ -184,14 +202,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None,
+            lse.data_ptr() if lse is not None else None,
             _DTYPES[q.dtype], b, sq, skv, h, kh, hd,
-            int(bool(causal)), window or 0, stream)
+            int(causal), window or 0, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
-    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
@@ -217,12 +234,35 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if sq == 0 or b == 0 or h == 0:
         return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv, bool(causal),
+                window)
+    return dq, dk, dv
+
+
+def _bwd_flops(q, k, v, *rest):
+    b, sq, h, hd = q
+    causal, window = rest[-2:]
+    return work.FLASH_BWD_RATIO * work.flash_flops(b, sq, k[1], h, hd,
+                                                   causal, window)
+
+
+@work.kernel_op("flash_attention_bwd", ("delta", "dq", "dk", "dv"),
+                _bwd_flops)
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                delta: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+                dv: torch.Tensor, causal: bool,
+                window: Optional[int]) -> None:
+    """The backward kernel's launch into ``dq``, ``dk``, ``dv`` (its
+    scratch: ``delta``, each row's dO . O)."""
+    b, sq, h, hd = q.shape
+    _, skv, kh, _ = k.shape
     if (bwd_design(q.dtype, hd) == "wgmma-bf16"
             and any(t.data_ptr() % 16 for t in (q, k, v, dout))):
         raise ValueError("flash_attention_bwd: the tensor-core kernels copy "
                          "16-byte chunks: q, k, v, dout must be 16-byte "
                          "aligned")
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -230,12 +270,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
-            b, sq, skv, h, kh, hd, int(bool(causal)), window or 0, stream)
+            b, sq, skv, h, kh, hd, int(causal), window or 0, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0

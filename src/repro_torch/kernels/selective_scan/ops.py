@@ -12,7 +12,11 @@ gradient is autograd through ``selective_scan_ref``.  Without a gradient
 the call is the forward launch alone, as before.
 
 ``selective_scan.launches`` and ``selective_scan_bwd.launches`` count the
-CUDA launches (plain integers; reset them by assignment).
+CUDA launches (plain integers; reset them by assignment).  Each kernel
+launches as the operator ``repro_torch::selective_scan`` (``_bwd``),
+with its flop formula (``kernels.work``); shape-only tensors
+(``work.shape_only``, the dry-run's) take the CUDA route, where the
+operator launches nothing.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 __all__ = ["selective_scan", "selective_scan_ref", "selective_scan_cuda",
@@ -54,7 +58,7 @@ def selective_scan(dt, x, b_ssm, c_ssm, a, d_skip):
     CUDA tensors launch the kernel, with the backward kernel as their
     gradient when one is wanted, or the call raises.
     """
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not work.shape_only(x):
         return selective_scan_ref(dt, x, b_ssm, c_ssm, a, d_skip)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (dt, x, b_ssm, c_ssm, a, d_skip)):
@@ -104,7 +108,7 @@ def _check(tensors: dict, what: str):
     """Every input on one CUDA device, f32, of its shape, contiguous; N in
     ``STATE_SIZES``.  ``tensors`` maps a name to (tensor, shape)."""
     device = tensors["x"][0].device
-    if device.type != "cuda":
+    if device.type != "cuda" and not work.shape_only(tensors["x"][0]):
         raise ValueError(f"{what} needs CUDA tensors, got {device}")
     for name, (t, shape) in tensors.items():
         if t.device != device:
@@ -140,15 +144,21 @@ def selective_scan_cuda(dt, x, b_ssm, c_ssm, a, d_skip):
 
     All inputs f32, contiguous, on one CUDA device; N in ``STATE_SIZES``.
     """
-    if x.device.type != "cuda":
-        raise ValueError(f"selective_scan_cuda needs CUDA tensors, got "
-                         f"{x.device}")
     _check(_shapes(dt, x, b_ssm, c_ssm, a, d_skip, "selective_scan"),
            "selective_scan")
-    bsz, s, di = x.shape
     y = torch.empty_like(x)
-    if x.numel() == 0:
-        return y
+    if x.numel():
+        _launch(dt, x, b_ssm, c_ssm, a, d_skip, y)
+    return y
+
+
+@work.kernel_op("selective_scan", ("y",), lambda dt, x, b, c, a, *_:
+                work.scan_flops(*x, a[1], backward=False))
+def _launch(dt: torch.Tensor, x: torch.Tensor, b_ssm: torch.Tensor,
+            c_ssm: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+            y: torch.Tensor) -> None:
+    """The forward kernel's launch into ``y``."""
+    bsz, s, di = x.shape
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -160,7 +170,6 @@ def selective_scan_cuda(dt, x, b_ssm, c_ssm, a, d_skip):
         raise RuntimeError(f"selective_scan kernel launch failed: CUDA "
                            f"error {err}")
     selective_scan.launches += 1
-    return y
 
 
 def selective_scan_bwd(dt, x, b_ssm, c_ssm, a, d_skip, dy):
@@ -188,6 +197,27 @@ def selective_scan_bwd(dt, x, b_ssm, c_ssm, a, d_skip, dy):
     pc = torch.empty((blocks, bsz, s, n), **f32)
     pa = torch.empty((bsz, di, n), **f32)
     pd = torch.empty((bsz, di), **f32)
+    grads = (ddt, dx, db, dc, da, dd)
+    _launch_bwd(dt, x, b_ssm, c_ssm, a, d_skip, dy, hs, pb, pc, pa, pd,
+                *grads)
+    return grads
+
+
+@work.kernel_op("selective_scan_bwd",
+                ("hs", "pb", "pc", "pa", "pd", "ddt", "dx", "db", "dc",
+                 "da", "dd"),
+                lambda dt, x, b, c, a, *_: work.scan_flops(
+                    *x, a[1], backward=True))
+def _launch_bwd(dt: torch.Tensor, x: torch.Tensor, b_ssm: torch.Tensor,
+                c_ssm: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                dy: torch.Tensor, hs: torch.Tensor, pb: torch.Tensor,
+                pc: torch.Tensor, pa: torch.Tensor, pd: torch.Tensor,
+                ddt: torch.Tensor, dx: torch.Tensor, db: torch.Tensor,
+                dc: torch.Tensor, da: torch.Tensor,
+                dd: torch.Tensor) -> None:
+    """The backward kernel's launch into the six gradients (its scratch:
+    the chunk-start states ``hs`` and the per-block partials)."""
+    bsz, s, di = x.shape
     lib = _bwd_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -195,12 +225,11 @@ def selective_scan_bwd(dt, x, b_ssm, c_ssm, a, d_skip, dy):
             *(t.data_ptr() for t in (dt, x, b_ssm, c_ssm, a, d_skip, dy, hs,
                                      pb, pc, pa, pd, ddt, dx, db, dc, da,
                                      dd)),
-            bsz, s, di, n, stream)
+            bsz, s, di, a.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
     selective_scan_bwd.launches += 1
-    return ddt, dx, db, dc, da, dd
 
 
 selective_scan_bwd.launches = 0

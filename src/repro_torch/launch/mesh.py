@@ -34,6 +34,23 @@ the gradient all-gathered) and ``split`` (this rank's block of a tensor
 the ranks hold alike; the gradient all-gathered).  Axes of size 1 cost
 nothing in these two: no collective.
 
+Every collective goes through one of the mesh's methods (``psum``,
+``fan_out``, ``all_gather``, ``gather``, ``scatter``, ``split``,
+``pmax``, ``all_reduce_``), in the forward and in each gradient's
+backward.  While a ``recording()`` is open, each one appends an entry
+(kind, result bytes, group size) to it: the kinds are XLA's names
+(``all-reduce``, ``all-gather``, ``reduce-scatter``), and a group of one
+rank, which moves nothing, appends none.  ``launch.cost_analysis``
+turns the entries into wire bytes.
+
+On an abstract mesh the same methods take shape-only tensors (a
+``FakeTensor``, which carries no data) in count mode: they communicate
+nothing, return a tensor of the shape and dtype the collective would,
+and record the same entries as on a live mesh.  The dry-run
+(``launch.dryrun``) traces one rank's program on an abstract mesh so.
+A tensor with data on an abstract mesh raises, as it has no process
+group to reduce over.
+
 ``init_ranks`` starts the process group: NCCL on ``cuda:LOCAL_RANK`` by
 default, gloo when ``device="cpu"``.  Under ``torchrun`` it reads
 ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``; with none set the process is
@@ -41,6 +58,7 @@ a world of one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -49,6 +67,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.sharding.rules import ShardingRules
@@ -62,11 +81,13 @@ __all__ = ["Mesh", "abstract_mesh", "make_mesh", "make_local_mesh",
 class Mesh:
     """Named axes over ranks; ``rank`` is this process's place on them.
     ``groups`` maps each non-empty tuple of axes (in mesh order) to the
-    process group of this rank's ranks along them (empty: abstract)."""
+    process group of this rank's ranks along them (empty: abstract).
+    ``logs`` holds the open ``recording()``s."""
     axis_names: tuple[str, ...]
     axis_sizes: tuple[int, ...]
     rank: int = 0
     groups: dict = dataclasses.field(default_factory=dict, repr=False)
+    logs: list = dataclasses.field(default_factory=list, repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -113,6 +134,19 @@ class Mesh:
             idx = idx * self.shape[a] + coords[a]
         return idx
 
+    def _counts_only(self, t: torch.Tensor) -> bool:
+        """Count mode: a shape-only ``t`` on an abstract mesh.  Any other
+        tensor on an abstract mesh reaches ``group``, which raises."""
+        return not self.groups and isinstance(t, FakeTensor)
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device on a live mesh: its card under NCCL (the
+        current CUDA device, which ``init_ranks`` sets), else the CPU."""
+        if dist.get_backend(self.group(self.axis_names)) == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
     def group(self, axes):
         axes = self._axes(axes)
         if not self.groups:
@@ -120,22 +154,71 @@ class Mesh:
                                "build a live one with make_mesh")
         return self.groups[axes]
 
+    @contextlib.contextmanager
+    def recording(self):
+        """A list that every collective run through this mesh while the
+        context is open appends (kind, result bytes, group size) to."""
+        log: list = []
+        self.logs.append(log)
+        try:
+            yield log
+        finally:
+            self.logs.remove(log)
+
+    def _record(self, kind: str, result_bytes: int, n: int):
+        if n > 1:
+            for log in self.logs:
+                log.append((kind, result_bytes, n))
+
+    # the three collectives every method is built from; in count mode
+    # each leaves this rank's values where the others' would land
+    def all_reduce_(self, y: torch.Tensor, axes, op=None) -> torch.Tensor:
+        """``y`` reduced in place over the ranks of ``axes`` (a sum, or
+        ``op``), without a gradient: the methods below, the train step's
+        sum of gradients, the int8 all-reduce."""
+        self._record("all-reduce", _nbytes(y), self.axis_size(axes))
+        if not self._counts_only(y):
+            dist.all_reduce(y, op=op or dist.ReduceOp.SUM,
+                            group=self.group(axes))
+        return y
+
+    def _all_gather_into(self, out: torch.Tensor, x: torch.Tensor, axes):
+        """``out`` [n * len(x), ...] <- the ranks' ``x`` in block order."""
+        n = self.axis_size(axes)
+        self._record("all-gather", _nbytes(out), n)
+        if self._counts_only(x):
+            out.view(n, *x.shape).copy_(x.expand(n, *x.shape))
+        else:
+            _gather_into(out, x, group=self.group(axes))
+        return out
+
+    def _reduce_scatter_into(self, out: torch.Tensor, x: torch.Tensor,
+                             axes):
+        """``out`` <- this rank's block (along dim 0) of the ranks' sum
+        of ``x``."""
+        self._record("reduce-scatter", _nbytes(out), self.axis_size(axes))
+        if self._counts_only(x):
+            block = out.shape[0]
+            out.copy_(x.narrow(0, self.axis_index(axes) * block, block))
+        else:
+            _reduce_scatter(out, x, group=self.group(axes))
+        return out
+
     def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Sum over the ranks of ``axes`` (JAX's ``lax.psum``); the
         gradient passes through."""
-        return _Psum.apply(x, self.group(axes))
+        return _Psum.apply(x, self, self._axes(axes))
 
     def fan_out(self, x: torch.Tensor, axes) -> torch.Tensor:
         """``x``, replicated over ``axes``, as the input of computations
         that differ along them: its gradient is summed over ``axes``."""
-        return _FanOut.apply(x, self.group(axes))
+        return _FanOut.apply(x, self, self._axes(axes))
 
     def all_gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """The blocks of ``axes`` concatenated along ``dim`` in block
         order (JAX's tiled ``lax.all_gather``); the gradient's own block
         comes back."""
-        return _AllGather.apply(x, self.group(axes), dim,
-                                self.axis_size(axes), self.axis_index(axes))
+        return _AllGather.apply(x, self, self._axes(axes), dim)
 
     def gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """The blocks of ``axes`` concatenated along ``dim``, as
@@ -143,75 +226,69 @@ class Mesh:
         ``axes`` in f32 (one ``reduce_scatter``), this rank's block kept
         and cast to ``x``'s dtype.  FSDP's gather at use, and the
         sequence's at a tensor-parallel sub-layer's entry."""
-        return _Gather.apply(x, self.group(axes), dim, self.axis_size(axes))
+        return _Gather.apply(x, self, self._axes(axes), dim)
 
     def scatter(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """The sum over the ranks of ``axes`` of ``x``, of which this rank
         keeps its block along ``dim`` (one ``reduce_scatter`` in ``x``'s
         dtype; JAX's ``psum_scatter``); the gradient is all-gathered
         (every rank's block feeds the sum).  On axes of size 1, ``x``."""
-        n = self.axis_size(axes)
-        if n == 1:
+        if self.axis_size(axes) == 1:
             return x
-        return _Scatter.apply(x, self.group(axes), dim, n)
+        return _Scatter.apply(x, self, self._axes(axes), dim)
 
     def split(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """This rank's block along ``dim`` of ``x``, which every rank of
         ``axes`` holds alike; the gradient is all-gathered (each block
         of ``x`` feeds the loss on its own rank).  On axes of size 1,
         ``x``."""
-        n = self.axis_size(axes)
-        if n == 1:
+        if self.axis_size(axes) == 1:
             return x
-        return _Split.apply(x, self.group(axes), dim, n,
-                            self.axis_index(axes))
+        return _Split.apply(x, self, self._axes(axes), dim)
 
     def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The elementwise maximum over the ranks of ``axes``, without a
         gradient."""
         y = x.detach().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group(axes))
-        return y
+        return self.all_reduce_(y, axes, dist.ReduceOp.MAX)
 
 
 class _Psum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
-        return y
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce_(
+            x.clone(memory_format=torch.contiguous_format), axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _FanOut(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return ctx.mesh.all_reduce_(
+            g.clone(memory_format=torch.contiguous_format), ctx.axes), \
+            None, None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim, n, index):
+    def forward(ctx, x, mesh, axes, dim):
+        n, index = mesh.axis_size(axes), mesh.axis_index(axes)
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=group)
         ctx.dim, ctx.index, ctx.block = dim, index, x.shape[dim]
-        return torch.cat(parts, dim=dim)
+        return torch.cat(_gathered_parts(mesh, x, axes, n), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         return (g.narrow(ctx.dim, ctx.index * ctx.block, ctx.block),
-                None, None, None, None)
+                None, None, None)
 
 
 # torch >= 2.13 names the tensor collectives *_single
@@ -221,61 +298,80 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
-def _gathered(x, group, dim: int, n: int) -> torch.Tensor:
-    """The blocks ``x`` of the ``n`` ranks of ``group`` concatenated along
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _gathered_parts(mesh, x, axes, n: int) -> list[torch.Tensor]:
+    """The ``n`` ranks' blocks ``x`` of ``axes``, in block order (one
+    ``all_gather`` into a list)."""
+    parts = [torch.empty_like(x) for _ in range(n)]
+    mesh._record("all-gather", n * _nbytes(x), n)
+    if mesh._counts_only(x):
+        for p in parts:
+            p.copy_(x)
+    else:
+        dist.all_gather(parts, x, group=mesh.group(axes))
+    return parts
+
+
+def _gathered(x, mesh, axes, dim: int) -> torch.Tensor:
+    """The blocks ``x`` of the ranks of ``axes`` concatenated along
     ``dim`` (one ``all_gather`` into a tensor)."""
+    n = mesh.axis_size(axes)
     xm = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xm.shape[0], *xm.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    _gather_into(out, xm, group=group)
+    mesh._all_gather_into(out, xm, axes)
     return out.movedim(0, dim).contiguous()
 
 
-def _scattered(x, group, dim: int, n: int, dtype) -> torch.Tensor:
-    """The sum of ``x`` over the ``n`` ranks of ``group`` in ``dtype``,
-    this rank's block along ``dim`` (one ``reduce_scatter``), cast back
-    to ``x``'s dtype."""
+def _scattered(x, mesh, axes, dim: int, dtype) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes`` in ``dtype``, this
+    rank's block along ``dim`` (one ``reduce_scatter``), cast back to
+    ``x``'s dtype."""
+    n = mesh.axis_size(axes)
     xm = x.movedim(dim, 0).to(dtype).contiguous()
     out = torch.empty((xm.shape[0] // n, *xm.shape[1:]), dtype=dtype,
                       device=x.device)
-    _reduce_scatter(out, xm, group=group)
+    mesh._reduce_scatter_into(out, xm, axes)
     return out.movedim(0, dim).to(x.dtype).contiguous()
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim, n):
-        ctx.group, ctx.dim, ctx.n = group, dim, n
-        return _gathered(x, group, dim, n)
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gathered(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return (_scattered(g, ctx.group, ctx.dim, ctx.n, torch.float32),
+        return (_scattered(g, ctx.mesh, ctx.axes, ctx.dim, torch.float32),
                 None, None, None)
 
 
 class _Scatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim, n):
-        ctx.group, ctx.dim, ctx.n = group, dim, n
-        return _scattered(x, group, dim, n, x.dtype)
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _scattered(x, mesh, axes, dim, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return _gathered(g, ctx.group, ctx.dim, ctx.n), None, None, None
+        return _gathered(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
 
 
 class _Split(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim, n, index):
-        ctx.group, ctx.dim, ctx.n = group, dim, n
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        n, index = mesh.axis_size(axes), mesh.axis_index(axes)
         block = x.shape[dim] // n
         return x.narrow(dim, index * block, block).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return (_gathered(g, ctx.group, ctx.dim, ctx.n), None, None, None,
-                None)
+        return _gathered(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
 
 
 def abstract_mesh(axis_sizes, axis_names, rank: int = 0) -> Mesh:

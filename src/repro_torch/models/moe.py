@@ -78,6 +78,15 @@ def top_k(probs: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
+def _expert_counts(e_flat: torch.Tensor, e: int) -> torch.Tensor:
+    """i64[e]: the pairs routed to each expert (``bincount`` with a shape
+    fixed by ``e``, as a trace on shape-only tensors needs; an integer
+    scatter-add, exact in any order)."""
+    ones = torch.ones_like(e_flat, dtype=torch.int64)
+    return torch.zeros(e, dtype=torch.int64,
+                       device=e_flat.device).index_add_(0, e_flat, ones)
+
+
 def _route(xf: torch.Tensor, router: torch.Tensor, k: int):
     """(probs [T,E], normalised top-k weights [T,k], experts [T,k]), in
     f32 for numerics."""
@@ -172,7 +181,7 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     offset = None
     if dp:
         # pairs to each expert on the ranks before this one
-        counts = torch.bincount(e_flat, minlength=e)
+        counts = _expert_counts(e_flat, e)
         every = mesh.all_gather(counts[None], dp, dim=0)       # [n_dp, E]
         offset = every[:mesh.axis_index(dp)].sum(0)
     order, keep, slot = _slots(e_flat, e, cap, offset)
@@ -188,7 +197,7 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
         ce = every.sum(0).float() / (t * k * n_dp)
     else:
         me, kept = probs.mean(0), keep.float().sum()
-        ce = torch.bincount(e_flat, minlength=e).float() / (t * k)
+        ce = _expert_counts(e_flat, e).float() / (t * k)
     aux = {"load_balance_loss": e * torch.sum(me * ce),
            "dropped_frac": 1.0 - kept / (t * k * n_dp)}
     return y.reshape(b, s, d), aux
@@ -267,7 +276,7 @@ def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
     # their product; kept summed over the model axis
     n_pairs = t * k
     me = probs.mean(0)
-    ce = torch.bincount(e_flat, minlength=e).float() / n_pairs
+    ce = _expert_counts(e_flat, e).float() / n_pairs
     dropped = 1.0 - mesh.psum(keep.float().sum(), model) / n_pairs
     if dp:
         both = mesh.psum(torch.cat([me, ce, dropped[None]]), dp) \

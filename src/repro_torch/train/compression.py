@@ -14,7 +14,6 @@ of the wire in ``shard_map``).
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.tree import tree_flatten, tree_leaves
 
@@ -72,7 +71,7 @@ def allreduce_compressed(mesh, axis: str, tree):
     _, leaves, unflatten = tree_flatten(tree)
     wires = [dequantize_int8(*quantize_int8(x), x.shape) for x in leaves]
     flat = torch.cat([w.reshape(-1) for w in wires])
-    dist.all_reduce(flat, group=mesh.group(axis))
+    mesh.all_reduce_(flat, axis)
     n, out, at = mesh.axis_size(axis), [], 0
     for w in wires:
         out.append(flat[at:at + w.numel()].view(w.shape) / n)

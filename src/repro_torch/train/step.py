@@ -39,7 +39,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -133,7 +132,7 @@ def _sum_over_ranks(grads, constrain):
     for axes, idx in groups.items():
         flat = torch.cat([leaves[i].reshape(-1).to(torch.float32)
                           for i in idx])
-        dist.all_reduce(flat, group=constrain.mesh.group(axes))
+        constrain.mesh.all_reduce_(flat, axes)
         at = 0
         for i in idx:
             g = leaves[i]

@@ -10,8 +10,9 @@ of the sharded cases of ``tests/test_autoscaling.py`` and
 ``tests/test_metrics.py``, and of
 ``tests/test_streaming.py::test_stream_sharded_gspmd_bitwise``.  Every
 spelling equals ``run_batch`` (or the unsharded grid) bit for bit, every
-leaf.  JAX's ``"gspmd"`` and ``"shard_map"`` have no counterpart and
-raise ``ValueError``; the dispatcher's chunk order is JAX's.
+leaf.  JAX's ``"gspmd"`` and ``"shard_map"`` over a device list raise
+``ValueError`` (they split lanes over the ranks of a mesh:
+``test_torch_sweep_ranks.py``); the dispatcher's chunk order is JAX's.
 """
 import dataclasses
 
@@ -297,7 +298,7 @@ def test_distinct_devices_and_one_batch():
 
 
 # ---------------------------------------------------------------------------
-# What has no counterpart, and the dispatcher's order
+# The SPMD partitioners over a device list, and the dispatcher's order
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("partitioner", ["gspmd", "shard_map", "pjit"])
 def test_spmd_partitioners_raise(partitioner):

@@ -400,3 +400,98 @@ def sp_decode(rank, world, tmp):
         out["serve"][key] = torch.stack(toks)
     shutdown_ranks()
     torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))
+
+
+def live_cell(cfg, shape, mesh):
+    """A closure that runs this rank's program of a dry-run cell (``shape``
+    a ``configs.ShapeSpec``) on a live ``mesh`` with real tensors: the
+    parameters drawn seeded and cut, the cell's rules
+    (``dryrun._rules_for``), the rank's rows of a synthetic batch or of
+    zeroed caches."""
+    from repro_torch.data.synthetic import config_for, make_batch, \
+        shard_batch
+    from repro_torch.launch.dryrun import _rules_for
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import LeafCutter, make_constrain
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    rules = _rules_for(shape.name, mesh, True, True, True, True)
+    cutter = LeafCutter(mesh, rules)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu", shard=cutter)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        cspecs = M.cache_specs(cfg, mesh, rules, b, s)
+        constrain = make_constrain(mesh, rules, b, param_specs=cutter.specs,
+                                   cache_specs=cspecs)
+        caches = M.init_cache(cfg, b, s, device="cpu", constrain=constrain)
+        tok = (b, 1, cfg.num_codebooks) if cfg.num_codebooks else (b, 1)
+        rows = shard_batch({"t": torch.randint(2, cfg.vocab_size, tok),
+                            "p": torch.arange(b, dtype=torch.int32) % s},
+                           mesh, rules)
+        return lambda: M.decode_step(params, cfg, rows["t"], caches,
+                                     rows["p"], constrain=constrain)
+    rows = shard_batch(make_batch(config_for(cfg, b, s - (
+        cfg.vision_tokens or 0)), 0, device="cpu"), mesh, rules)
+    constrain = make_constrain(mesh, rules, b, param_specs=cutter.specs)
+    if shape.kind == "prefill":
+        return lambda: M.prefill(params, cfg, rows["tokens"],
+                                 vision_embeds=rows.get("vision_embeds"),
+                                 constrain=constrain)
+    tcfg = TrainConfig(opt=AdamWConfig())
+    state = init_train_state(cfg, tcfg, params=params)
+    step = make_train_step(cfg, tcfg, constrain=constrain)
+    return lambda: step(state, rows)
+
+
+def dryrun_ranks(rank, world, tmp):
+    """The collectives each dry-run cell of ``inputs.pt`` runs on a live
+    mesh: the entries ``Mesh.recording()`` collects, by case."""
+    from repro_torch import configs as CFG
+    from repro_torch.launch.mesh import make_mesh, shutdown_ranks
+
+    _start(rank, world, tmp)
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    meshes = {shape: make_mesh(shape, ("data", "model"))
+              for shape in spec["meshes"]}
+    out = {}
+    for key, (arch, mesh_shape, shape) in spec["cases"].items():
+        mesh = meshes[mesh_shape]
+        run = live_cell(CFG.get_smoke_config(arch), CFG.ShapeSpec(*shape),
+                        mesh)
+        with mesh.recording() as log:
+            run()
+        out[key] = log
+    shutdown_ranks()
+    torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))
+
+
+def sweep_ranks(rank, world, tmp):
+    """``run_sharded``/``run_grid`` over a live 1-D mesh of ``world``
+    ranks, every case of ``inputs.pt`` in every spelling, and (world 4)
+    ``federated_run`` on a ("dc",) mesh: every rank's whole results."""
+    from repro_torch.core import federation, sweep
+    from repro_torch.launch.mesh import make_mesh, shutdown_ranks
+
+    _start(rank, world, tmp)
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_mesh((world,), ("sweep",))
+    out = {}
+    for name, case in spec["cases"].items():
+        for part, inner in case["spellings"]:
+            kw = dict(mesh=mesh, max_steps=case["max_steps"],
+                      partitioner=part)
+            if case["grid"]:
+                out[name, part, inner] = sweep.run_grid(
+                    case["batch"], *sweep.policy_grid(), **kw)
+            else:
+                out[name, part, inner] = sweep.run_sharded(
+                    case["batch"], inner=inner, **kw)
+    if world == len(spec["federation"]["stack"].time):
+        dc = make_mesh((world,), ("dc",))
+        out["federation"] = federation.federated_run(
+            spec["federation"]["stack"], mesh=dc,
+            max_steps=spec["federation"]["max_steps"])
+    shutdown_ranks()
+    torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))

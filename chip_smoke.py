@@ -95,7 +95,11 @@ script exits non-zero:
      ranks call (``decode_attention(..., blocks=n)``: the reductions
      over the blocks on one card): layer 0's attention within 1e-5 of
      max |output|, top-1 equal and logits within KV_SPLIT_TOL of max
-     |logit|, each step timed;
+     |logit|, each step timed; ``[ef-sharded-world1]``, qwen3-0.6b at
+     full size, 4 x 2048, 3 steps with int8 error feedback
+     (``pod_compression``) under ``rules_for_mesh(mesh)``, its losses and
+     error buffers bitwise the same run's without a mesh, its launches
+     the plain run's;
   5l. the simulator's partitioners over ranks and the dry-run, on the
      same one-rank group: ``[sweep-ranks-world1]``, phase 7's grid (the
      paper's largest datacenter x the 2x2 grid) through
@@ -129,10 +133,23 @@ the device-list form; ``[dryrun-cards]``, qwen3-0.6b's training step
 rank the collectives the dry-run predicts equal the live ones entry by
 entry, the predicted peak within DRYRUN_PEAK_RTOL of the measured one,
 the predicted compute, memory and collective times printed beside the
-step time (and in the summary); and last ``[sp-cards-bf16]``, the 3
-training steps with ``sp`` in bf16, and with TP alone beside them, for
-three seeds of batches, each held to SP_BF16_LOSS_RTOL of one card's
-losses.
+step time (and in the summary); ``[ef-fsdp-cards]``, qwen3-0.6b on
+(N, 1) with int8 error feedback, every cut leaf's wire and error block
+at every step bitwise its block of the whole-leaf round on the gathered
+gradient, the losses within 1e-3 of one card's; ``[moe-ep-tokens-cards]``
+(N >= 4), moonshot-v1-16b-a3b's prefill of one 2048-token request on
+(2, N/2), its tokens split over "data" while its one row is not, at a
+capacity where nothing drops against one card's logits (MOE_EP_TOL) and
+at the config's 1.25 with each layer's ``dropped_frac`` beside one
+card's; and last ``[sp-cards-bf16]``, the 3 training steps with ``sp``
+in bf16, and with TP alone beside them, for three seeds of batches, each
+held to SP_BF16_LOSS_RTOL of one card's losses.
+
+``python3 -m torch.distributed.run --nproc-per-node 3 chip_smoke.py
+--moe-tp`` (3 cards) runs ``[moe-tp-experts-cards]``: the first MoE
+sub-layer of jamba-1.5-large-398b at full width on (1, 3), where its 16
+experts do not divide the model axis and each rank runs its columns of
+every expert's ``ffn``, against one card's within MOE_EP_TOL.
 
   6. the event-horizon leap: a staggered static scenario (512 hosts of
      2 PEs, 256 VMs, 3 waves) leap on and leap off, bitwise equal, with
@@ -244,7 +261,8 @@ and the bf16 prefill's dtype must route its flash launches to the
 tensor-core kernel.  The full-width training runs of 5g are the training
 slice's: all four LM kernels' counts are set to 0 just before each run
 and read just after, and so for the runs of ``[train-dp]``,
-``[train-sharded]`` and ``[sp-world1]`` (``launches_by_path`` of each LM
+``[train-sharded]``, ``[sp-world1]`` and ``[ef-sharded-world1]``
+(``launches_by_path`` of each LM
 kernel holds its paths).
 The next-to-last line is the kernels' JSON record, the last the
 device's.  Without a CUDA device, or outside a checkout, the script
@@ -290,7 +308,16 @@ DP_STEPS = 3                    # [train-dp]: qwen3-0.6b steps
 # sum, and the bf16 parameters after one update part by ~2e-4 (4 cards)
 DP_LOSS_RTOL = {"one": 1e-5, "cards": 1e-3}
 MOE_EP_TOL = 2e-2               # [moe-ep] across cards: bf16 outputs
+# [moe-ep-tokens-cards]: one request's prefill with its tokens split over
+# "data" (--sharded); [moe-tp-experts-cards]: the first MoE sub-layer of
+# an arch whose experts (16) do not divide a model axis of 3 while its
+# d_ff (24,576) does (--moe-tp, on 3 cards)
+MOE_TOKENS_ARCH, MOE_TP_ARCH = "moonshot-v1-16b-a3b", "jamba-1.5-large-398b"
+# [moe-ep-tokens-cards]'s f32 prefill: its depth (all 48 layers in f32
+# are 112 GB, more than one card holds for the reference)
+MOE_TOKENS_F32_LAYERS = 8
 SHARDED_STEPS = 3               # [train-sharded]: qwen3-0.6b steps
+EF_STEPS = 3                    # [ef-sharded-world1], [ef-fsdp-cards]
 TP_SIZES = (2, 4)               # [tp-shapes]: model axes a rank's shapes
 # the runs across cards (``--sharded`` under torchrun): falcon-mamba-7b
 # at all 64 layers with FSDP over (n, 1), max(2, n) x 2048 (a row a card
@@ -4214,13 +4241,15 @@ def phase_train_dp(device, card, main_losses, launched):
 
 
 def run_train_sharded(device, mesh, rules, arch, batch, steps, cfg=None,
-                      data_seed=0):
+                      data_seed=0, pod_compression=False):
     """``launch.train.train`` of ``arch`` at full size (or of ``cfg``) on
     ``mesh`` with ``rules`` (the state built as this rank's blocks; a
     ``mesh`` of None: one card, no ranks): ``steps`` steps of a
     ``batch`` x PREFILL_LEN global batch, the synthetic batches of
-    ``data_seed``.  All four LM kernels' counts are set to 0 just before
-    and read just after; the peak memory is this rank's."""
+    ``data_seed``; ``pod_compression``: int8 error feedback, whose final
+    error buffers come back as ``ef``.  All four LM kernels' counts are
+    set to 0 just before and read just after; the peak memory is this
+    rank's."""
     import gc
 
     import torch
@@ -4244,8 +4273,9 @@ def run_train_sharded(device, mesh, rules, arch, batch, steps, cfg=None,
                 device=device, mesh=mesh, rules=rules,
                 batch_fn=lambda s: make_batch(scfg, s, seed=data_seed,
                                               device=device),
-                log=lambda line: None)
+                log=lambda line: None, pod_compression=pod_compression)
     out = {"losses": rep.losses, "grad_norms": rep.grad_norms,
+           "ef": rep.state.ef_error,
            "launches": kernel_launches(),
            "step_ms": [t * 1e3 for t in rep.step_seconds],
            "peak": torch.cuda.max_memory_allocated(),
@@ -4492,6 +4522,58 @@ def phase_sp_world1(device, card, main_losses, sharded_peak, launched):
           f"[train-main]'s {main_losses[:SP_STEPS]}")
     check(res["peak"] == sharded_peak, f"[sp-world1] peak {res['peak']} "
           f"against [train-sharded]'s {sharded_peak}")
+
+
+def phase_ef_sharded_world1(device, card, launched):
+    """``[ef-sharded-world1]``: qwen3-0.6b at full size, global batch 4 x
+    PREFILL_LEN, EF_STEPS steps with int8 error feedback
+    (``pod_compression``) through ``train``, once with no mesh and once
+    with ``rules_for_mesh(mesh)`` (FSDP) on this process's one-rank group,
+    where every leaf is a block of one and the error feedback takes its
+    sharded round: the second run's losses and final error buffers equal
+    the first's bit for bit, and its launches are the first's and the
+    shape's.  The counts of both runs are set to 0 just before and read
+    just after; the rules run's are added to ``launched``."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh, rules_for_mesh
+    from repro_torch.tree import tree_leaves
+
+    arch = "qwen3-0.6b"
+    plain = run_train_sharded(device, None, None, arch, 4, EF_STEPS,
+                              pod_compression=True)
+    mesh = make_local_mesh()
+    rules = rules_for_mesh(mesh)
+    res = run_train_sharded(device, mesh, rules, arch, 4, EF_STEPS,
+                            pod_compression=True)
+    want = lm_launches(arch, EF_STEPS)
+    a, b = tree_leaves(res["ef"]), tree_leaves(plain["ef"])
+    same_ef = len(a) == len(b) > 0 and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    nonzero = sum(bool((x != 0).any()) for x in a)
+    same = res["losses"] == plain["losses"]
+    for name, n in res["launches"].items():
+        launched[name] += n
+    print(f"[ef-sharded-world1] {arch} bf16, global batch 4 x {PREFILL_LEN}, "
+          f"{EF_STEPS} steps with int8 error feedback through train(mesh="
+          f"make_local_mesh(), rules=rules_for_mesh(mesh), pod_compression="
+          f"True) (FSDP over {rules.fsdp}), mesh {mesh.shape}, "
+          f"{ranks_line()}: losses {res['losses']!r} against the run "
+          f"without a mesh {plain['losses']!r}, equal bit for bit: {same}; "
+          f"{len(a)} error buffers equal bit for bit: {same_ef} ({nonzero} "
+          f"non-zero); step ms {res['step_ms']!r} against "
+          f"{plain['step_ms']!r} (host clock, synced); peak allocated "
+          f"{res['peak']} against {plain['peak']} bytes; launches "
+          f"{res['launches']} (without a mesh {plain['launches']}) ({card})")
+    check(same and same_ef and nonzero > 0, f"[ef-sharded-world1] losses "
+          f"{res['losses']} against {plain['losses']}, error buffers equal: "
+          f"{same_ef}, non-zero {nonzero}")
+    check(res["launches"] == plain["launches"] == want, f"[ef-sharded-"
+          f"world1] launches {res['launches']}, without a mesh "
+          f"{plain['launches']}, expected {want}")
+    check(res["launches"]["flash_attention"] > 0
+          and res["launches"]["flash_attention_bwd"] > 0,
+          "flash_attention or its backward never launched on the "
+          "ef-sharded-world1 path")
 
 
 def spread_positions(slots, max_seq, steps, device):
@@ -4946,6 +5028,9 @@ def main_sharded():
     summary["decode"] = decode_cards(device, card, world, everyone)
     summary["sweep"] = sweep_cards(device, card, world, everyone)
     summary["dryrun"] = dryrun_cards(device, card, world, everyone)
+    summary["ef"] = ef_fsdp_cards(device, card, world, everyone)
+    summary["moe_tokens"] = moe_ep_tokens_cards(device, card, world,
+                                                everyone)
     # last, so that every other phase reports before its check
     summary["sp_bf16"] = sp_cards_bf16(device, card, world, everyone)
     if rank == 0:
@@ -5323,6 +5408,289 @@ def decode_cards(device, card, world, everyone):
     return out
 
 
+def whole_leaf(x, spec, mesh):
+    """A block under ``spec`` gathered whole on every rank."""
+    import torch
+    with torch.no_grad():
+        for dim, entry in enumerate(spec):
+            if entry is not None and mesh.axis_size(entry) > 1:
+                x = mesh.all_gather(x, entry, dim)
+    return x
+
+
+def ef_fsdp_cards(device, card, world, everyone):
+    """``[ef-fsdp-cards]`` (``--sharded``): qwen3-0.6b at full size with
+    FSDP on ("data", "model") = (world, 1) and int8 error feedback, 4 x
+    PREFILL_LEN, EF_STEPS steps.  At every step, for every leaf the specs
+    cut, each rank's wire and new error block equal, bit for bit, its
+    block of ``ef_compress_tree`` on the gradient and error buffer
+    gathered whole (each such leaf gathered, rounded whole and cut on
+    every rank, inside the step: its times include this check).  The
+    losses within DP_LOSS_RTOL["cards"] of one card's run with error
+    feedback (rank 0 alone)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh, rules_for_mesh
+    from repro_torch.sharding.rules import shard_leaf, spec_axes
+    from repro_torch.train import compression
+    from repro_torch.tree import tree_leaves
+
+    rank = dist.get_rank()
+    mesh = make_mesh((world, 1), ("data", "model"))
+    rules = rules_for_mesh(mesh)
+    seen = []
+    plain = compression.ef_compress_tree
+
+    def checked(grads, error, mesh=None, specs=None):
+        wire, new = plain(grads, error, mesh=mesh, specs=specs)
+        n = same = 0
+        for g, e, w, r, spec in zip(*(tree_leaves(t) for t in (
+                grads, error, wire, new, specs))):
+            if not spec_axes(spec, mesh):
+                continue
+            ww, rw = plain(whole_leaf(g, spec, mesh),
+                           whole_leaf(e, spec, mesh))
+            n += 1
+            same += torch.equal(shard_leaf(ww, spec, mesh), w) and \
+                torch.equal(shard_leaf(rw, spec, mesh), r)
+            del ww, rw
+        seen.append((n, same))
+        return wire, new
+
+    compression.ef_compress_tree = checked
+    try:
+        res = run_train_sharded(device, mesh, rules, "qwen3-0.6b", 4,
+                                EF_STEPS, pod_compression=True)
+    finally:
+        compression.ef_compress_tree = plain
+    res.pop("ef")
+    res["seen"] = seen
+    got = everyone(res)
+    one = None
+    if rank == 0:
+        one = run_train_sharded(device, None, None, "qwen3-0.6b", 4,
+                                EF_STEPS, pod_compression=True)
+        one.pop("ef")
+    dist.barrier()
+    if rank != 0:
+        return None
+    errs = []
+    for r, res in enumerate(got):
+        err = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                      one["losses"]))
+        errs.append(err)
+        print(f"[ef-fsdp-cards] qwen3-0.6b bf16, int8 error feedback, FSDP "
+              f"over (\"data\", \"model\") = ({world}, 1), rank {r} of "
+              f"{world}: 4 x {PREFILL_LEN}, {EF_STEPS} steps; sharded leaves "
+              f"checked and equal bit for bit to the whole-leaf round, a "
+              f"step each: {res['seen']!r}; losses {res['losses']!r} against "
+              f"one card's {one['losses']!r}: largest difference {err!r} "
+              f"(relative); step ms {res['step_ms']!r} (with the check) "
+              f"against one card's {one['step_ms']!r}; peak allocated "
+              f"{res['peak']} bytes against {one['peak']}; launches "
+              f"{res['launches']} ({card})")
+        check(len(res["seen"]) == EF_STEPS and all(
+            n > 0 and n == same for n, same in res["seen"]),
+            f"[ef-fsdp-cards] rank {r}: sharded rounds against the whole "
+            f"leaves' {res['seen']}")
+        check(err <= DP_LOSS_RTOL["cards"], f"[ef-fsdp-cards] rank {r}: "
+              f"losses part from one card's by {err}")
+        check(res["launches"] == lm_launches("qwen3-0.6b", EF_STEPS),
+              f"[ef-fsdp-cards] rank {r} launches {res['launches']}")
+    return {"losses": got[0]["losses"], "one": one["losses"],
+            "err": max(errs), "step_ms": [r["step_ms"] for r in got],
+            "seen": got[0]["seen"]}
+
+
+def moe_ep_tokens_cards(device, card, world, everyone):
+    """``[moe-ep-tokens-cards]`` (``--sharded``, 4 cards or more):
+    moonshot-v1-16b-a3b, the prefill of one PREFILL_LEN-token request on
+    ("data", "model") = (2, world // 2) under ``rules_for_mesh`` (FSDP
+    over "data", tensor and expert parallelism over "model"), each rank
+    drawing its blocks (``LeafCutter``).  One row, which no data rank
+    splits, while JAX's expert parallelism splits the request's tokens
+    over "data": each rank routes its block of them.  Against one card's
+    whole model (rank 0 alone, first), at capacity factor E/k, where no
+    pair can drop (a capacity of at least the tokens):
+
+    - bf16 at full size: layer 0's MoE on one card's final hidden state
+      within MOE_EP_TOL of max |ref|, ``dropped_frac`` 0 on both sides
+      and the load-balance loss within 1e-6; the whole prefill's logits
+      printed beside one card's (over 48 bf16 layers the cards' other
+      orders of summation in attention and the experts move near-tied
+      routes, as ``[moe-ep]``'s prefill across cards shows);
+    - f32 at MOE_TOKENS_F32_LAYERS layers (all 48 in f32, 112 GB, fit no
+      card): the prefill's logits within SP_CARDS_TOL of max |logit|
+      (``[sp-cards]``' f32 bound), no pair dropped on either side;
+
+    and at the config's own factor, every MoE layer's ``dropped_frac``
+    printed beside one card's (a capacity per data shard of the tokens:
+    other pairs drop, by design).  The flash-attention count is set to 0
+    just before each prefill and read just after."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs as CFG
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_mesh, rules_for_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.transformer import block_slice
+    from repro_torch.sharding.rules import LeafCutter, make_constrain
+
+    rank = dist.get_rank()
+    if world < 4:
+        print(f"[moe-ep-tokens-cards] a world of {world}: no model axis of "
+              f"2 or more beside a data axis of 2 ({card})")
+        return None
+    base = CFG.get_config(MOE_TOKENS_ARCH)
+    raised = float(math.ceil(base.num_experts / base.num_experts_per_tok))
+    own = base.capacity_factor
+    f32 = dataclasses.replace(base, num_layers=MOE_TOKENS_F32_LAYERS,
+                              dtype="float32", capacity_factor=raised)
+    tokens = torch.randint(2, base.vocab_size, (1, PREFILL_LEN),
+                           generator=torch.Generator(
+                               device=device).manual_seed(1), device=device)
+    mesh = make_mesh((2, world // 2), ("data", "model"))
+    rules = rules_for_mesh(mesh)
+
+    def prefill(params, cfg, constrain=None):
+        metrics = []
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = M.prefill(params, cfg, tokens, metrics=metrics,
+                                  constrain=constrain)
+        torch.cuda.synchronize()
+        return {"logits": logits.float().cpu(),
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "dropped": [float(m["dropped_frac"]) for m in metrics],
+                "launches": flash_attention.launches}
+
+    def build(cfg, cut):
+        gen = torch.Generator(device=device).manual_seed(0)
+        if not cut:
+            return M.init_params(cfg, gen, device=device), None
+        cutter = LeafCutter(mesh, rules)
+        params = M.init_params(cfg, gen, device=device, shard=cutter)
+        return params, make_constrain(mesh, rules, 1,
+                                      param_specs=cutter.specs)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def layer0(params, cfg, hidden, constrain=None):
+        mlp = block_slice(params["blocks"], 0)["sub0"]["mlp"]
+        with torch.no_grad():
+            y, aux = moe_block(mlp, cfg, hidden, constrain=constrain)
+        return y.float().cpu(), {k: float(v) for k, v in aux.items()}
+
+    one = None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        params, _ = build(base, False)
+        one = {f: prefill(params, dataclasses.replace(base, capacity_factor=f))
+               for f in (raised, own)}
+        cfg = dataclasses.replace(base, capacity_factor=raised)
+        with torch.no_grad():
+            hidden = M.forward(params, cfg, tokens)[0]
+        one["layer0"] = layer0(params, cfg, hidden)
+        one["hidden"] = hidden.cpu()
+        one["peak"] = torch.cuda.max_memory_allocated()
+        del params, hidden
+        free()
+        params, _ = build(f32, False)
+        one["f32"] = prefill(params, f32)
+        del params
+        free()
+    hidden = everyone({"h": one["hidden"] if rank == 0 else None})[0]["h"]
+    torch.cuda.reset_peak_memory_stats()
+    params, constrain = build(base, True)
+    res = {f: prefill(params, dataclasses.replace(base, capacity_factor=f),
+                      constrain) for f in (raised, own)}
+    res["layer0"] = layer0(params, dataclasses.replace(
+        base, capacity_factor=raised), hidden.to(device), constrain)
+    res["rows"] = constrain.batch_axes
+    res["bytes"] = tree_bytes(params)
+    res["peak"] = torch.cuda.max_memory_allocated()
+    del params
+    free()
+    params, constrain = build(f32, True)
+    res["f32"] = prefill(params, f32, constrain)
+    del params
+    free()
+    got = everyone(res)
+    if rank != 0:
+        return None
+
+    def err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    want_y, want_aux = one["layer0"]
+    for r, res in enumerate(got):
+        y, aux = res["layer0"]
+        e0 = err(y, want_y)
+        aux_err = max(abs(aux[k] - want_aux[k]) for k in aux)
+        e_bf16 = err(res[raised]["logits"], one[raised]["logits"])
+        e_f32 = err(res["f32"]["logits"], one["f32"]["logits"])
+        top = [bool(torch.equal(res[k]["logits"].argmax(-1),
+                                one[k]["logits"].argmax(-1)))
+               for k in (raised, "f32")]
+        print(f"[moe-ep-tokens-cards] {MOE_TOKENS_ARCH} ({base.num_experts} "
+              f"experts top-{base.num_experts_per_tok}), prefill of 1 x "
+              f"{PREFILL_LEN} on (\"data\", \"model\") = "
+              f"{tuple(mesh.axis_sizes)}, rank {r} of {world}: rows split "
+              f"over {res['rows']}, tokens over ('data',); bf16, all "
+              f"{base.num_layers} layers: {res['bytes']} parameter bytes on "
+              f"its card, peak allocated {res['peak']} (one card "
+              f"{one['peak']}); at capacity factor {raised!r}: layer 0's MoE "
+              f"on one card's hidden state {e0!r} of max |ref|, aux max diff "
+              f"{aux_err!r} ({aux}); the prefill's dropped_frac max "
+              f"{max(res[raised]['dropped'])!r} (one card "
+              f"{max(one[raised]['dropped'])!r}), logits {e_bf16!r} of max "
+              f"|logit|, top-1 equal {top[0]}, {res[raised]['ms']!r} ms "
+              f"against one card's {one[raised]['ms']!r} ms (host clock, "
+              f"synced); f32 at {MOE_TOKENS_F32_LAYERS} layers: logits "
+              f"{e_f32!r} of max |logit|, top-1 equal {top[1]}, dropped_frac "
+              f"max {max(res['f32']['dropped'])!r} (one card "
+              f"{max(one['f32']['dropped'])!r}); bf16 at {own!r}: "
+              f"dropped_frac by layer {res[own]['dropped']!r} against one "
+              f"card's {one[own]['dropped']!r} (mean "
+              f"{statistics.fmean(res[own]['dropped'])!r} against "
+              f"{statistics.fmean(one[own]['dropped'])!r}); flash launches "
+              f"{[res[k]['launches'] for k in (raised, own, 'f32')]} "
+              f"({card})")
+        check(res["rows"] == (), f"[moe-ep-tokens-cards] rank {r}: the row "
+              f"split over {res['rows']}")
+        check(e0 <= MOE_EP_TOL and aux_err <= 1e-6 and aux["dropped_frac"]
+              == 0 == want_aux["dropped_frac"], f"[moe-ep-tokens-cards] rank "
+              f"{r}: layer 0's MoE {e0} of max |ref|, aux {aux} against "
+              f"{want_aux}")
+        check(max(res[raised]["dropped"] + res["f32"]["dropped"]) == 0
+              == max(one[raised]["dropped"] + one["f32"]["dropped"]),
+              f"[moe-ep-tokens-cards] rank {r}: pairs dropped at capacity "
+              f"factor {raised}")
+        check(e_f32 <= SP_CARDS_TOL, f"[moe-ep-tokens-cards] rank {r}: f32 "
+              f"logits {e_f32} of max |logit|")
+        check(res[raised]["launches"] == res[own]["launches"]
+              == base.num_layers and res["f32"]["launches"]
+              == MOE_TOKENS_F32_LAYERS, f"[moe-ep-tokens-cards] rank {r}: "
+              f"flash launches")
+    return {"layer0": max(err(g["layer0"][0], want_y) for g in got),
+            "bf16": max(err(g[raised]["logits"], one[raised]["logits"])
+                        for g in got),
+            "f32": max(err(g["f32"]["logits"], one["f32"]["logits"])
+                       for g in got),
+            "dropped": got[0][own]["dropped"],
+            "one_dropped": one[own]["dropped"],
+            "ms": [g[raised]["ms"] for g in got], "one_ms": one[raised]["ms"]}
+
+
 def moe_ep_one_rank(params, cfg, tokens, card):
     """``[moe-ep]`` at world 1: on the final hidden state of the prefill's
     tokens, the first MoE sub-layer's block through ``moe_block_ep`` on a
@@ -5453,6 +5821,112 @@ def phase_moe_ep_cards(ref, card):
               f"{statistics.fmean(res['dropped'])!r} ({card})")
 
 
+def main_moe_tp():
+    """``python3 -m torch.distributed.run --nproc-per-node 3 chip_smoke.py
+    --moe-tp`` (3 cards): ``[moe-tp-experts-cards]``, the first MoE
+    sub-layer of jamba-1.5-large-398b at full width (16 experts top-2,
+    d_model 8,192, d_ff 24,576; 19.3 GB of bf16 expert weights) on
+    ("data", "model") = (1, 3) under ``rules_for_mesh``: 16 experts do not
+    divide 3, so ``moe_block`` takes JAX's reference path on the leaves
+    ``param_pspecs`` cuts, each rank its 8,192 ``ffn`` columns of every
+    expert and one psum over "model".  On one seeded hidden state of 1 x
+    PREFILL_LEN against one card's ``moe_block`` on the whole leaves
+    (rank 0): the output within MOE_EP_TOL of max |ref|, the load-balance
+    loss and ``dropped_frac`` equal (routing is the same f32 work on
+    every card).  Rank 0 prints; the last line is a JSON summary."""
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import configs as CFG
+    from repro_torch.launch.mesh import (init_ranks, make_mesh,
+                                         rules_for_mesh, shutdown_ranks)
+    from repro_torch.models.moe import init_moe, moe_block
+    from repro_torch.sharding.rules import (make_constrain, param_pspecs,
+                                            shard_leaf)
+
+    device = init_ranks()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = print if rank == 0 else (lambda *a, **k: None)
+    card = card_line()
+    say(card)
+    cfg = CFG.get_config(MOE_TP_ARCH)
+    mesh = make_mesh((1, world), ("data", "model"))
+    rules = rules_for_mesh(mesh)
+    check(cfg.num_experts % world != 0, f"[moe-tp-experts-cards] "
+          f"{cfg.num_experts} experts divide a model axis of {world}: that "
+          f"is the EP path")
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    whole = init_moe(gen, cfg, torch.bfloat16)
+    x = torch.randn((1, PREFILL_LEN, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    specs = param_pspecs(whole, mesh, rules)
+    mine = {k: shard_leaf(w, specs[k], mesh) for k, w in whole.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    ref = None
+    if rank == 0:
+        ref = [timed(lambda: moe_block(whole, cfg, x)) for _ in range(2)]
+    del whole
+    torch.cuda.empty_cache()
+    dist.barrier()
+    constrain = make_constrain(mesh, rules, 1, param_specs=specs)
+    runs = [timed(lambda: moe_block(mine, cfg, x, constrain=constrain))
+            for _ in range(2)]
+    (y, aux), _ = runs[-1]
+    mine_bytes = sum(w.numel() * w.element_size() for w in mine.values())
+    res = {"y": y.cpu(), "aux": {k: float(v) for k, v in aux.items()},
+           "ms": [t for _, t in runs], "bytes": mine_bytes,
+           "peak": torch.cuda.max_memory_allocated(),
+           "specs": {k: tuple(v) for k, v in specs.items()}}
+    got = [None] * world
+    dist.all_gather_object(got, res)
+    summary = None
+    if rank == 0:
+        (want, want_aux), _ = ref[-1]
+        want = want.float().cpu()
+        want_aux = {k: float(v) for k, v in want_aux.items()}
+        errs = []
+        for r, res in enumerate(got):
+            err = float((res["y"].float() - want).abs().max()
+                        / want.abs().max())
+            errs.append(err)
+            print(f"[moe-tp-experts-cards] {MOE_TP_ARCH} bf16, its first MoE "
+                  f"sub-layer ({cfg.num_experts} experts top-"
+                  f"{cfg.num_experts_per_tok}, d_model {cfg.d_model}, d_ff "
+                  f"{cfg.d_ff}) on (\"data\", \"model\") = (1, {world}), "
+                  f"rank {r}: leaves {res['specs']}, {res['bytes']} bytes on "
+                  f"its card, peak allocated {res['peak']}; on 1 x "
+                  f"{PREFILL_LEN} tokens: output error {err!r} of max |ref|, "
+                  f"aux {res['aux']} against one card's {want_aux}; ms "
+                  f"{res['ms']!r} against one card's "
+                  f"{[t for _, t in ref]!r} (host clock, synced; first call "
+                  f"then second) ({card})")
+            check(err <= MOE_EP_TOL and res["aux"] == want_aux,
+                  f"[moe-tp-experts-cards] rank {r}: output error {err}, aux "
+                  f"{res['aux']} against {want_aux}")
+            check(res["specs"]["gate"][2] == "model", f"[moe-tp-experts-"
+                  f"cards] rank {r}: ffn not cut: {res['specs']}")
+        summary = {"err": max(errs), "ms": [g["ms"] for g in got],
+                   "one_ms": [t for _, t in ref]}
+        print(json.dumps({"moe_tp": summary, "world": world,
+                          "kind": torch.cuda.get_device_name(0)}))
+    dist.barrier()
+    shutdown_ranks()
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5573,6 +6047,10 @@ def main():
     sp = dict.fromkeys(trained, 0)
     phase_sp_world1(device, card, main_losses["qwen3-0.6b"], sharded_peak,
                     sp)
+    # int8 error feedback on sharded leaves: [ef-sharded-world1] (counts
+    # set to 0 just before each of its runs, read just after)
+    ef = dict.fromkeys(trained, 0)
+    phase_ef_sharded_world1(device, card, ef)
     phase_decode_tp_world1(device, card)
     phase_kv_seq_split(device, card)
     # the simulator's partitioners over ranks and the dry-run, on the
@@ -5583,7 +6061,7 @@ def main():
     phase_dryrun_world1(device, card, main_peaks[DRYRUN_ARCH])
     shutdown_ranks()
     paths = {"train": trained, "train-dp": dp, "train-sharded": sharded,
-             "sp-world1": sp}
+             "sp-world1": sp, "ef-sharded-world1": ef}
     for r in lm_records:
         r["launches_by_path"] = {"prefill": r["launches"],
                                  **{k: v[r["name"]] for k, v in paths.items()}}
@@ -5609,4 +6087,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main_sharded() if sys.argv[1:] == ["--sharded"] else main())
+    sys.exit({"--sharded": main_sharded, "--moe-tp": main_moe_tp}.get(
+        " ".join(sys.argv[1:]), main)())

@@ -40,9 +40,13 @@ How it counts, against JAX's:
 - **No extrapolation.** JAX's cost analysis counts a loop body once, so
   JAX compiles depth-1 and depth-2 programs with unrolled inner scans
   (``models.costmode``) and extrapolates to the full depth.  An eager
-  trace runs every layer and every chunk, so neither the extrapolation
-  nor ``costmode`` has a counterpart: ``cost_depth1`` and
-  ``cost_depth2`` are null.
+  trace runs every layer and every chunk, so the full program's costs
+  are counted as they are and ``costmode`` has no counterpart.  The
+  depth-1 and depth-2 programs (``num_layers`` one and two times the
+  pattern's length) are traced too and written as ``cost_depth1`` and
+  ``cost_depth2`` with JAX's keys (``depth_costs``), so a reader can
+  extrapolate as JAX does; for an eager trace, linear in depth, that
+  gives the full program's count.
 - **Bytes, memory, collectives.** See ``launch.cost_analysis``: the
   operand and result bytes of every traced operator (an upper bound
   for an eager program) stand in for XLA's bytes accessed; the peak of
@@ -51,8 +55,10 @@ How it counts, against JAX's:
   ``alias_bytes`` are the outputs that are inputs updated in place (a
   decode step's caches): the port donates nothing.
 
-``--ssm-bf16`` raises: ``ModelConfig.ssm_scan_bf16`` has no
-counterpart.
+``--ssm-bf16`` sets ``ModelConfig.ssm_scan_bf16`` and is recorded in
+``options``, as JAX's; it changes no count, as the port's scan kernel
+never writes the [B, Q, di, N] decay and cumprod tensors whose traffic
+the flag halves in JAX (``models.ssm``).
 """
 from __future__ import annotations
 
@@ -82,11 +88,12 @@ from repro_torch.sharding.rules import (LeafCutter, batch_pspec,
                                         shard_leaf, spec_axes)
 from repro_torch.tree import tree_leaves
 
-__all__ = ["lower_cell", "measure", "kernel_flops", "run_cell", "main",
-           "Program"]
+__all__ = ["lower_cell", "measure", "depth_costs", "kernel_flops",
+           "run_cell", "main", "Program"]
 
 _DEFAULTS = (("sp", True), ("kv_model", True), ("fsdp", True),
-             ("ep_fsdp", True), ("remat", "nothing"), ("microbatches", 1))
+             ("ep_fsdp", True), ("ssm_bf16", False), ("remat", "nothing"),
+             ("microbatches", 1))
 
 
 def _mesh_and_chips(which: str):
@@ -130,8 +137,8 @@ def _rows(batch: dict, mesh, rules, b: int) -> dict:
 
 def lower_cell(cfg, shape_name: str, mesh, chips: int, *,
                sp: bool = True, kv_model: bool = True, fsdp: bool = True,
-               ep_fsdp: bool = True, remat: str = "nothing",
-               microbatches: int = 1):
+               ep_fsdp: bool = True, ssm_bf16: bool = False,
+               remat: str = "nothing", microbatches: int = 1):
     """Build rank 0's program of one cell on shape-only tensors; returns
     (``Program``, info with ``lower_s`` and the analytic
     ``model_flops``).  ``shape_name`` names a cell of ``CFG.SHAPES`` or
@@ -143,6 +150,8 @@ def lower_cell(cfg, shape_name: str, mesh, chips: int, *,
     t0 = time.time()
     shape = shape_name if isinstance(shape_name, CFG.ShapeSpec) \
         else CFG.SHAPES[shape_name]
+    if ssm_bf16:
+        cfg = dataclasses.replace(cfg, ssm_scan_bf16=True)
     rules = _rules_for(shape.name, mesh, sp, kv_model, fsdp, ep_fsdp)
     b = shape.global_batch
     mode = FakeTensorMode()
@@ -253,6 +262,28 @@ def measure(program: Program, *, cost: bool = True,
     return out
 
 
+def _costs(got: dict) -> dict:
+    """A ``measure``'s costs under JAX's ``_costs`` keys."""
+    c = got["collectives"]
+    return {"flops": got["flops"], "bytes": got["bytes"],
+            "wire": c["wire_bytes"], "by_kind": c["by_kind"],
+            "counts": c["counts"]}
+
+
+def depth_costs(cfg, shape_name, mesh, chips: int, **opts
+                ) -> tuple[dict, dict]:
+    """The costs of the cell's programs at ``num_layers`` one and two
+    times the pattern's length (JAX's depth-1 and depth-2 programs), in
+    JAX's keys: ``a + (num_blocks - 1) * (b - a)`` of them is the full
+    program's."""
+    plen = len(cfg.pattern)
+    return tuple(
+        _costs(measure(lower_cell(dataclasses.replace(cfg, num_layers=n),
+                                  shape_name, mesh, chips, **opts)[0],
+                       memory=False))
+        for n in (plen, 2 * plen))
+
+
 def _tag(arch: str, shape_name: str, mesh_kind: str, opts: dict) -> str:
     tag = f"{arch}__{shape_name}__{mesh_kind}"
     nondefault = {k: v for k, v in opts.items() if (k, v) not in _DEFAULTS}
@@ -288,6 +319,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
               "options": opts, **info, "trace_s": got["trace_s"],
               "memory": mem}
     if with_cost:
+        depth = depth_costs(cfg, shape_name, mesh, chips, **opts)
         roof = roofline_terms(
             hlo_flops=got["flops"], hlo_bytes=got["bytes"],
             collective_wire_bytes=got["collectives"]["wire_bytes"],
@@ -295,7 +327,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
         result.update(
             cost_per_device={"flops": got["flops"],
                              "bytes_accessed": got["bytes"]},
-            cost_depth1=None, cost_depth2=None,
+            cost_depth1=depth[0], cost_depth2=depth[1],
             kernel_flops=got["by_kernel"],
             collectives=got["collectives"], roofline=roof)
     os.makedirs(out_dir, exist_ok=True)
@@ -335,13 +367,11 @@ def main(argv=None):
                     help="count the costs anew, keep the memory analysis "
                          "of the existing artifact")
     args = ap.parse_args(argv)
-    if args.ssm_bf16:
-        raise SystemExit("--ssm-bf16: ModelConfig.ssm_scan_bf16 has no "
-                         "counterpart in the port")
 
     opts = dict(sp=bool(args.sp), kv_model=bool(args.kv_model),
                 fsdp=bool(args.fsdp), ep_fsdp=bool(args.ep_fsdp),
-                remat=args.remat, microbatches=args.microbatches)
+                ssm_bf16=bool(args.ssm_bf16), remat=args.remat,
+                microbatches=args.microbatches)
     if not args.all:
         run_cell(args.arch, args.shape, args.mesh, args.out,
                  with_cost=not args.no_cost, cost_only=args.cost_only,

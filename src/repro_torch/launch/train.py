@@ -63,7 +63,7 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
           params: Optional[dict] = None,
           batch_fn: Optional[Callable[[int], dict]] = None,
           log: Callable[[str], None] = print, mesh=None,
-          rules=None) -> TrainReport:
+          rules=None, pod_compression: bool = False) -> TrainReport:
     """Train ``cfg`` for ``steps`` steps with the JAX driver's optimizer
     settings (``lr`` peak, warmup max(steps // 20, 2), cosine to
     ``steps``).  ``params`` (default: ``init_params`` seeded 0; global
@@ -76,7 +76,9 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     how the parameters are cut: each rank draws every leaf from the
     seeded generator and keeps its block (``sharding.rules.LeafCutter``),
     so every mesh starts from the same global parameters, and the state
-    (parameters, moments) is blocks under ``param_pspecs``."""
+    (parameters, moments) is blocks under ``param_pspecs``.
+    ``pod_compression``: int8 error feedback on the gradients, its error
+    buffers blocks under the same specs (and saved so)."""
     import torch
 
     from repro_torch.data.synthetic import config_for, make_batch, \
@@ -97,7 +99,8 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
     tcfg = TrainConfig(
         opt=AdamWConfig(peak_lr=lr, warmup_steps=max(steps // 20, 2),
                         total_steps=steps),
-        microbatches=microbatches, remat=remat)
+        microbatches=microbatches, remat=remat,
+        pod_compression=pod_compression)
     if batch_fn is None:
         scfg = config_for(cfg, batch, seq)
         batch_fn = lambda s: make_batch(scfg, s, device=dev)  # noqa: E731
@@ -119,7 +122,8 @@ def train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 128,
         constrain = make_constrain(mesh, rules, batch // microbatches,
                                    param_specs=specs)
         state_specs = TrainState(params=specs, opt=OptState(
-            step=P(), m=specs, v=specs))
+            step=P(), m=specs, v=specs),
+            ef_error=specs if pod_compression else None)
         global_fn = batch_fn
         batch_fn = lambda s: shard_batch(  # noqa: E731
             global_fn(s), mesh, rules, microbatches)

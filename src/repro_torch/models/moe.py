@@ -27,9 +27,15 @@ live mesh), a rank holds its rows of the batch:
   the earlier pairs to that expert on every rank (the ranks' counts are
   all-gathered once a layer; rank r holds the rows before rank r+1's);
 - with a model axis larger than 1 that divides the experts,
-  ``moe_block_ep`` runs JAX's ``shard_map`` expert parallelism.
+  ``moe_block_ep`` runs JAX's ``shard_map`` expert parallelism;
+- with a model axis larger than 1 that does not divide the experts,
+  JAX falls through to its reference path, which GSPMD runs on the
+  leaves ``param_pspecs`` cut: ``moe_block`` routes as with a model
+  axis of 1, and each model rank runs its ``ffn`` block of every expert
+  when ``d_ff`` divides the axis (a psum over it sums the shares), else
+  the whole layer.
 
-In both, the load-balance terms ``me`` and ``ce`` are averaged over the
+In all, the load-balance terms ``me`` and ``ce`` are averaged over the
 batch axes before their product, and ``dropped_frac`` counts every
 rank's pairs.  Under sequence parallelism (``sp``), x is the rank's
 block of the sequence: the whole sequence is gathered over the model
@@ -39,12 +45,15 @@ it over the sequence in place of its psum).
 """
 from __future__ import annotations
 
+import types
+
 import torch
 
 from repro_torch.core.segments import segment_rank
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu
-from repro_torch.sharding.rules import TensorParallel, enter, leave
+from repro_torch.sharding.rules import (TensorParallel, enter, gather_dim,
+                                        leave, param_pspecs)
 
 __all__ = ["init_moe", "moe_block", "moe_block_ep", "moe_capacity",
            "top_k"]
@@ -145,6 +154,30 @@ def _combine(flat_out, order, keep, slot, w, t: int, k: int):
     return y
 
 
+def _model_axis_leaves(params: dict, cfg: ModelConfig, constrain):
+    """The non-EP path's leaves under ``param_pspecs`` on a model axis
+    larger than 1 that does not divide the experts: each leaf's FSDP dims
+    gathered (unless they come gathered, as inside a model's blocks), and
+    the ``TensorParallel`` view when ``ffn`` is cut over the model axis
+    (``gate``/``up`` this rank's columns, ``down`` its rows), else None:
+    the leaves are whole and every model rank computes the whole
+    layer."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    shapes = {"router": (d, e), "gate": (e, d, f), "up": (e, d, f),
+              "down": (e, f, d)}
+    specs = param_pspecs({k: types.SimpleNamespace(shape=v)
+                          for k, v in shapes.items()},
+                         constrain.mesh, constrain.rules)
+    tp = TensorParallel(constrain.mesh, constrain.rules.model, specs)
+    out = {}
+    for name, w in params.items():
+        mine = tuple(n // tp.size if tp.cut(name, dim) else n
+                     for dim, n in enumerate(shapes[name]))
+        out[name] = w if tuple(w.shape) == mine else \
+            constrain.gather_fsdp(w, specs[name])
+    return out, (tp if tp.cut("gate", 2) else None)
+
+
 def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
               capacity: int | None = None, constrain=None, sp=None
               ) -> tuple[torch.Tensor, dict]:
@@ -153,20 +186,23 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     ``constrain`` (a ``sharding.rules.Constrainer``) with a model axis
     larger than 1 that divides the experts runs ``moe_block_ep``; with
     batch axes, x is this rank's rows and routing is global (see the
-    module's docstring).  ``sp`` (a ``sharding.rules.SequenceParallel``):
-    x is the rank's block of the sequence."""
+    module's docstring).  On a model axis that does not divide the
+    experts, with ``constrain.param_specs`` (the leaves are this rank's
+    blocks), this is JAX's reference path under GSPMD: when ``ffn`` is
+    cut, each model rank computes its columns of ``gate``/``up`` and its
+    rows of ``down`` for the whole dispatch buffer, and one psum over the
+    model axis sums the ranks' combined outputs; else every model rank
+    computes the whole layer.  ``sp`` (a
+    ``sharding.rules.SequenceParallel``): x is the rank's block of the
+    sequence."""
     ep = constrain.ep_context() if constrain is not None else None
     if ep is not None and cfg.num_experts % ep[2] == 0:
         return moe_block_ep(params, cfg, x, constrain, sp)
+    tp = None
     if ep is not None and constrain.param_specs is not None:
-        raise NotImplementedError(
-            f"{cfg.num_experts} experts over a model axis of {ep[2]}: "
-            f"sharded expert leaves need the experts to divide it")
-    if sp is not None:
-        # every model rank routes the whole sequence alike
-        y, aux = moe_block(params, cfg, enter(x, None, sp), capacity,
-                           constrain)
-        return leave(y, None, sp), aux
+        params, tp = _model_axis_leaves(params, cfg, constrain)
+    # every model rank routes the whole sequence alike
+    x = enter(x, None, sp)
     b, s, d = x.shape
     t = b * s
     k, e = cfg.num_experts_per_tok, cfg.num_experts
@@ -185,6 +221,9 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
         every = mesh.all_gather(counts[None], dp, dim=0)       # [n_dp, E]
         offset = every[:mesh.axis_index(dp)].sum(0)
     order, keep, slot = _slots(e_flat, e, cap, offset)
+    if tp is not None:
+        # the model ranks' ffn blocks differ: their shares are summed
+        xf, w = tp.fan_out(xf), tp.fan_out(w)
     flat_out = _experts(xf, order, slot, k, e, cap, params["gate"],
                         params["up"], params["down"])
     y = _combine(flat_out, order, keep, slot, w, t, k)
@@ -200,7 +239,26 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
         ce = _expert_counts(e_flat, e).float() / (t * k)
     aux = {"load_balance_loss": e * torch.sum(me * ce),
            "dropped_frac": 1.0 - kept / (t * k * n_dp)}
-    return y.reshape(b, s, d), aux
+    return leave(y.reshape(b, s, d), tp, sp), aux
+
+
+def _token_blocks(mesh, xf, rows, want):
+    """This rank's block, row-major over ``want``, of the flat tokens of
+    the global batch (JAX's ``P(want)`` on [T, D]), from its rows' flat
+    tokens (the rows split over ``rows``): its contiguous block over the
+    remaining axes when ``rows`` leads ``want``, else the block of the
+    tokens all-gathered over ``rows``."""
+    if want[:len(rows)] == rows:
+        return mesh.split(xf, want[len(rows):], 0)
+    return mesh.split(mesh.all_gather(xf, rows, 0), want, 0)
+
+
+def _row_tokens(mesh, y, rows, want):
+    """``_token_blocks``'s inverse: this rank's rows of the outputs whose
+    block over ``want`` it holds."""
+    if want[:len(rows)] == rows:
+        return mesh.all_gather(y, want[len(rows):], 0)
+    return mesh.split(mesh.all_gather(y, want, 0), rows, 0)
 
 
 def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -213,18 +271,34 @@ def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
     SwiGLU, combines each token's share, and one ``psum`` over the model
     axis sums the shares.
 
+    JAX splits the flat tokens [T, D] over every batch axis of the mesh
+    when T divides their product (``t_loc`` = T / product), else every
+    device routes all of them.  A rank holds its rows, split over the
+    batch axes ``batch_pspec`` picks (``constrain.batch_axes``); where
+    the two differ:
+    - the tokens split over batch axes that carry no rows (one long
+      request, or fewer rows than ranks): the rank takes its block of
+      the flat tokens (``_token_blocks``; a contiguous block of its own
+      rows' tokens when the rows' axes lead), routes it, and after the
+      model-axis psum gathers the outputs back to its rows; whole
+      leaves fan out over those axes, so their gradients sum there;
+    - the rows split but the tokens not: every rank routes its rows as
+      a part of the whole batch, with the whole batch's capacity and
+      each pair's place in its expert's queue counting the pairs of the
+      ranks before it (as ``moe_block``'s global routing).
+
     Leaves are this rank's blocks under ``param_pspecs``: the expert
     weights [e_loc, ...]; the router and the expert weights' FSDP dim
     (with ``expert_fsdp``) either whole or a block, which is gathered
-    (a gathered FSDP dim's gradient is reduce-scattered back over its
-    axes: ``Mesh.gather``).  Inside a model's blocks the FSDP dim comes
-    gathered already (``transformer.apply_blocks``).  On a mesh of one
-    rank this is ``moe_block`` exactly.
+    (``sharding.rules.gather_dim``).  Inside a model's blocks the FSDP
+    dim comes gathered already (``transformer.apply_blocks``).  On a mesh
+    of one rank this is ``moe_block`` exactly.
 
     ``sp`` (a ``sharding.rules.SequenceParallel`` over the model axis):
     x is the rank's block of the sequence, all-gathered at entry (every
     model rank routes the whole, as without ``sp``), and the output is
-    reduce-scattered over the sequence in place of the psum."""
+    reduce-scattered over the sequence in place of the psum (split after
+    it when the tokens moved)."""
     mesh, rules = constrain.mesh, constrain.rules
     x = enter(x, None, sp)        # every model rank routes the whole alike
     model = (rules.model,)
@@ -234,16 +308,12 @@ def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
     t = b * s
     k, e = cfg.num_experts_per_tok, cfg.num_experts
     e_loc = e // m
-    # JAX splits the tokens over every batch axis of the mesh when they
-    # divide, else every device routes all of them
+    rows = constrain.batch_axes
     dp = tuple(a for a in rules.batch if mesh.shape.get(a, 1) > 1)
-    if constrain.batch_axes != dp:
-        if constrain.batch_axes or t % mesh.axis_size(dp) == 0:
-            raise NotImplementedError(
-                f"tokens split over {dp} while the rows are split over "
-                f"{constrain.batch_axes}")
-        dp = ()
-    cap = moe_capacity(cfg, t)
+    t_all = t * (mesh.axis_size(rows) if rows else 1)
+    want = dp if dp and t_all % mesh.axis_size(dp) == 0 else ()
+    tok = want or rows            # the axes over which ranks' tokens differ
+    moved = bool(want) and want != rows
 
     router, gate, up, down = (params[n] for n in ("router", "gate", "up",
                                                   "down"))
@@ -253,34 +323,63 @@ def moe_block_ep(params: dict, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError(f"expert leaves hold {gate.shape[0]} experts, "
                          f"rank's block is {e_loc}")
     if fsdp and gate.shape[1] != d:
-        gate, up = (mesh.gather(w, fsdp, dim=1) for w in (gate, up))
-        down = mesh.gather(down, fsdp, dim=2)
+        gate, up = (gather_dim(w, fsdp, 1, mesh, rows) for w in (gate, up))
+        down = gather_dim(down, fsdp, 2, mesh, rows)
+    extra = tuple(a for a in tok if a not in rows)
+    if extra:
+        # the ranks of these axes hold the same rows but route other
+        # tokens: the leaves' gradients are summed over them
+        router, gate, up, down = (mesh.fan_out(w, extra)
+                                  for w in (router, gate, up, down))
 
     xf = x.reshape(t, d)
+    if moved:
+        xf = _token_blocks(mesh, xf, rows, want)
+    t_loc = xf.shape[0]
+    cap = moe_capacity(cfg, t_loc if want else t_all)
     probs, w, idx = _route(xf, router, k)
     e0 = mesh.axis_index(model) * e_loc
     e_flat = idx.reshape(-1).to(torch.int32)
     local = (e_flat >= e0) & (e_flat < e0 + e_loc)
     e_local = torch.where(local, e_flat - e0, e_loc)           # park others
-    order, keep, slot = _slots(e_local, e_loc, cap)
+    offset = None
+    if not want and rows:
+        # the whole batch's queues: the pairs of the ranks before this one
+        every = mesh.all_gather(_expert_counts(e_flat, e)[None], rows, 0)
+        before = every[:mesh.axis_index(rows)].sum(0)[e0:e0 + e_loc]
+        offset = torch.cat([before, before.new_zeros(1)])
+    order, keep, slot = _slots(e_local, e_loc, cap, offset)
     # the tokens and weights are the same on every model rank; each rank's
     # experts see only their pairs
     flat_out = _experts(mesh.fan_out(xf, model), order, slot, k, e_loc,
                         cap, gate, up, down)
-    y = _combine(flat_out, order, keep, slot, mesh.fan_out(w, model), t, k)
-    y = y.reshape(b, s, d)
+    y = _combine(flat_out, order, keep, slot, mesh.fan_out(w, model), t_loc,
+                 k)
     # the ranks' experts' outputs differ: summed over the model ranks
-    y = leave(y, TensorParallel(mesh, rules.model, {}), sp)
+    if moved:
+        y = _row_tokens(mesh, mesh.psum(y, model), rows, want)
+        y = leave(y.reshape(b, s, d), None, sp)
+    else:
+        y = leave(y.reshape(b, s, d), TensorParallel(mesh, rules.model, {}),
+                  sp)
 
     # aux, as JAX reduces it: me and ce averaged over the batch axes before
     # their product; kept summed over the model axis
-    n_pairs = t * k
+    n_pairs = t_loc * k
+    if offset is not None:
+        kept = mesh.psum(keep.float().sum(), model)
+        sums = mesh.psum(torch.cat([probs.sum(0), kept[None]]), rows)
+        me = sums[:e] / t_all
+        ce = every.sum(0).float() / (t_all * k)
+        dropped = 1.0 - sums[e] / (t_all * k)
+        return y, {"load_balance_loss": e * torch.sum(me * ce),
+                   "dropped_frac": dropped}
     me = probs.mean(0)
     ce = _expert_counts(e_flat, e).float() / n_pairs
     dropped = 1.0 - mesh.psum(keep.float().sum(), model) / n_pairs
-    if dp:
-        both = mesh.psum(torch.cat([me, ce, dropped[None]]), dp) \
-            / mesh.axis_size(dp)
+    if want:
+        both = mesh.psum(torch.cat([me, ce, dropped[None]]), want) \
+            / mesh.axis_size(want)
         me, ce, dropped = both[:e], both[e:2 * e], both[2 * e]
     return y, {"load_balance_loss": e * torch.sum(me * ce),
                "dropped_frac": dropped}

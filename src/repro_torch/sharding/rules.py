@@ -33,6 +33,7 @@ meshes may be abstract.
 from __future__ import annotations
 
 import dataclasses
+import math
 import types
 from typing import Optional
 
@@ -41,7 +42,7 @@ import torch
 __all__ = ["ShardingRules", "PartitionSpec", "P", "param_pspecs",
            "batch_pspec", "cache_pspecs", "Constrainer", "make_constrain",
            "shard_leaf", "block_shape", "spec_axes", "fsdp_dims",
-           "reduced_axes", "gather_fsdp", "TensorParallel",
+           "reduced_axes", "gather_dim", "gather_fsdp", "TensorParallel",
            "SequenceParallel", "KVSeq", "LeafCutter", "enter", "leave"]
 
 
@@ -275,36 +276,52 @@ def fsdp_dims(spec: P, rules: ShardingRules
 def reduced_axes(spec: P, mesh, rules: ShardingRules,
                  batch_axes) -> tuple[str, ...]:
     """The batch axes over which ``gather_fsdp``'s backward has already
-    summed a leaf's gradient (its FSDP axes of size > 1, when the rows
-    are split over them)."""
+    summed a leaf's gradient: its FSDP axes of size > 1 that the rows
+    are split over."""
     out = []
     for _, axes in fsdp_dims(spec, rules):
-        live = [a for a in axes if mesh.shape[a] > 1]
-        if live and set(live) <= set(batch_axes):
-            out.extend(live)
+        out.extend(a for a in axes if mesh.shape[a] > 1 and a in batch_axes)
     return tuple(out)
+
+
+def gather_dim(leaf: torch.Tensor, axes, dim: int, mesh,
+               batch_axes=()) -> torch.Tensor:
+    """``leaf``'s dim ``dim``, cut into blocks row-major over ``axes``
+    (a spec's entry), gathered whole.  Over the axes the batch's rows are
+    split over, the gradient is reduce-scattered (``Mesh.gather``: the
+    whole feeds other rows on each rank); over the others, whose ranks
+    hold the same rows, each rank keeps its own block of it
+    (``Mesh.all_gather``).  When both kinds are cut, the all-gather runs
+    first and the gather second, which leaves the blocks in the order of
+    the gathered axes' indices; they are then put back in the row-major
+    order over ``axes``, JAX's.  Axes of size 1 are skipped."""
+    live = tuple(a for a in _flat(axes) if mesh.shape[a] > 1)
+    split = tuple(a for a in live if a in batch_axes)
+    same = tuple(a for a in live if a not in batch_axes)
+    if same:
+        leaf = mesh.all_gather(leaf, same, dim)
+    if split:
+        leaf = mesh.gather(leaf, split, dim)
+    order = split + same
+    if order != live:
+        sizes = [mesh.shape[a] for a in order]
+        x = leaf.movedim(dim, 0)
+        x = x.reshape(*sizes, x.shape[0] // math.prod(sizes), *x.shape[1:])
+        x = x.permute(*[order.index(a) for a in live],
+                      *range(len(sizes), x.dim()))
+        leaf = x.reshape(-1, *x.shape[len(sizes) + 1:]).movedim(0, dim) \
+            .contiguous()
+    return leaf
 
 
 def gather_fsdp(leaf: torch.Tensor, spec: P, mesh, rules: ShardingRules,
                 batch_axes=()) -> torch.Tensor:
     """``leaf``, this rank's block under ``spec``, with its FSDP dims
-    gathered: the block it has under tensor parallelism alone.  Over
-    axes the batch's rows are split over, the gradient is
-    reduce-scattered (``Mesh.gather``); over axes whose ranks hold the
-    same rows, each rank's own block of it is kept
-    (``Mesh.all_gather``).  Axes of size 1 are skipped."""
+    gathered (``gather_dim`` over each): the block it has under tensor
+    parallelism alone.  ``batch_axes``: the axes the rows are split
+    over."""
     for dim, axes in fsdp_dims(spec, rules):
-        live = tuple(a for a in axes if mesh.shape[a] > 1)
-        if not live:
-            continue
-        split = set(live) & set(batch_axes)
-        if split == set(live):
-            leaf = mesh.gather(leaf, live, dim)
-        elif not split:
-            leaf = mesh.all_gather(leaf, live, dim)
-        else:
-            raise NotImplementedError(
-                f"FSDP over {live} with rows split over {batch_axes}")
+        leaf = gather_dim(leaf, axes, dim, mesh, batch_axes)
     return leaf
 
 

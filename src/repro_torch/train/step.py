@@ -31,7 +31,11 @@ that a rank applies to its block of the sequence (``norm1``, ``norm2``,
 ``final_norm``) fan out over it in the forward
 (``transformer._scale``, ``model.forward``), so each rank's gradient of
 them is the whole sequence's.  The gradient norm adds each leaf's
-blocks over the axes it is cut over.
+blocks over the axes it is cut over.  Int8 error feedback
+(``pod_compression``) rounds each sharded leaf as JAX rounds the global
+leaf (``compression.ef_compress_tree(..., mesh=, specs=)``); its error
+buffers are blocks under the parameters' specs, as ``init_train_state``
+makes them from the parameters' blocks.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import reduced_axes, spec_axes
+from repro_torch.sharding.rules import reduced_axes
 from repro_torch.train import compression
 from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_init,
                                          adamw_update)
@@ -151,11 +155,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, constrain=None):
     mesh = specs = None
     if constrain is not None and constrain.param_specs is not None:
         mesh, specs = constrain.mesh, constrain.param_specs
-        if tcfg.pod_compression and any(
-                spec_axes(s, mesh) for s in tree_leaves(specs)):
-            raise NotImplementedError(
-                "int8 error feedback quantizes whole leaves in blocks of "
-                "256; it is not ported for sharded leaves")
 
     def step(state: TrainState, batch: dict):
         if tcfg.microbatches > 1:
@@ -187,7 +186,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, constrain=None):
 
         ef = state.ef_error
         if tcfg.pod_compression and ef is not None:
-            grads, ef = compression.ef_compress_tree(grads, ef)
+            grads, ef = compression.ef_compress_tree(grads, ef, mesh=mesh,
+                                                     specs=specs)
 
         params, opt, opt_metrics = adamw_update(tcfg.opt, state.params,
                                                 grads, state.opt,

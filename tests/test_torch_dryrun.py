@@ -315,8 +315,16 @@ def test_cell_json_feeds_lm_profile(tmp_path, capsys):
     jcfg = JCFG.get_config(arch)
     b = JCFG.SHAPES[shape].global_batch
     assert art["model_flops"] == 2 * jcfg.active_param_count() * b
-    assert art["chips"] == 256 and art["cost_depth1"] is None
+    assert art["chips"] == 256
     assert art["cost_per_device"]["flops"] == res["cost_per_device"]["flops"]
+    # JAX's depth programs, in JAX's keys; its extrapolation over the 28
+    # layers gives the full trace's flops
+    a, b = art["cost_depth1"], art["cost_depth2"]
+    assert set(a) == set(b) == {"flops", "bytes", "wire", "by_kind",
+                                "counts"}
+    nb = CFG.get_config(arch).num_blocks
+    assert a["flops"] + (nb - 1) * (b["flops"] - a["flops"]) == \
+        art["cost_per_device"]["flops"]
     assert art["memory"]["peak_bytes_per_device"] > art["memory"][
         "argument_bytes"] > 0
     assert art["collectives"]["wire_bytes"] > 0
@@ -326,10 +334,34 @@ def test_cell_json_feeds_lm_profile(tmp_path, capsys):
     assert f"{arch}/{shape}" in out, out
 
 
-def test_ssm_bf16_raises():
-    with pytest.raises(SystemExit, match="ssm_scan_bf16"):
-        D.main(["--arch", "falcon-mamba-7b", "--shape", "train_4k",
-                "--ssm-bf16", "1"])
+def test_ssm_bf16_raises(tmp_path):
+    """``--ssm-bf16`` no longer raises: the cell runs, and its options
+    record the flag as JAX's do (the port's scan is f32 either way)."""
+    D.main(["--arch", "falcon-mamba-7b", "--shape", "decode_32k",
+            "--ssm-bf16", "1", "--no-cost", "--out", str(tmp_path)])
+    path = tmp_path / "falcon-mamba-7b__decode_32k__single__ssm_bf16-True.json"
+    art = json.loads(path.read_text())
+    assert art["options"]["ssm_bf16"] is True
+    assert art["memory"]["peak_bytes_per_device"] > 0
+
+
+@pytest.mark.parametrize("arch,kind", [("qwen3-0.6b", "train_4k"),
+                                       ("jamba-1.5-large-398b",
+                                        "prefill_32k")])
+def test_depth_costs_extrapolate_to_the_full_trace(arch, kind):
+    """JAX's extrapolation ``a + (nb - 1)(b - a)`` of the depth-1 and
+    depth-2 programs' flops equals the full program's, on a small cell
+    of the smoke config on (2, 2)."""
+    cfg = CFG.get_smoke_config(arch)
+    shape, mesh = CFG.ShapeSpec(*SMALL[kind]), abstract_mesh(
+        (2, 2), ("data", "model"))
+    a, b = D.depth_costs(cfg, shape, mesh, 4)
+    full = D.measure(D.lower_cell(cfg, shape, mesh, 4)[0], memory=False)
+    assert a["flops"] < b["flops"] or cfg.num_blocks == 1
+    nb = cfg.num_blocks
+    assert a["flops"] + (nb - 1) * (b["flops"] - a["flops"]) == \
+        full["flops"]
+    assert a["counts"] == full["collectives"]["counts"] or nb > 1
 
 
 def test_train_state_shapes_under_the_cells_config():

@@ -367,3 +367,26 @@ def test_entry_points_default_to_the_card():
         TM.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         TM.init_cache(cfg, 1, 8)
+
+
+def test_prefill_with_ssm_scan_bf16_matches_jax():
+    """falcon-mamba-7b's smoke prefill with ``ssm_scan_bf16``: the port's
+    scan stays f32 (its kernel writes no [B, Q, di, N] decay or cumprod
+    tensors for the flag to halve), bit for bit the prefill without the
+    flag, and within JAX's own bf16-to-f32 distance plus the f32
+    tolerance (1e-4) of JAX's prefill with the flag."""
+    jcfg, jp, tcfg, tp = _smoke("falcon-mamba-7b")
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab_size,
+                                             (2, 20)).astype(np.int32)
+    j32, _ = JM.prefill(jp, jcfg, jnp.asarray(toks))
+    j16, _ = JM.prefill(jp, dataclasses.replace(jcfg, ssm_scan_bf16=True),
+                        jnp.asarray(toks))
+    with torch.no_grad():
+        t16, _ = TM.prefill(tp, dataclasses.replace(tcfg, ssm_scan_bf16=True),
+                            _t(toks).long())
+        t32, _ = TM.prefill(tp, tcfg, _t(toks).long())
+    assert torch.equal(t16, t32)
+    gap = float(np.abs(np.asarray(j16) - np.asarray(j32)).max())
+    assert gap > 0
+    np.testing.assert_allclose(t16.numpy(), np.asarray(j16), atol=gap + 1e-4,
+                               rtol=1e-4)

@@ -495,3 +495,145 @@ def sweep_ranks(rank, world, tmp):
             max_steps=spec["federation"]["max_steps"])
     shutdown_ranks()
     torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))
+
+
+def ef_sharded(rank, world, tmp):
+    """Int8 error feedback on sharded leaves, on the meshes of
+    ``inputs.pt`` for this world: per mesh and gradient case, this rank's
+    blocks of the global gradients and error buffers through
+    ``ef_compress_tree(..., mesh=, specs=)``, the wire and new error
+    gathered whole.  On the train mesh (world 4): 3 steps of the train
+    step with ``pod_compression`` on this rank's blocks (losses, the
+    state gathered whole), and the same run cut after 2 steps by a
+    sharded save and restore (its third step's state gathered whole)."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.launch.mesh import (make_mesh, rules_for_mesh,
+                                         shutdown_ranks)
+    from repro_torch.sharding.rules import (P, make_constrain, param_pspecs,
+                                            shard_leaf)
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.compression import ef_compress_tree
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.step import TrainState
+    from repro_torch.tree import tree_map
+
+    _start(rank, world, tmp)
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    out = {"ef": {}, "train": None}
+    for mname, shape in spec["meshes"][world].items():
+        mesh = make_mesh(shape, ("data", "model"))
+        specs = param_pspecs(spec["grads"]["f32"], mesh,
+                             rules_for_mesh(mesh))
+        for case, grads in spec["grads"].items():
+            cut = lambda tree: tree_map(  # noqa: E731
+                lambda x, s: shard_leaf(x, s, mesh), tree, specs)
+            wire, err = ef_compress_tree(cut(grads), cut(spec["error"]),
+                                         mesh=mesh, specs=specs)
+            out["ef"][mname, case] = tree_map(
+                lambda x, s: _whole(x, s, mesh), (wire, err), (specs, specs))
+    if world == 4:
+        case = spec["train"]
+        mesh = make_mesh(case["mesh"], ("data", "model"))
+        rules = rules_for_mesh(mesh)
+        cfg, tcfg = _cfg(case["arch"], {}), _tcfg({"pod_compression": True})
+        specs = param_pspecs(case["params"], mesh, rules)
+        mine = tree_map(lambda p, s: shard_leaf(p, s, mesh), case["params"],
+                        specs)
+        rows = case["batches"][0]["tokens"].shape[0]
+        step = make_train_step(cfg, tcfg, constrain=make_constrain(
+            mesh, rules, rows, param_specs=specs))
+        state_specs = TrainState(params=specs, opt=OptState(
+            step=P(), m=specs, v=specs), ef_error=specs)
+        state = init_train_state(cfg, tcfg, params=mine)
+        losses = []
+        for i, batch in enumerate(case["batches"]):
+            if i == 2:
+                ckpt = os.path.join(tmp, "ckpt")
+                save(ckpt, 2, state, mesh=mesh, specs=state_specs)
+                back = restore(ckpt, 2, state, mesh=mesh, specs=state_specs)
+                resumed, _ = step(back, _rows(batch, mesh, rules))
+            state, m = step(state, _rows(batch, mesh, rules))
+            losses.append(float(m["loss"]))
+        whole = lambda st: tree_map(  # noqa: E731
+            lambda x, s: _whole(x, s, mesh), st, state_specs)
+        with torch.no_grad():
+            out["train"] = {"losses": losses, "state": whole(state),
+                            "resumed": whole(resumed)}
+    shutdown_ranks()
+    torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))
+
+
+def moe_split(rank, world, tmp):
+    """MoE across ranks where the port used to refuse, per case of
+    ``inputs.pt`` for this world (forward, and with ``r`` the gradients
+    of sum(y * r) + 0.01 * load_balance_loss, gathered whole):
+    - world 3, ("data", "model") = (1, 3): ``moe_block`` on experts that
+      do not divide the model axis, the leaves this rank's blocks under
+      ``param_pspecs``; the gradients where every rank holds every row;
+    - world 4: ``moe_block`` on (2, 2) with one row (the tokens split
+      over "data", the rows not), and ``moe_block_ep`` on ("pod",
+      "data", "model") = (2, 2, 1) with two rows (the rows split over
+      "pod", the tokens over both); then a loss and its gradients with
+      ``fsdp=("pod", "data")`` while the rows split over "pod" alone."""
+    from repro_torch.launch.mesh import make_mesh, shutdown_ranks
+    from repro_torch.models.moe import moe_block, moe_block_ep
+    from repro_torch.sharding.rules import (ShardingRules, make_constrain,
+                                            param_pspecs, shard_leaf)
+    from repro_torch.train.step import _sum_over_ranks, loss_and_grads
+    from repro_torch.tree import tree_map
+
+    _start(rank, world, tmp)
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    meshes = {}
+    out = {}
+    for key, case in spec["cases"].items():
+        if case["world"] != world:
+            continue
+        names, shape = case["mesh"]
+        if (names, shape) not in meshes:
+            meshes[names, shape] = make_mesh(shape, names)
+        mesh = meshes[names, shape]
+        rules = ShardingRules(**case["rules"])
+        if case["kind"] == "loss":
+            cfg = _cfg(case["arch"], {})
+            specs = param_pspecs(case["params"], mesh, rules)
+            mine = tree_map(lambda p, s: shard_leaf(p, s, mesh),
+                            case["params"], specs)
+            rows = case["batch"]["tokens"].shape[0]
+            constrain = make_constrain(mesh, rules, rows, param_specs=specs)
+            loss, _, grads = loss_and_grads(
+                mine, cfg, _rows(case["batch"], mesh, rules),
+                constrain=constrain)
+            grads = _sum_over_ranks(grads, constrain)
+            with torch.no_grad():
+                out[key] = {"loss": loss, "rows": constrain.batch_axes,
+                            "grads": tree_map(lambda g, s: _whole(
+                                g, s, mesh), grads, specs)}
+            continue
+        cfg = _cfg(case["arch"], case["cfg"])
+        specs = param_pspecs(case["params"], mesh, rules)
+        live = {k: shard_leaf(p, specs[k], mesh).requires_grad_(True)
+                for k, p in case["params"].items()}
+        x = case["x"].clone().requires_grad_(True)
+        constrain = make_constrain(mesh, rules, x.shape[0],
+                                   param_specs=specs)
+        mine = _rows({"x": x}, mesh, rules)["x"]
+        with torch.set_grad_enabled(case["r"] is not None):
+            if case["ep"]:
+                y, aux = moe_block_ep(live, cfg, mine, constrain)
+            else:
+                y, aux = moe_block(live, cfg, mine, constrain=constrain)
+        res = {"y": y.detach(), "rows": constrain.batch_axes,
+               **{k: v.detach() for k, v in aux.items()}}
+        if case["r"] is not None:
+            # every rank holds all the rows: its gradients are whole
+            assert not constrain.batch_axes
+            ((y * case["r"]).sum()
+             + 0.01 * aux["load_balance_loss"]).backward()
+            with torch.no_grad():
+                res["grads"] = {k: _whole(p.grad, specs[k], mesh)
+                                for k, p in live.items()}
+                res["x_grad"] = x.grad
+        out[key] = res
+    shutdown_ranks()
+    torch.save(out, os.path.join(tmp, f"out{world}_{rank}.pt"))

@@ -1,0 +1,6 @@
+"""``peak_mem_gb``: ``torch.cuda.max_memory_allocated()`` over the
+window (reset after the warm-up call), in 1e9 bytes."""
+
+
+def read(run):
+    return run["peak_bytes"] / 1e9 if run["peak_bytes"] else None

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import state as S
+from repro_torch.spans import spanned
 
 __all__ = ["VmSpec", "WaveSpec", "build_fleet", "build_waves",
            "BrokerReport", "collect", "nan_p99", "destroy_idle_vms"]
@@ -39,6 +40,7 @@ class WaveSpec:
     output_size: float = 0.3
 
 
+@spanned("build.fleet")
 def build_fleet(specs: Sequence[VmSpec], *, device=None) -> S.VmState:
     """Concatenate VM classes into one VmState (submission order)."""
     col = lambda attr: np.concatenate(

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.spans import span
 
 __all__ = ["K_CURVE", "SPEC_G4_WATTS", "SPEC_G5_WATTS", "linear_curve",
            "normalize_watts", "make_power_model", "with_power_model",
@@ -63,7 +64,8 @@ def _as_f32(x, shape, device) -> torch.Tensor:
         return x.to(device=device, dtype=torch.float32).broadcast_to(
             shape).contiguous()
     a = np.broadcast_to(np.asarray(x, np.float32), shape)
-    return torch.from_numpy(np.array(a)).to(device)
+    with span("sync.build.copy"):
+        return torch.from_numpy(np.array(a)).to(device)
 
 
 def make_power_model(n_hosts: int, idle_w, peak_w, curve=None, *,
@@ -78,8 +80,11 @@ def make_power_model(n_hosts: int, idle_w, peak_w, curve=None, *,
     idle = _as_f32(idle_w, (n_hosts,), dev)
     peak = _as_f32(peak_w, (n_hosts,), dev)
     c = _linear_curve_np() if curve is None else curve
-    c = (c.to(device=dev, dtype=torch.float32) if isinstance(c, torch.Tensor)
-         else torch.from_numpy(np.asarray(c, np.float32)).to(dev))
+    if isinstance(c, torch.Tensor):
+        c = c.to(device=dev, dtype=torch.float32)
+    else:
+        with span("sync.build.copy"):
+            c = torch.from_numpy(np.asarray(c, np.float32)).to(dev)
     if c.ndim == 1:
         c = c[None].expand(n_hosts, K_CURVE)
     if tuple(c.shape) != (n_hosts, K_CURVE):

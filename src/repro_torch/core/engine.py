@@ -85,6 +85,8 @@ import torch
 
 from repro_torch.core import (energy, market, metrics, migration, network,
                               scheduling)
+from repro_torch import spans
+from repro_torch.spans import span
 from repro_torch.core.streaming import StreamChunkRecord, StreamRun
 from repro_torch.core.migration import Migration
 from repro_torch.core.network import wants_network
@@ -912,6 +914,7 @@ def _provision_lanes(batch: DatacenterState, which, policy: int
                      ) -> DatacenterState:
     """``provision_pending`` on the lanes ``which``, one after another;
     each leaf it changes is rebuilt once."""
+    spans.count("provision.lanes", len(which))
     old = tensor_leaves(batch)
     new = list(old)
     for b in which:
@@ -932,20 +935,28 @@ def _provision_lanes(batch: DatacenterState, which, policy: int
 def wants_dynamic(dc: DatacenterState) -> bool:
     """True when the scenario carries an event table, a migration policy,
     or an in-flight migration."""
-    return (dc.events.shape[-2] > 0
-            or bool((dc.mig_policy != 0).any())
-            or bool((dc.vms.mig_remaining > 0.0).any()))
+    if dc.events.shape[-2] > 0:
+        return True
+    with span("sync.passes.mig_policy"):
+        if bool((dc.mig_policy != 0).any()):
+            return True
+    with span("sync.passes.mig_remaining"):
+        return bool((dc.vms.mig_remaining > 0.0).any())
 
 
 def wants_elastic(dc: DatacenterState) -> bool:
     """True when the scenario carries an enabled autoscaler or spot track."""
-    return bool((dc.scaler.enabled != 0).any()
-                or (dc.scaler.spot_enabled != 0).any())
+    with span("sync.passes.scaler"):
+        if bool((dc.scaler.enabled != 0).any()):
+            return True
+    with span("sync.passes.spot"):
+        return bool((dc.scaler.spot_enabled != 0).any())
 
 
 def wants_probes(dc: DatacenterState) -> bool:
     """True when the scenario carries an enabled metrics plane."""
-    return bool((dc.metrics.enabled != 0).any())
+    with span("sync.passes.probes"):
+        return bool((dc.metrics.enabled != 0).any())
 
 
 def _passes_of(dc: DatacenterState) -> _Passes:
@@ -953,10 +964,11 @@ def _passes_of(dc: DatacenterState) -> _Passes:
     JAX engine's ``wants_dynamic``/``wants_network``/``wants_elastic``/
     ``wants_probes``, and whether any lane has a migration policy at
     all."""
-    dynamic = wants_dynamic(dc)
-    return _Passes(dynamic=dynamic,
-                   migration=dynamic and bool((dc.mig_policy
-                                               != MIG_OFF).any()),
+    dynamic = migrates = wants_dynamic(dc)
+    if dynamic:
+        with span("sync.passes.migration"):
+            migrates = bool((dc.mig_policy != MIG_OFF).any())
+    return _Passes(dynamic=dynamic, migration=migrates,
                    network=wants_network(dc), elastic=wants_elastic(dc),
                    probed=wants_probes(dc))
 
@@ -1055,6 +1067,7 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
     return new, rec
 
 
+@spans.spanned("drive")
 def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
            provision_policy: int, leap: bool, block: int,
            passes: _Passes, stream: StreamRun | None = None
@@ -1064,14 +1077,24 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
     only those some live lane still needs.  With ``stream``, every lane
     is a streamed lane: it lives while its chunks last (JAX's chunk
     loop, ``StreamRun``), not until its first inactive step, and
-    ``max_steps`` and ``horizon`` give way to ``max_steps_per_chunk``."""
+    ``max_steps`` and ``horizon`` give way to ``max_steps_per_chunk``.
+
+    Spans (``repro_torch.spans``): ``drive.lanes``; a block's
+    ``drive.read``, then ``drive.leap`` (a ``step.leap`` an iteration) or
+    ``drive.boundary`` (``drive.admit``, ``drive.events``,
+    ``drive.autoscale``, ``drive.migrate``, ``drive.provision``, a
+    ``drive.plan`` a plan counted in ``n_plans``) and ``drive.steps`` (a
+    ``step.full`` a step counted in ``n_steps``, ``drive.peek``);
+    ``drive.stats``; ``sync.drive.*`` around each wait for the device."""
     if block < 1:
         raise ValueError("block must be >= 1")
     dev = batch.time.device
-    lanes = lanes_of(batch, streaming=stream is not None)
+    with span("drive.lanes"):
+        lanes = lanes_of(batch, streaming=stream is not None)
     nb = lanes.n_lanes
-    hor = torch.clamp(torch.tensor(horizon, dtype=torch.float32,
-                                   device=dev), max=INF)
+    with span("sync.drive.horizon"):
+        hor = torch.clamp(torch.tensor(horizon, dtype=torch.float32,
+                                       device=dev), max=INF)
     i32 = lambda: torch.zeros((nb,), dtype=torch.int32, device=dev)
     no = lambda: torch.zeros((nb,), dtype=torch.bool, device=dev)
     n, n_full, used = i32(), i32(), i32()
@@ -1090,32 +1113,40 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
 
     def admit(batch, lanes, plan, mask, ends=False):
         # the admission pass, then the regrouped view it changed
-        batch = stream.begin(batch, mask, ends=ends)
-        lanes = stream_lanes(batch, lanes)
-        if plan is not None:
-            plan = refresh_slots(batch, plan, lanes)
-        return batch, lanes, plan, stream.next_arrival()
+        with span("drive.admit"):
+            batch = stream.begin(batch, mask, ends=ends)
+            lanes = stream_lanes(batch, lanes)
+            if plan is not None:
+                plan = refresh_slots(batch, plan, lanes)
+            return batch, lanes, plan, stream.next_arrival()
+
+    def new_plan(batch, lanes):
+        with span("drive.plan"):
+            return host_plan(batch, lanes)
 
     while True:
-        if stream is None:
-            live = alive & (n < max_steps) & (batch.time < hor)
-        else:
-            live = stream.live()
-        rows = dict(live=live, due=live & pending_due(batch), window=window,
-                    used=used, held=held)
-        if passes.dynamic:
-            rows.update(ev=live & _event_due(batch),
-                        dyn=live & _lane_dynamic(batch))
-        if passes.network:
-            rows.update(net=live & (batch.net.enabled == 1))
-        if passes.elastic:
-            rows.update(ela=live & _lane_elastic(batch))
-        if passes.probed:
-            rows.update(prb=live & (batch.metrics.enabled == 1))
-        if stream is not None:
-            rows.update(ends=live & stream.ending())
-        read = dict(zip(rows, torch.stack(
-            [r.to(torch.int32) for r in rows.values()]).tolist()))
+        with span("drive.read"):
+            if stream is None:
+                live = alive & (n < max_steps) & (batch.time < hor)
+            else:
+                live = stream.live()
+            rows = dict(live=live, due=live & pending_due(batch),
+                        window=window, used=used, held=held)
+            if passes.dynamic:
+                rows.update(ev=live & _event_due(batch),
+                            dyn=live & _lane_dynamic(batch))
+            if passes.network:
+                rows.update(net=live & (batch.net.enabled == 1))
+            if passes.elastic:
+                rows.update(ela=live & _lane_elastic(batch))
+            if passes.probed:
+                rows.update(prb=live & (batch.metrics.enabled == 1))
+            if stream is not None:
+                rows.update(ends=live & stream.ending())
+            stacked = torch.stack([r.to(torch.int32) for r in rows.values()])
+            with span("sync.drive.read"):
+                read = dict(zip(rows, stacked.tolist()))
+            del stacked     # its block is free for the boundary's tensors
         live_h, due_h, window_h, used_h, held_h = (
             read[k] for k in ("live", "due", "window", "used", "held"))
         ev_h, ends_h = read.get("ev", [0]), read.get("ends", [0])
@@ -1134,18 +1165,20 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
                 steps_len, leap_len = max(1, most), 1
             else:
                 leap_len = min(block, 2 * leap_len)
-            used = torch.zeros_like(used)
-            for _ in range(leap_len):
-                go = window & (n < max_steps) & (batch.time < hor)
-                if stream is not None:
-                    go &= stream.budget()
-                batch, do, window, n_post = _body(batch, lanes, plan, r0,
-                                                  n_now, go, bp, nxt)
-                if stream is not None:
-                    stream.leap(do)
-                n = n + do.to(torch.int32)
-                used = used + do.to(torch.int32)
-                n_now = _where_lanes(do, n_post, n_now, lanes)
+            with span("drive.leap"):
+                used = torch.zeros_like(used)
+                for _ in range(leap_len):
+                    with span("step.leap"):
+                        go = window & (n < max_steps) & (batch.time < hor)
+                        if stream is not None:
+                            go &= stream.budget()
+                        batch, do, window, n_post = _body(
+                            batch, lanes, plan, r0, n_now, go, bp, nxt)
+                        if stream is not None:
+                            stream.leap(do)
+                        n = n + do.to(torch.int32)
+                        used = used + do.to(torch.int32)
+                        n_now = _where_lanes(do, n_post, n_now, lanes)
             n_leap += leap_len
             kind = "leap"
             continue
@@ -1153,113 +1186,142 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
             steps_len = min(block, 2 * steps_len)   # no window opened
         if not any(live_h):
             break
-        # the passes that move VMs: due event rows, the held migrations,
-        # then provisioning; the plan is rebuilt once after them.  In an
-        # instant, admission comes first: the lanes they act on finish
-        # their pass before them, as do the lanes whose chunk ends here
-        if stream is not None and (any(ev_h) or any(due_h) or any(ends_h)):
-            waits = torch.tensor([e or d or x for e, d, x in zip(
-                ev_h, due_h, ends_h)], device=dev)
-            while True:
-                batch, lanes, plan, nxt = admit(batch, lanes, plan,
-                                                live & ~window, ends=True)
-                n_blocks += 1
-                if not bool((waits & stream.admitting()).any()):
-                    break
-        moved = False
-        if any(ev_h):
-            if plan is None:
-                plan = host_plan(batch, lanes)
-                n_plans += 1
-            batch = _apply_events(batch, lanes, plan, torch.tensor(
-                ev_h, dtype=torch.bool, device=dev))
-            due_h = (live & pending_due(batch)).tolist()
-            moved = True
-        if bp.elastic:
-            # the autoscaler, on the state after the instant's admission
-            # and event rows, of every lane about to take a full step
-            # that starts an instant (a held lane and the re-rated step
-            # after a migration are past it)
-            scaled = live & ~window & ~held & ~after
-            if stream is not None:
-                scaled &= stream.ready()
-            scale = scaled & _scale_due(batch)
-            if bool(scale.any()):
-                if moved or plan is None:
-                    plan = host_plan(batch, lanes)
+        with span("drive.boundary"):
+            # the passes that move VMs: due event rows, the held
+            # migrations, then provisioning; the plan is rebuilt once
+            # after them.  In an instant, admission comes first: the
+            # lanes they act on finish their pass before them, as do the
+            # lanes whose chunk ends here
+            if stream is not None and (any(ev_h) or any(due_h)
+                                       or any(ends_h)):
+                with span("sync.drive.waits"):
+                    waits = torch.tensor([e or d or x for e, d, x in zip(
+                        ev_h, due_h, ends_h)], device=dev)
+                while True:
+                    batch, lanes, plan, nxt = admit(batch, lanes, plan,
+                                                    live & ~window,
+                                                    ends=True)
+                    n_blocks += 1
+                    with span("sync.drive.admitting"):
+                        admitting = bool((waits & stream.admitting()).any())
+                    if not admitting:
+                        break
+            moved = False
+            if any(ev_h):
+                if plan is None:
+                    plan = new_plan(batch, lanes)
                     n_plans += 1
-                batch = _apply_autoscaler(batch, lanes, plan, scale)
-                due_h = (live & pending_due(batch)).tolist()
+                with span("drive.events"):
+                    with span("sync.drive.ev"):
+                        ev = torch.tensor(ev_h, dtype=torch.bool, device=dev)
+                    batch = _apply_events(batch, lanes, plan, ev)
+                    del ev
+                    with span("sync.drive.due"):
+                        due_h = (live & pending_due(batch)).tolist()
                 moved = True
-                n_scale += 1
-        if any(held_h):
-            batch = migration.lane_apply(batch, pend._replace(
-                trigger=pend.trigger & held))
-            after, held = after | held, no()
-            # the re-rated step, then the cascade's next decision
-            steps_len = min(steps_len, 2)
-            moved = True
-        due_lanes = [b for b, due in enumerate(due_h) if due]
-        if due_lanes:
-            batch = _provision_lanes(batch, due_lanes, provision_policy)
-            moved = True
-        if moved or plan is None:
-            plan = host_plan(batch, lanes)
-            n_plans += 1
-        used = torch.zeros_like(used)
-        for i in range(steps_len):
-            if stream is None:
-                go = alive & (n < max_steps) & (batch.time < hor)
-            else:
-                batch, lanes, plan, nxt = admit(batch, lanes, plan, ~window)
-                go = stream.ready()
-            go = go & ~pending_due(batch) & ~window
-            if bp.dynamic:
-                go &= ~_event_due(batch) & ~held
             if bp.elastic:
-                # a lane whose autoscaler would act waits for the boundary
-                go &= ~(_scale_due(batch) & ~(scaled | after))
-            if i and i % PEEK == 0:
-                # every lane may be waiting for the boundary already
-                n_blocks += 1
-                if not bool(go.any()):
-                    break
-            st = _full(batch, lanes, plan, bp, after, nxt)
-            commit = go
-            if st.hold is not None:
-                hold = go & st.hold
-                commit = go & ~hold
-                held = held | hold
-                pend = st.mig if pend is None else Migration(*(
-                    torch.where(hold, a, b) for a, b in zip(st.mig, pend)))
-                after = after & ~commit
-            if bp.elastic:
-                scaled = scaled & ~commit
-            done = (commit & st.active).to(torch.int32)
-            if leap:
-                safe, n_post = _drain_safe(st.counts, st.new, lanes, plan,
-                                           networked=bp.network)
-                gate = (commit & st.opens & safe & (n + done < max_steps)
-                        & (st.new.time < hor))
-                if stream is not None:
-                    gate &= stream.n_chunk + done < stream.max_steps
-                window = window | gate
-                r0 = torch.where(gate[:, None], st.rates, r0)
-                n_now = _where_lanes(gate, n_post, n_now, lanes)
-            new = _select(commit, st.new, batch, bp)
-            if st.hold is not None and bp.network:
-                # a held lane keeps its staging phases
-                new = _select(hold, st.phased, new, bp)
-            batch = new
-            n = n + done
-            n_full = n_full + done
-            used = used + go.to(torch.int32)
-            alive = torch.where(commit, st.active, alive)
-            if stream is not None:
-                stream.commit(commit, st.active, done)
-            n_steps += 1
+                # the autoscaler, on the state after the instant's
+                # admission and event rows, of every lane about to take a
+                # full step that starts an instant (a held lane and the
+                # re-rated step after a migration are past it)
+                with span("drive.autoscale"):
+                    scaled = live & ~window & ~held & ~after
+                    if stream is not None:
+                        scaled &= stream.ready()
+                    scale = scaled & _scale_due(batch)
+                    with span("sync.drive.scale"):
+                        acts = bool(scale.any())
+                if acts:
+                    if moved or plan is None:
+                        plan = new_plan(batch, lanes)
+                        n_plans += 1
+                    with span("drive.autoscale"):
+                        batch = _apply_autoscaler(batch, lanes, plan, scale)
+                        with span("sync.drive.due"):
+                            due_h = (live & pending_due(batch)).tolist()
+                    moved = True
+                    n_scale += 1
+            if any(held_h):
+                with span("drive.migrate"):
+                    batch = migration.lane_apply(batch, pend._replace(
+                        trigger=pend.trigger & held))
+                    after, held = after | held, no()
+                # the re-rated step, then the cascade's next decision
+                steps_len = min(steps_len, 2)
+                moved = True
+            due_lanes = [b for b, due in enumerate(due_h) if due]
+            if due_lanes:
+                with span("drive.provision"):
+                    batch = _provision_lanes(batch, due_lanes,
+                                             provision_policy)
+                moved = True
+            if moved or plan is None:
+                plan = new_plan(batch, lanes)
+                n_plans += 1
+        with span("drive.steps"):
+            used = torch.zeros_like(used)
+            for i in range(steps_len):
+                if stream is None:
+                    go = alive & (n < max_steps) & (batch.time < hor)
+                else:
+                    batch, lanes, plan, nxt = admit(batch, lanes, plan,
+                                                    ~window)
+                    go = stream.ready()
+                go = go & ~pending_due(batch) & ~window
+                if bp.dynamic:
+                    go &= ~_event_due(batch) & ~held
+                if bp.elastic:
+                    # a lane whose autoscaler would act waits for the
+                    # boundary
+                    go &= ~(_scale_due(batch) & ~(scaled | after))
+                if i and i % PEEK == 0:
+                    # every lane may be waiting for the boundary already
+                    n_blocks += 1
+                    with span("drive.peek"), span("sync.drive.peek"):
+                        stepping = bool(go.any())
+                    if not stepping:
+                        break
+                with span("step.full"):
+                    st = _full(batch, lanes, plan, bp, after, nxt)
+                    commit = go
+                    if st.hold is not None:
+                        hold = go & st.hold
+                        commit = go & ~hold
+                        held = held | hold
+                        pend = st.mig if pend is None else Migration(*(
+                            torch.where(hold, a, b)
+                            for a, b in zip(st.mig, pend)))
+                        after = after & ~commit
+                    if bp.elastic:
+                        scaled = scaled & ~commit
+                    done = (commit & st.active).to(torch.int32)
+                    if leap:
+                        safe, n_post = _drain_safe(
+                            st.counts, st.new, lanes, plan,
+                            networked=bp.network)
+                        gate = (commit & st.opens & safe
+                                & (n + done < max_steps)
+                                & (st.new.time < hor))
+                        if stream is not None:
+                            gate &= stream.n_chunk + done < stream.max_steps
+                        window = window | gate
+                        r0 = torch.where(gate[:, None], st.rates, r0)
+                        n_now = _where_lanes(gate, n_post, n_now, lanes)
+                    new = _select(commit, st.new, batch, bp)
+                    if st.hold is not None and bp.network:
+                        # a held lane keeps its staging phases
+                        new = _select(hold, st.phased, new, bp)
+                    batch = new
+                    n = n + done
+                    n_full = n_full + done
+                    used = used + go.to(torch.int32)
+                    alive = torch.where(commit, st.active, alive)
+                    if stream is not None:
+                        stream.commit(commit, st.active, done)
+                n_steps += 1
         kind = "step"
-    n_events, full = torch.stack([n.sum(), n_full.sum()]).tolist()
+    with span("drive.stats"), span("sync.drive.stats"):
+        n_events, full = torch.stack([n.sum(), n_full.sum()]).tolist()
     return batch, RunStats(n_events=n_events, n_full=full, n_steps=n_steps,
                            n_leap=n_leap, n_blocks=n_blocks, n_plans=n_plans,
                            n_passes=stream.n_passes if stream else 0,

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.spans import span
 
 __all__ = ["MetricsState", "make_metrics", "no_metrics", "metrics_edges",
            "bucket_overlap", "hist_index", "accrue_interval",
@@ -76,11 +77,15 @@ def _plane(n_hosts: int, *, enabled: int, horizon: float, sla_factor: float,
     f32 = lambda shape: torch.zeros(shape, dtype=torch.float32, device=dev)
     i32 = lambda shape: torch.zeros(shape, dtype=torch.int32, device=dev)
     bins = edges.shape[0] - 1
+    with span("sync.build.copy"):
+        horizon = torch.tensor(np.float32(horizon), device=dev)
+    with span("sync.build.copy"):
+        sla_factor = torch.tensor(np.float32(sla_factor), device=dev)
+    with span("sync.build.copy"):
+        edges = torch.from_numpy(edges).to(dev)
     return MetricsState(
         enabled=torch.full((), enabled, dtype=torch.int32, device=dev),
-        horizon=torch.tensor(np.float32(horizon), device=dev),
-        sla_factor=torch.tensor(np.float32(sla_factor), device=dev),
-        edges=torch.from_numpy(edges).to(dev),
+        horizon=horizon, sla_factor=sla_factor, edges=edges,
         bucket_dt=f32((buckets,)), bucket_util=f32((buckets,)),
         bucket_watts=f32((buckets,)), bucket_fleet=f32((buckets,)),
         bucket_backlog=f32((buckets,)), bucket_flows=f32((buckets,)),

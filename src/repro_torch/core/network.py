@@ -33,6 +33,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import scheduling
+from repro_torch.spans import span
 from repro_torch.core.scheduling import HostPlan, Lanes, lane_min
 from repro_torch.core.segments import pairwise_sum
 from repro_torch.core.state import (CL_CREATED, CL_DONE, INF, NET_PRE,
@@ -49,7 +50,8 @@ __all__ = ["wants_network", "stage_latency", "staging_mask", "flow_rates",
 def wants_network(dc: DatacenterState) -> bool:
     """True when the scenario (or some lane of a batch) carries an
     enabled topology."""
-    return bool((dc.net.enabled != 0).any())
+    with span("sync.passes.network"):
+        return bool((dc.net.enabled != 0).any())
 
 
 def stage_latency(dc: DatacenterState) -> torch.Tensor:

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core.state import (CL_CREATED, CL_FAILED, VM_ACTIVE,
                                     VM_FAILED, VM_PENDING, DatacenterState)
+from repro_torch.spans import count, span
 
 FIRST_FIT = 0
 BEST_FIT = 1
@@ -138,10 +139,14 @@ def _choose(feas, free_ram, total_ram, policy: int, rr_cursor, idx
 def _accrue(total: torch.Tensor, terms: torch.Tensor, ok: np.ndarray):
     """``total`` plus each placed VM's f32 term, added one at a time in
     placement order (the JAX scan's f32 rounding, done on the host)."""
-    acc = np.float32(total.item())
-    for t in terms.cpu().numpy()[ok]:
+    with span("sync.provision.total"):
+        acc = np.float32(total.item())
+    with span("sync.provision.terms"):
+        host_terms = terms.cpu().numpy()
+    for t in host_terms[ok]:
         acc = np.float32(acc + t)
-    return torch.tensor(acc, dtype=torch.float32, device=total.device)
+    with span("sync.provision.upload"):
+        return torch.tensor(acc, dtype=torch.float32, device=total.device)
 
 
 def _one_by_one(pools, needs, static_ok, total_ram, policy: int
@@ -193,7 +198,9 @@ def _first_fit(pools, needs, keys, static_ok):
         holds = torch.zeros((nh,), dtype=torch.long, device=pools.device)
         for _ in range(j - i):
             fits = _feasible(free, need[:, 0], static)
-            if not bool(fits.any()):
+            with span("sync.provision.fits"):
+                any_fits = bool(fits.any())
+            if not any_fits:
                 break
             free = torch.where(fits, free - need, free)
             holds += fits
@@ -202,7 +209,9 @@ def _first_fit(pools, needs, keys, static_ok):
         chosen[i:j] = torch.searchsorted(
             before + holds, torch.arange(j - i, device=pools.device),
             right=True)
-        for r in range(int(takes.max())):
+        with span("sync.provision.takes"):
+            rounds = int(takes.max())
+        for r in range(rounds):
             pools = torch.where(takes > r, pools - need, pools)
     return pools, chosen
 
@@ -220,28 +229,35 @@ def provision_pending(dc: DatacenterState, policy: int = FIRST_FIT
     nh = hosts.num_pes.shape[0]
     nv = vms.req_pes.shape[0]
     due = (vms.state == VM_PENDING) & (vms.submit_time <= dc.time)
-    due_idx = torch.nonzero(due).view(-1)
+    with span("sync.provision.due"):
+        due_idx = torch.nonzero(due).view(-1)
     if due_idx.numel() == 0:
         return dc
+    count("provision.vms", due_idx.numel())
     # FCFS: submit time, then slot (due_idx is ascending, the sort stable)
     order = due_idx[torch.argsort(vms.submit_time[due_idx], stable=True)]
-    reserve = bool(dc.reserve_pes == 1)
+    with span("sync.provision.reserve"):
+        reserve = bool(dc.reserve_pes == 1)
 
     pools = _pools(hosts.free_ram, hosts.free_bw, hosts.free_storage,
                    hosts.free_pes, reserve)
     needs = _needs(vms.ram, vms.bw, vms.size, vms.req_pes, reserve)[:, order]
     # a VM's request: what it takes from the pools plus its static checks
     keys = torch.cat([needs, vms.req_mips[order][None],
-                      vms.req_pes[order][None].to(torch.float32)]
-                     ).T.double().cpu().numpy()
+                      vms.req_pes[order][None].to(torch.float32)]).T.double()
+    with span("sync.provision.keys"):
+        keys = keys.cpu().numpy()
     static = {}
 
     def static_ok(i):
         key = tuple(keys[i])
         if key not in static:
             v = order[i]
-            static[key] = _static_ok(dc, vms.req_pes[v], vms.req_mips[v],
-                                     reserve)
+            with span("sync.provision.req_pes"):
+                req_pes = vms.req_pes[v]
+            with span("sync.provision.req_mips"):
+                req_mips = vms.req_mips[v]
+            static[key] = _static_ok(dc, req_pes, req_mips, reserve)
         return static[key]
 
     if policy == FIRST_FIT:
@@ -255,7 +271,8 @@ def provision_pending(dc: DatacenterState, policy: int = FIRST_FIT
     host[order] = torch.where(ok, chosen, host[order].long()).to(torch.int32)
     state[order] = torch.where(ok, VM_ACTIVE, VM_FAILED).to(torch.int32)
     create[order] = torch.where(ok, dc.time, create[order])
-    ok_np = ok.cpu().numpy()
+    with span("sync.provision.ok"):
+        ok_np = ok.cpu().numpy()
     mem_cost = _accrue(dc.acct.mem_cost,
                        dc.rates.cost_per_mem * vms.ram[order], ok_np)
     sto_cost = _accrue(dc.acct.storage_cost,

@@ -43,6 +43,7 @@ from repro_torch.core.state import (CL_CREATED, INF, NET_RUN, SPACE_SHARED,
                                     VM_ACTIVE, DatacenterState, map_tensors)
 from repro_torch.kernels.simstep.ops import (RowIndex, padded_row_index,
                                              row_index, simstep_ragged)
+from repro_torch.spans import span
 
 __all__ = ["cloudlet_runnable", "vm_has_work", "host_level_shares",
            "vm_level_rates", "cloudlet_rates", "rates_and_dt", "Lanes",
@@ -112,7 +113,10 @@ def lanes_of(dc: DatacenterState, *, streaming: bool = False) -> Lanes:
     row = index.slot_row.long()
     first = (index.start.long()[torch.clamp(row, min=0)] if index.n_rows
              else torch.zeros_like(row))
-    longest = int(index.length.max()) if index.n_rows else 0
+    longest = 0
+    if index.n_rows:
+        with span("sync.lanes.longest"):
+            longest = int(index.length.max())
     return Lanes(
         n_lanes=b, n_hosts=h, n_vms=v, n_cloudlets=c, slot_vm=slot_vm,
         index=index,
@@ -199,8 +203,12 @@ def host_plan(dc: DatacenterState, lanes: Lanes) -> HostPlan:
     start = run_starts(seg).long()
     last = torch.ones(n, dtype=torch.bool, device=dev)
     last[:-1] = seg[1:] != seg[:-1]
-    ends = torch.nonzero(last & (seg < b * h)).view(-1)
-    longest = int((ends - start[ends] + 1).max()) if ends.numel() else 0
+    with span("sync.plan.ends"):
+        ends = torch.nonzero(last & (seg < b * h)).view(-1)
+    longest = 0
+    if ends.numel():
+        with span("sync.plan.longest"):
+            longest = int((ends - start[ends] + 1).max())
     flat = lambda t: t.reshape(-1)
     mips_pe = flat(hosts.mips_per_pe)
     active = (flat(vms.state) == VM_ACTIVE) & placed
@@ -353,9 +361,10 @@ def _level2(dc: DatacenterState, lanes: Lanes, vm_capacity: torch.Tensor,
     perm = lanes.perm
     if perm is not None:
         remaining, runnable = remaining[perm], runnable[perm]
-    rates, dt_min = simstep_ragged(
-        remaining, runnable, lanes.index, vm_capacity,
-        dc.vms.req_pes.reshape(-1).to(torch.float32), lanes.row_policy)
+    with span("step.simstep"):
+        rates, dt_min = simstep_ragged(
+            remaining, runnable, lanes.index, vm_capacity,
+            dc.vms.req_pes.reshape(-1).to(torch.float32), lanes.row_policy)
     if perm is not None:
         rates = torch.empty_like(rates).index_copy_(0, perm, rates)
     return rates, dt_min

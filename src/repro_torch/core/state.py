@@ -24,6 +24,7 @@ from repro_torch.core.energy import make_power_model
 from repro_torch.core.metrics import MetricsState, no_metrics
 from repro_torch.core.segments import segment_rank
 from repro_torch.device import resolve_device
+from repro_torch.spans import span, spanned
 
 # ---------------------------------------------------------------------------
 # Constants
@@ -201,17 +202,24 @@ class DatacenterState:
 # ---------------------------------------------------------------------------
 # Builders
 # ---------------------------------------------------------------------------
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``; from pageable host memory the copy waits for
+    the device's queue."""
+    with span("sync.build.copy"):
+        return torch.from_numpy(a).to(device)
+
+
 def _vec(x, n: int, dtype: np.dtype, device: torch.device) -> torch.Tensor:
     """``x`` (scalar or sequence) broadcast to a length-``n`` tensor."""
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     a = np.broadcast_to(np.asarray(x, dtype), (n,))
-    return torch.from_numpy(np.array(a)).to(device)
+    return _upload(np.array(a), device)
 
 
 def _scalar(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     np_dtype = {torch.float32: np.float32, torch.int32: np.int32}[dtype]
-    return torch.from_numpy(np.asarray(x, np_dtype).reshape(())).to(device)
+    return _upload(np.asarray(x, np_dtype).reshape(()), device)
 
 
 def make_hosts(num_pes, mips_per_pe, ram, bw, storage, *, idle_w=0.0,
@@ -226,7 +234,7 @@ def make_hosts(num_pes, mips_per_pe, ram, bw, storage, *, idle_w=0.0,
     h = pes_np.shape[0]
     f = lambda x: _vec(x, h, np.float32, dev)
     ram, bw, storage = f(ram), f(bw), f(storage)
-    pes = torch.from_numpy(pes_np.copy()).to(dev)
+    pes = _upload(pes_np.copy(), dev)
     idle, peak, curve = make_power_model(h, idle_w, peak_w, power_curve,
                                          device=dev)
     return HostState(
@@ -240,6 +248,7 @@ def make_hosts(num_pes, mips_per_pe, ram, bw, storage, *, idle_w=0.0,
         valid=torch.ones((h,), dtype=torch.bool, device=dev))
 
 
+@spanned("build.hosts")
 def make_uniform_hosts(n, *, pes=1, mips=1000.0, ram=1024.0, bw=1000.0,
                        storage=2_000_000.0, idle_w=0.0, peak_w=0.0,
                        power_curve=None, device=None) -> HostState:
@@ -257,7 +266,7 @@ def make_vms(req_pes, req_mips, ram, bw, size, submit_time=0.0, *,
     v = pes_np.shape[0]
     f = lambda x: _vec(x, v, np.float32, dev)
     return VmState(
-        req_pes=torch.from_numpy(pes_np.copy()).to(dev),
+        req_pes=_upload(pes_np.copy(), dev),
         req_mips=f(req_mips), ram=f(ram), bw=f(bw), size=f(size),
         submit_time=f(submit_time),
         host=torch.full((v,), -1, dtype=torch.int32, device=dev),
@@ -266,6 +275,7 @@ def make_vms(req_pes, req_mips, ram, bw, size, submit_time=0.0, *,
         mig_remaining=torch.zeros((v,), dtype=torch.float32, device=dev))
 
 
+@spanned("build.cloudlets")
 def make_cloudlets(vm, length, submit_time=0.0, file_size=0.0,
                    output_size=0.0, *, device=None) -> CloudletState:
     """Cloudlet slots MUST be grouped by vm with ranks ascending (FCFS);
@@ -274,7 +284,7 @@ def make_cloudlets(vm, length, submit_time=0.0, file_size=0.0,
     vm_np = np.asarray(vm, np.int32).reshape(-1)
     c = vm_np.shape[0]
     f = lambda x: _vec(x, c, np.float32, dev)
-    vm_t = torch.from_numpy(vm_np.copy()).to(dev)
+    vm_t = _upload(vm_np.copy(), dev)
     length = f(length)
     return CloudletState(
         vm=vm_t, length=length, remaining=length.clone(),
@@ -583,6 +593,7 @@ def to_device(obj, device):
     return map_tensors(lambda t: t.to(device), obj)
 
 
+@spanned("build.datacenter")
 def make_datacenter(hosts: HostState, vms: VmState, cloudlets: CloudletState,
                     *, vm_policy=SPACE_SHARED, task_policy=SPACE_SHARED,
                     reserve_pes=True, rates: MarketRates | None = None,

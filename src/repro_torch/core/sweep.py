@@ -76,6 +76,7 @@ from repro_torch.core.state import (CL_CREATED, CL_DONE, CL_EMPTY, INF,
                                     with_leaves)
 from repro_torch.core.streaming import StreamChunkRecord
 from repro_torch.device import resolve_device
+from repro_torch.spans import spanned
 
 __all__ = ["pad_scenario", "stack_scenarios", "run_batch", "run_grid",
            "run_grid_nested", "fuse_grid", "inert_lane", "pad_batch",
@@ -145,6 +146,7 @@ def _stack(states: Sequence[DatacenterState]) -> DatacenterState:
     return with_leaves(states[0], [torch.stack(ts) for ts in leaves])
 
 
+@spanned("build.stack")
 def stack_scenarios(dcs: Sequence[DatacenterState]) -> DatacenterState:
     """Stack scenarios into one batched state (leading axis B), padding
     every entity block to the sweep-wide maximum capacity."""
@@ -207,6 +209,7 @@ def _policies(batch, vm_policies, task_policies):
     return vm_p, task_p
 
 
+@spanned("run.fuse")
 def fuse_grid(batch: DatacenterState, vm_policies, task_policies
               ) -> DatacenterState:
     """Flatten a [B] scenario batch x i32[P] policy pairs into [P*B] lanes.
@@ -728,6 +731,7 @@ class SweepSummary(NamedTuple):
     n_scale_down: torch.Tensor    # i32[...]  autoscaler VM destructions
 
 
+@spanned("run.summary")
 def summarize_batch(final: DatacenterState) -> SweepSummary:
     """Reduce a batched final state (any leading batch dims) to
     summaries."""

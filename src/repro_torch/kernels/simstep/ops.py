@@ -18,6 +18,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.spans import span
 from repro_torch.kernels.simstep.ref import (INF, simstep_ragged_ref,
                                              simstep_ref)
 
@@ -116,7 +117,8 @@ def row_index(cl_vm: torch.Tensor, n_vms: int) -> RowIndex:
     slot_row = torch.where(placed, vm, -1).to(torch.int32)
     owner = torch.where(placed, vm, n_vms)      # a spare row takes the rest
     pos = torch.arange(c, device=dev)
-    length = torch.bincount(owner, minlength=n_vms + 1)[:n_vms]
+    with span("sync.index.bincount"):     # checks the ids' range: 2 reads
+        length = torch.bincount(owner, minlength=n_vms + 1)[:n_vms]
     first = torch.full((n_vms + 1,), c, dtype=torch.long,
                        device=dev).scatter_reduce(0, owner, pos, "amin")
     last = torch.full((n_vms + 1,), -1, dtype=torch.long,
@@ -126,8 +128,11 @@ def row_index(cl_vm: torch.Tensor, n_vms: int) -> RowIndex:
     row_chunks = torch.where(length > WINDOW, (length + CHUNK - 1) // CHUNK,
                              0)
     marks = _window_marks(slot_row)
-    n_split, n_chunks, n_empty, n_marks = torch.stack(
-        [split.sum(), row_chunks.sum(), (~has).sum(), marks.sum()]).tolist()
+    counts = torch.stack(
+        [split.sum(), row_chunks.sum(), (~has).sum(), marks.sum()])
+    with span("sync.index.counts"):
+        n_split, n_chunks, n_empty, n_marks = counts.tolist()
+    del counts      # its block is free for the index's tensors
     if n_split:
         bad = torch.nonzero(split).view(-1)[:8].tolist()
         raise ValueError(

@@ -98,6 +98,7 @@ from repro_torch.core.scheduling import (HostPlan, Lanes, host_plan,
                                          lanes_of, refresh_slots,
                                          stream_lanes)
 from repro_torch.core.segments import pairwise_sum
+from repro_torch.kernels.simstep.ops import simstep
 from repro_torch.core.state import (CL_CREATED, CL_DONE, CL_FAILED,
                                     EV_HOST_FAIL, EV_HOST_RECOVER, EV_NONE,
                                     EV_VM_CREATE, EV_VM_DESTROY, INF,
@@ -864,11 +865,13 @@ def _body(dc: DatacenterState, lanes: Lanes, plan: HostPlan, r0, n_now,
 
 
 def _select(go: torch.Tensor, new: DatacenterState, old: DatacenterState,
-            passes: _Passes = _STATIC) -> DatacenterState:
+            passes: _Passes = _STATIC, inplace: bool = False
+            ) -> DatacenterState:
     """Lane by lane, ``new`` where ``go`` else ``old``, for the fields a
-    step writes (the passes at block boundaries write the others)."""
+    step writes (the passes at block boundaries write the others); with
+    ``inplace``, into ``old``'s own tensors (a captured step's buffers)."""
     w = lambda a, b: torch.where(go.view(go.shape + (1,) * (a.ndim - 1)),
-                                 a, b)
+                                 a, b, out=b if inplace else None)
     nc, oc = new.cloudlets, old.cloudlets
     cl_fields = ["remaining", "start_time", "finish_time", "state"]
     if passes.network:
@@ -904,10 +907,13 @@ def _select(go: torch.Tensor, new: DatacenterState, old: DatacenterState,
 
 
 def _where_lanes(go: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
-                 lanes: Lanes) -> torch.Tensor:
-    """[B*X] ``new`` on the entries of the lanes ``go``, else ``old``."""
-    return torch.where(go[:, None], new.view(lanes.n_lanes, -1),
-                       old.view(lanes.n_lanes, -1)).view(-1)
+                 lanes: Lanes, inplace: bool = False) -> torch.Tensor:
+    """[B*X] ``new`` on the entries of the lanes ``go``, else ``old``;
+    with ``inplace``, into ``old`` itself."""
+    into = old.view(lanes.n_lanes, -1)
+    out = torch.where(go[:, None], new.view(lanes.n_lanes, -1), into,
+                      out=into if inplace else None)
+    return old if inplace else out.view(-1)
 
 
 def _provision_lanes(batch: DatacenterState, which, policy: int
@@ -1067,6 +1073,218 @@ def step(dc: DatacenterState, *, provision_policy: int = FIRST_FIT,
     return new, rec
 
 
+# ---------------------------------------------------------------------------
+# A block of full steps: one iteration, eager or replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+class _Carry(NamedTuple):
+    """What ``_drive``'s full steps carry from one to the next."""
+    batch: DatacenterState
+    n: torch.Tensor         # i32[B] committed events
+    n_full: torch.Tensor    # i32[B] committed full steps
+    used: torch.Tensor      # i32[B] steps the lane took in this block
+    alive: torch.Tensor     # bool[B] the last committed step was active
+    window: torch.Tensor    # bool[B] a leap window is open
+    r0: torch.Tensor        # f32[B, C] the open window's frozen rates
+    n_now: torch.Tensor     # i32[B*V] its run_counts
+    held: torch.Tensor      # bool[B] a triggered migration waits
+    after: torch.Tensor     # bool[B] the lane's migration was just applied
+    scaled: torch.Tensor    # bool[B] the autoscaler was evaluated on the
+    #                         state the lane's next full step starts from
+    pend: Migration | None  # the decisions of the held lanes
+
+
+def _gate(c: _Carry, ready: torch.Tensor, bp: _Passes) -> torch.Tensor:
+    """bool[B] — the ``ready`` lanes that take the next full step: those
+    that no boundary pass waits for."""
+    go = ready & ~pending_due(c.batch) & ~c.window
+    if bp.dynamic:
+        go &= ~_event_due(c.batch) & ~c.held
+    if bp.elastic:
+        # a lane whose autoscaler would act waits for the boundary
+        go &= ~(_scale_due(c.batch) & ~(c.scaled | c.after))
+    return go
+
+
+def _advance(c: _Carry, go: torch.Tensor, lanes: Lanes, plan: HostPlan,
+             bp: _Passes, *, leap: bool, max_steps: int, hor: torch.Tensor,
+             nxt=None, stream: StreamRun | None = None,
+             inplace: bool = False) -> _Carry:
+    """One full step of the lanes ``go``: the step, its leap gate, the
+    commit's select and the carries' updates.  With ``inplace``, what it
+    writes goes into ``c``'s own tensors (``_buffers``) instead of new
+    ones: the form a captured step takes (``_StepGraph``)."""
+    batch, n, n_full, used, alive, window, r0, n_now, held, after, scaled, \
+        pend = c
+    out = (lambda t: t) if inplace else (lambda t: None)
+    st = _full(batch, lanes, plan, bp, after, nxt)
+    commit = go
+    if st.hold is not None:
+        hold = go & st.hold
+        commit = go & ~hold
+        held = held | hold
+        pend = st.mig if pend is None else Migration(*(
+            torch.where(hold, a, b) for a, b in zip(st.mig, pend)))
+        after = after & ~commit
+    if bp.elastic:
+        scaled = scaled & ~commit
+    done = (commit & st.active).to(torch.int32)
+    if leap:
+        safe, n_post = _drain_safe(st.counts, st.new, lanes, plan,
+                                   networked=bp.network)
+        gate = (commit & st.opens & safe & (n + done < max_steps)
+                & (st.new.time < hor))
+        if stream is not None:
+            gate &= stream.n_chunk + done < stream.max_steps
+        window = torch.bitwise_or(window, gate, out=out(window))
+        r0 = torch.where(gate[:, None], st.rates, r0, out=out(r0))
+        n_now = _where_lanes(gate, n_post, n_now, lanes, inplace)
+    new = _select(commit, st.new, batch, bp, inplace)
+    if st.hold is not None and bp.network:
+        # a held lane keeps its staging phases
+        new = _select(hold, st.phased, new, bp)
+    c = _Carry(new, torch.add(n, done, out=out(n)),
+               torch.add(n_full, done, out=out(n_full)),
+               torch.add(used, go.to(torch.int32), out=out(used)),
+               torch.where(commit, st.active, alive, out=out(alive)),
+               window, r0, n_now, held, after, scaled, pend)
+    if stream is not None:
+        stream.commit(commit, st.active, done)
+    return c
+
+
+def _written(dc: DatacenterState) -> list[torch.Tensor]:
+    """The leaves a static full step writes (``_select`` of ``_STATIC``)."""
+    cl = dc.cloudlets
+    return [dc.hosts.energy_j, cl.remaining, cl.start_time, cl.finish_time,
+            cl.state, dc.acct.cpu_cost, dc.acct.bw_cost, dc.time]
+
+
+def _buffers(c: _Carry) -> list[torch.Tensor]:
+    """The tensors a static full step writes: its leaves and carries."""
+    return _written(c.batch) + [c.n, c.n_full, c.used, c.alive, c.window,
+                                c.r0, c.n_now]
+
+
+def _reads(dc: DatacenterState) -> list:
+    """``tensor_leaves`` of ``dc`` with None for the ``_written`` ones:
+    the leaves a static full step only reads."""
+    cl, none = dc.cloudlets, None
+    return tensor_leaves(dataclasses.replace(
+        dc, hosts=dataclasses.replace(dc.hosts, energy_j=none),
+        cloudlets=dataclasses.replace(cl, remaining=none, start_time=none,
+                                      finish_time=none, state=none),
+        acct=dataclasses.replace(dc.acct, cpu_cost=none, bw_cost=none),
+        time=none))
+
+
+def _graphable(device: torch.device, stream, bp: _Passes) -> bool:
+    """Whether a block of full steps replays one captured step
+    (``_StepGraph``): on a CUDA device, with no stream (admission
+    rebuilds the flat axes at every step) and only the static passes
+    (the others write leaves and carries besides ``_buffers``).  A
+    plan's first step runs eagerly, and the capture follows it."""
+    return device.type == "cuda" and stream is None and bp == _STATIC
+
+
+_KEPT: dict[int, tuple] = {}   # device index -> (anchor graph, stream)
+
+
+def _kept(device: torch.device):
+    """(memory pool, side stream) that every captured step on ``device``
+    shares.
+
+    A graph's pool outlives its graphs: once the last one is dropped, the
+    caching allocator keeps the pool's memory, unused, until an
+    allocation fails (28.5 MB a call at 100,000 hosts and 2 lanes); and a
+    block freed in a pool serves later allocations on its own stream
+    only.  So one pool, held by a one-node graph, and one capture stream
+    are kept a device: each capture reuses the memory of the one before,
+    and no tensor is held between captures."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _KEPT:
+        anchor, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(index)
+        with torch.cuda.stream(side):
+            anchor.capture_begin()
+            torch.zeros((), device=index)   # an empty capture warns
+            anchor.capture_end()
+        _KEPT[index] = anchor, side
+    anchor, side = _KEPT[index]
+    return anchor.pool(), side
+
+
+class _StepGraph:
+    """A static block's full step as two CUDA graphs on one memory pool:
+    the gate leaves the lanes that step in ``go``, the step advances them,
+    written in place into the carry's buffers (``_buffers``).
+
+    The buffers are the carry of an eager step that ``_drive`` ran, never
+    a caller's tensors; the leaves the step only reads, the flat axes and
+    the plan are captured by address, so the graph holds while ``fits``.
+    ``simstep.launches`` counts a replay's kernel launches, and not the
+    capture's."""
+
+    def __init__(self, c: _Carry, lanes: Lanes, plan: HostPlan,
+                 bp: _Passes, gate, advance):
+        self.carry, self.lanes, self.plan, self.bp = c, lanes, plan, bp
+        self.reads = _reads(c.batch)
+        before = simstep.launches
+        self._gate, self.go, self._step, out = self._capture(c, gate,
+                                                             advance)
+        self.launches = simstep.launches - before
+        simstep.launches = before
+        if ([t.data_ptr() for t in _buffers(out)]
+                != [t.data_ptr() for t in _buffers(c)]):
+            raise RuntimeError("the captured step wrote a carry out of place")
+
+    @staticmethod
+    def _capture(c: _Carry, gate, advance):
+        """(the gate's replay, its ``go``, the step's replay, what the
+        captured step returned): ``gate(c)`` and ``advance(c, go)``
+        captured on the device's kept stream and pool (``_kept``), their
+        device work not run."""
+        dev = c.batch.time.device
+        main = torch.cuda.current_stream(dev)
+        pool, side = _kept(dev)
+        graphs, outs = [], []
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for fn in (lambda: gate(c), lambda: advance(c, outs[0])):
+                graphs.append(torch.cuda.CUDAGraph())
+                graphs[-1].capture_begin(pool=pool)
+                try:
+                    outs.append(fn())
+                finally:
+                    graphs[-1].capture_end()
+        main.wait_stream(side)
+        return graphs[0].replay, outs[0], graphs[1].replay, outs[1]
+
+    def fits(self, c: _Carry, lanes: Lanes, plan: HostPlan, bp: _Passes
+             ) -> bool:
+        return (bp == self.bp and lanes is self.lanes and plan is self.plan
+                and all(a is b for a, b in zip(_reads(c.batch), self.reads)))
+
+    def load(self, c: _Carry) -> _Carry:
+        """``c`` in the graph's buffers (a carry rebound since, by the
+        leap or a new block, is copied in)."""
+        for buf, t in zip(_buffers(self.carry), _buffers(c)):
+            if t is not buf:
+                buf.copy_(t)
+        self.carry = self.carry._replace(held=c.held, after=c.after,
+                                         scaled=c.scaled, pend=c.pend)
+        return self.carry
+
+    def replay_gate(self) -> torch.Tensor:
+        self._gate()
+        return self.go
+
+    def replay_step(self) -> _Carry:
+        self._step()
+        simstep.launches += self.launches
+        spans.count("graph.replays")
+        return self.carry
+
+
 @spans.spanned("drive")
 def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
            provision_policy: int, leap: bool, block: int,
@@ -1085,7 +1303,13 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
     ``drive.autoscale``, ``drive.migrate``, ``drive.provision``, a
     ``drive.plan`` a plan counted in ``n_plans``) and ``drive.steps`` (a
     ``step.full`` a step counted in ``n_steps``, ``drive.peek``);
-    ``drive.stats``; ``sync.drive.*`` around each wait for the device."""
+    ``drive.stats``; ``sync.drive.*`` around each wait for the device.
+
+    On a CUDA device a block of static full steps replays one captured
+    step (``_graphable``, ``_StepGraph``): captured after the first eager
+    step on a plan (in ``drive.capture``, counted in ``graph.captures``),
+    replayed until a boundary moves a VM (``graph.replays``), dropped on
+    return.  The results are the eager steps' bits."""
     if block < 1:
         raise ValueError("block must be >= 1")
     dev = batch.time.device
@@ -1110,6 +1334,13 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
     nxt = None          # each streamed lane's next unadmitted arrival
     steps_len, leap_len, kind = block, 1, None
     n_steps = n_leap = n_blocks = n_plans = n_scale = 0
+    fixed = dict(leap=leap, max_steps=max_steps, hor=hor)
+    graph = None        # the block's captured full step (_StepGraph)
+
+    def gate(c):
+        # the lanes of an unstreamed run that take the next full step
+        return _gate(c, c.alive & (c.n < max_steps) & (c.batch.time < hor),
+                     bp)
 
     def admit(batch, lanes, plan, mask, ends=False):
         # the admission pass, then the regrouped view it changed
@@ -1259,21 +1490,34 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
                 plan = new_plan(batch, lanes)
                 n_plans += 1
         with span("drive.steps"):
-            used = torch.zeros_like(used)
-            for i in range(steps_len):
-                if stream is None:
-                    go = alive & (n < max_steps) & (batch.time < hor)
+            c = _Carry(batch, n, n_full, torch.zeros_like(used), alive,
+                       window, r0, n_now, held, after, scaled, pend)
+            del batch       # the carry holds the state a step starts from
+            graphed = _graphable(dev, stream, bp)
+            if graph is not None:
+                if graph.fits(c, lanes, plan, bp):
+                    c = graph.load(c)
                 else:
-                    batch, lanes, plan, nxt = admit(batch, lanes, plan,
-                                                    ~window)
-                    go = stream.ready()
-                go = go & ~pending_due(batch) & ~window
-                if bp.dynamic:
-                    go &= ~_event_due(batch) & ~held
-                if bp.elastic:
-                    # a lane whose autoscaler would act waits for the
-                    # boundary
-                    go &= ~(_scale_due(batch) & ~(scaled | after))
+                    graph = None
+            for i in range(steps_len):
+                if graphed and graph is None and i:
+                    # the step before ran eagerly on this block's plan
+                    with span("drive.capture"):
+                        graph = _StepGraph(c, lanes, plan, bp, gate,
+                                           lambda c, go: _advance(
+                                               c, go, lanes, plan, bp,
+                                               inplace=True, **fixed))
+                        spans.count("graph.captures")
+                if graph is not None:
+                    go = graph.replay_gate()
+                elif stream is None:
+                    go = gate(c)
+                else:
+                    batch, lanes, plan, nxt = admit(c.batch, lanes, plan,
+                                                    ~c.window)
+                    c = c._replace(batch=batch)
+                    del batch
+                    go = _gate(c, stream.ready(), bp)
                 if i and i % PEEK == 0:
                     # every lane may be waiting for the boundary already
                     n_blocks += 1
@@ -1282,43 +1526,14 @@ def _drive(batch: DatacenterState, *, max_steps: int, horizon: float,
                     if not stepping:
                         break
                 with span("step.full"):
-                    st = _full(batch, lanes, plan, bp, after, nxt)
-                    commit = go
-                    if st.hold is not None:
-                        hold = go & st.hold
-                        commit = go & ~hold
-                        held = held | hold
-                        pend = st.mig if pend is None else Migration(*(
-                            torch.where(hold, a, b)
-                            for a, b in zip(st.mig, pend)))
-                        after = after & ~commit
-                    if bp.elastic:
-                        scaled = scaled & ~commit
-                    done = (commit & st.active).to(torch.int32)
-                    if leap:
-                        safe, n_post = _drain_safe(
-                            st.counts, st.new, lanes, plan,
-                            networked=bp.network)
-                        gate = (commit & st.opens & safe
-                                & (n + done < max_steps)
-                                & (st.new.time < hor))
-                        if stream is not None:
-                            gate &= stream.n_chunk + done < stream.max_steps
-                        window = window | gate
-                        r0 = torch.where(gate[:, None], st.rates, r0)
-                        n_now = _where_lanes(gate, n_post, n_now, lanes)
-                    new = _select(commit, st.new, batch, bp)
-                    if st.hold is not None and bp.network:
-                        # a held lane keeps its staging phases
-                        new = _select(hold, st.phased, new, bp)
-                    batch = new
-                    n = n + done
-                    n_full = n_full + done
-                    used = used + go.to(torch.int32)
-                    alive = torch.where(commit, st.active, alive)
-                    if stream is not None:
-                        stream.commit(commit, st.active, done)
+                    if graph is not None:
+                        c = graph.replay_step()
+                    else:
+                        c = _advance(c, go, lanes, plan, bp, nxt=nxt,
+                                     stream=stream, **fixed)
                 n_steps += 1
+            (batch, n, n_full, used, alive, window, r0, n_now, held, after,
+             scaled, pend) = c
         kind = "step"
     with span("drive.stats"), span("sync.drive.stats"):
         n_events, full = torch.stack([n.sum(), n_full.sum()]).tolist()
